@@ -1,0 +1,508 @@
+// Structured-lattice element passes for Hopper (sm_90a): freeze, tangent
+// action, block-Jacobi diagonal and internal force of the mixed-precision
+// Newton path, on a uniform Kuhn lattice.
+//
+// Replaces the four Pallas TPU kernels of fea_large_tpu/ops/pallas_structured.py:
+//   fea_struct_freeze_f32  <- _freeze_kernel  (B2)
+//   fea_struct_apply_f32   <- _apply_kernel   (B1)
+//   fea_struct_diag_f32    <- _diag_kernel    (B3)
+//   fea_struct_force_f32   <- _force_kernel   (B4)
+// Each computes what its TPU kernel computes; the plain PyTorch versions
+// sit beside the wrappers in fea_large_tpu_torch/ops/struct_kernels.py.
+//
+// Layout (kept from the reference): every operand is [rows, C], C cells.
+// State rows are r = (k*9 + 3i + j)*T + t, per-point scalars k*T + t, the
+// (class, offset) pair cache and pair outputs n_comp*pair + comp. ONE
+// THREAD PER CELL c, blocks of 128 threads: a warp's 32 threads read 32
+// neighbouring addresses of every row, so every row load and store is
+// coalesced. The grid is ceil(C/128) blocks and the kernel masks the
+// ragged last block itself; nothing is padded.
+//
+// Accumulation: each thread owns column c of every output row, zeroes it
+// and adds into it in a fixed (t, k, a) order. No atomics, no reduction
+// across threads: the result is bitwise deterministic.
+//
+// Geometry: gN [q, npe, 3, T], dV [q, T] and pair_of [T, npe] are the same
+// for every cell (744 values for TET10). They arrive as small device
+// buffers and are staged in shared memory at block start; loops over
+// (a, i, J) are unrolled by the (Q, NPE, T) template parameters.
+//
+// What bounds them on this card: memory traffic. Per cell, B1 reads the
+// 81-row pair cache, F, S, A (3 x 216 rows) and alpha, beta (2 x 24) and
+// writes 81 rows: about 858 rows x 4 B, so ~147 MB per call at C = 42,875
+// (the 1,073,733-DOF TET10 lattice), against ~0.5 kFLOP of arithmetic per
+// tet-point. B2 reads 81 and writes 696 rows, B3 reads 696 and
+// read-modify-writes 243, B4 reads 432 and read-modify-writes 81. The
+// design reads each operand once and keeps all per-point temporaries in
+// registers; accumulating straight into the output column (instead of 81
+// or 243 register accumulators) trades repeated L1/L2 traffic on the
+// output rows for register pressure. Folding the pair gather and scatter
+// into the kernel, and register accumulation, are later work.
+//
+// Scalar type is a template parameter; only float is instantiated here
+// (the f64 residual of the mixed path stays a plain PyTorch pass until it
+// gets its own kernel, which is to reuse slot_grad and material_point).
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kBlock = 128;
+
+__device__ __forceinline__ float fea_log(float x) { return logf(x); }
+__device__ __forceinline__ double fea_log(double x) { return log(x); }
+__device__ __forceinline__ float fea_sqrt(float x) { return sqrtf(x); }
+__device__ __forceinline__ double fea_sqrt(double x) { return sqrt(x); }
+
+template <typename scalar_t, int Q, int NPE, int T>
+struct Tables {
+  scalar_t gN[Q * NPE * 3 * T];
+  scalar_t dV[Q * T];
+  int pair_of[T * NPE];
+};
+
+// Copy the per-slot tables into shared memory; every thread of the block
+// takes part (before any thread leaves on the ragged edge).
+template <typename scalar_t, int Q, int NPE, int T>
+__device__ __forceinline__ void stage(Tables<scalar_t, Q, NPE, T>& tb,
+                                      const scalar_t* __restrict__ gN,
+                                      const scalar_t* __restrict__ dV,
+                                      const int* __restrict__ pair_of) {
+  for (int i = threadIdx.x; i < Q * NPE * 3 * T; i += blockDim.x) tb.gN[i] = gN[i];
+  if (dV != nullptr)
+    for (int i = threadIdx.x; i < Q * T; i += blockDim.x) tb.dV[i] = dV[i];
+  for (int i = threadIdx.x; i < T * NPE; i += blockDim.x) tb.pair_of[i] = pair_of[i];
+  __syncthreads();
+}
+
+template <typename scalar_t, int Q, int NPE, int T>
+__device__ __forceinline__ scalar_t g_at(const Tables<scalar_t, Q, NPE, T>& tb,
+                                         int k, int a, int J, int t) {
+  return tb.gN[((k * NPE + a) * 3 + J) * T + t];
+}
+
+// Load the 3x3 state matrix of point (k, t) of cell c.
+template <typename scalar_t, int T>
+__device__ __forceinline__ void load3(const scalar_t* __restrict__ buf, int k, int t,
+                                      size_t C, int c, scalar_t M[3][3]) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) M[i][j] = buf[(size_t)((k * 9 + 3 * i + j) * T + t) * C + c];
+}
+
+template <typename scalar_t, int T>
+__device__ __forceinline__ void store3(scalar_t* __restrict__ buf, int k, int t,
+                                       size_t C, int c, const scalar_t M[3][3]) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) buf[(size_t)((k * 9 + 3 * i + j) * T + t) * C + c] = M[i][j];
+}
+
+// The nodal values of tet slot t of cell c: ve[a][i] from the pair cache.
+template <typename scalar_t, int Q, int NPE, int T>
+__device__ __forceinline__ void load_slot(const Tables<scalar_t, Q, NPE, T>& tb,
+                                          const scalar_t* __restrict__ cache, int t,
+                                          size_t C, int c, scalar_t ve[NPE][3]) {
+#pragma unroll
+  for (int a = 0; a < NPE; ++a) {
+    const int p = tb.pair_of[t * NPE + a];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) ve[a][i] = cache[(size_t)(3 * p + i) * C + c];
+  }
+}
+
+// grad[i][J] = sum_a ve[a][i] g_a[J] at point (k, t).
+template <typename scalar_t, int Q, int NPE, int T>
+__device__ __forceinline__ void slot_grad(const Tables<scalar_t, Q, NPE, T>& tb,
+                                          const scalar_t ve[NPE][3], int k, int t,
+                                          scalar_t G[3][3]) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int J = 0; J < 3; ++J) {
+      scalar_t s = 0;
+#pragma unroll
+      for (int a = 0; a < NPE; ++a) s += ve[a][i] * g_at(tb, k, a, J, t);
+      G[i][J] = s;
+    }
+}
+
+// out[n_comp*pair + i] += sum_J PV[i][J] g_a[J] for every node slot a of
+// tet slot t (the nodal contribution of a weighted stress-like PV).
+template <typename scalar_t, int Q, int NPE, int T>
+__device__ __forceinline__ void add_nodal(const Tables<scalar_t, Q, NPE, T>& tb,
+                                          const scalar_t PV[3][3], int k, int t,
+                                          size_t C, int c, scalar_t* __restrict__ out) {
+#pragma unroll
+  for (int a = 0; a < NPE; ++a) {
+    const int p = tb.pair_of[t * NPE + a];
+    const scalar_t g0 = g_at(tb, k, a, 0, t), g1 = g_at(tb, k, a, 1, t),
+                   g2 = g_at(tb, k, a, 2, t);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      const size_t o = (size_t)(3 * p + i) * C + c;
+      out[o] += PV[i][0] * g0 + PV[i][1] * g1 + PV[i][2] * g2;
+    }
+  }
+}
+
+// Constitutive state of material `kind` at the right Cauchy-Green tensor Cm:
+// S, the tangent factors (alpha, A, beta) of CC:X = alpha (A:X) A + beta A X A.
+// kind 0: St. Venant-Kirchhoff; 1: neo-Hookean (Ciarlet); 2: neo-Hookean
+// with the volumetric split. Same closed forms as the plain versions
+// (fea_large_tpu_torch/materials).
+template <typename scalar_t>
+__device__ __forceinline__ void material_point(int kind, scalar_t lam, scalar_t mu,
+                                               const scalar_t Cm[3][3], scalar_t S[3][3],
+                                               scalar_t A[3][3], scalar_t& alpha,
+                                               scalar_t& beta) {
+  if (kind == 0) {
+    const scalar_t trE = scalar_t(0.5) * (Cm[0][0] + Cm[1][1] + Cm[2][2] - scalar_t(3));
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        const scalar_t d = (i == j) ? scalar_t(1) : scalar_t(0);
+        S[i][j] = lam * trE * d + mu * (Cm[i][j] - d);
+        A[i][j] = d;
+      }
+    alpha = lam;
+    beta = scalar_t(2) * mu;
+    return;
+  }
+  // C^-1 by the adjugate (explicit cofactors, det along row 0)
+  scalar_t c[3][3];
+  c[0][0] = Cm[1][1] * Cm[2][2] - Cm[1][2] * Cm[2][1];
+  c[0][1] = Cm[0][2] * Cm[2][1] - Cm[0][1] * Cm[2][2];
+  c[0][2] = Cm[0][1] * Cm[1][2] - Cm[0][2] * Cm[1][1];
+  c[1][0] = Cm[1][2] * Cm[2][0] - Cm[1][0] * Cm[2][2];
+  c[1][1] = Cm[0][0] * Cm[2][2] - Cm[0][2] * Cm[2][0];
+  c[1][2] = Cm[0][2] * Cm[1][0] - Cm[0][0] * Cm[1][2];
+  c[2][0] = Cm[1][0] * Cm[2][1] - Cm[1][1] * Cm[2][0];
+  c[2][1] = Cm[0][1] * Cm[2][0] - Cm[0][0] * Cm[2][1];
+  c[2][2] = Cm[0][0] * Cm[1][1] - Cm[0][1] * Cm[1][0];
+  const scalar_t detC = Cm[0][0] * c[0][0] + Cm[0][1] * c[1][0] + Cm[0][2] * c[2][0];
+  const scalar_t inv_det = scalar_t(1) / detC;
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) A[i][j] = c[i][j] * inv_det;
+  scalar_t vol;
+  if (kind == 1) {  // S = mu (I - C^-1) + lam lnJ C^-1
+    const scalar_t lnJ = scalar_t(0.5) * fea_log(detC);
+    vol = lam * lnJ;
+    alpha = lam;
+  } else {  // S = mu (I - C^-1) + lam J (J - 1) C^-1
+    const scalar_t J = fea_sqrt(detC);
+    vol = lam * J * (J - scalar_t(1));
+    alpha = lam * J * (scalar_t(2) * J - scalar_t(1));
+  }
+  beta = scalar_t(2) * (mu - vol);
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const scalar_t d = (i == j) ? scalar_t(1) : scalar_t(0);
+      S[i][j] = mu * (d - A[i][j]) + vol * A[i][j];
+    }
+}
+
+// ---------------------------------------------------------------------------
+// B2 freeze: F = I + sum_a u_a (x) g_a, C = F^T F, material state.
+// Replaces pallas_structured.py::_freeze_kernel. Bound by its writes (696
+// state rows per cell, ~119 MB at C = 42,875): each is stored once,
+// coalesced, straight from registers.
+// ---------------------------------------------------------------------------
+template <typename scalar_t, int Q, int NPE, int T>
+__global__ void __launch_bounds__(kBlock)
+freeze_kernel(const scalar_t* __restrict__ cache, const scalar_t* __restrict__ gN,
+              const int* __restrict__ pair_of, scalar_t* __restrict__ Fo,
+              scalar_t* __restrict__ So, scalar_t* __restrict__ Ao,
+              scalar_t* __restrict__ alo, scalar_t* __restrict__ beo, int C, int kind,
+              scalar_t lam, scalar_t mu) {
+  __shared__ Tables<scalar_t, Q, NPE, T> tb;
+  stage(tb, gN, static_cast<const scalar_t*>(nullptr), pair_of);
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= C) return;
+  const size_t Cs = C;
+#pragma unroll 1
+  for (int t = 0; t < T; ++t) {
+    scalar_t ue[NPE][3];
+    load_slot(tb, cache, t, Cs, c, ue);
+#pragma unroll 1
+    for (int k = 0; k < Q; ++k) {
+      scalar_t F[3][3];
+      slot_grad(tb, ue, k, t, F);
+#pragma unroll
+      for (int i = 0; i < 3; ++i) F[i][i] += scalar_t(1);
+      scalar_t Cm[3][3];
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+#pragma unroll
+        for (int j = 0; j < 3; ++j)
+          Cm[i][j] = F[0][i] * F[0][j] + F[1][i] * F[1][j] + F[2][i] * F[2][j];
+      scalar_t S[3][3], A[3][3], alpha, beta;
+      material_point(kind, lam, mu, Cm, S, A, alpha, beta);
+      store3<scalar_t, T>(Fo, k, t, Cs, c, F);
+      store3<scalar_t, T>(So, k, t, Cs, c, S);
+      store3<scalar_t, T>(Ao, k, t, Cs, c, A);
+      alo[(size_t)(k * T + t) * Cs + c] = alpha;
+      beo[(size_t)(k * T + t) * Cs + c] = beta;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// B1 tangent action: dF = sum_a v_a (x) g_a, dE = sym(F^T dF),
+// dS = alpha (A:dE) A + beta A dE A, dP = dF S + F dS; V dP g_a into pairs.
+// Replaces pallas_structured.py::_apply_kernel. Bound by reading the frozen
+// state (696 rows per cell) once per PCG iteration; the 81 output rows are
+// re-read and re-written per (t, k) from L1/L2.
+// ---------------------------------------------------------------------------
+template <typename scalar_t, int Q, int NPE, int T>
+__global__ void __launch_bounds__(kBlock)
+apply_kernel(const scalar_t* __restrict__ cache, const scalar_t* __restrict__ Fb,
+             const scalar_t* __restrict__ Sb, const scalar_t* __restrict__ Ab,
+             const scalar_t* __restrict__ alb, const scalar_t* __restrict__ beb,
+             const scalar_t* __restrict__ gN, const scalar_t* __restrict__ dV,
+             const int* __restrict__ pair_of, scalar_t* __restrict__ out, int C,
+             int n_out) {
+  __shared__ Tables<scalar_t, Q, NPE, T> tb;
+  stage(tb, gN, dV, pair_of);
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= C) return;
+  const size_t Cs = C;
+  for (int r = 0; r < n_out; ++r) out[(size_t)r * Cs + c] = scalar_t(0);
+#pragma unroll 1
+  for (int t = 0; t < T; ++t) {
+    scalar_t ve[NPE][3];
+    load_slot(tb, cache, t, Cs, c, ve);
+#pragma unroll 1
+    for (int k = 0; k < Q; ++k) {
+      scalar_t F[3][3], S[3][3], A[3][3], dF[3][3];
+      load3<scalar_t, T>(Fb, k, t, Cs, c, F);
+      load3<scalar_t, T>(Sb, k, t, Cs, c, S);
+      load3<scalar_t, T>(Ab, k, t, Cs, c, A);
+      const scalar_t al = alb[(size_t)(k * T + t) * Cs + c];
+      const scalar_t be = beb[(size_t)(k * T + t) * Cs + c];
+      const scalar_t V = tb.dV[k * T + t];
+      slot_grad(tb, ve, k, t, dF);
+      scalar_t dE[3][3];
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          const scalar_t fij = F[0][i] * dF[0][j] + F[1][i] * dF[1][j] + F[2][i] * dF[2][j];
+          const scalar_t fji = F[0][j] * dF[0][i] + F[1][j] * dF[1][i] + F[2][j] * dF[2][i];
+          dE[i][j] = scalar_t(0.5) * (fij + fji);
+        }
+      scalar_t AdE = 0;
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+#pragma unroll
+        for (int j = 0; j < 3; ++j) AdE += A[i][j] * dE[i][j];
+      scalar_t AdEr[3][3];
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+#pragma unroll
+        for (int j = 0; j < 3; ++j)
+          AdEr[i][j] = A[i][0] * dE[0][j] + A[i][1] * dE[1][j] + A[i][2] * dE[2][j];
+      scalar_t dS[3][3];
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          const scalar_t adea = AdEr[i][0] * A[0][j] + AdEr[i][1] * A[1][j] + AdEr[i][2] * A[2][j];
+          dS[i][j] = al * AdE * A[i][j] + be * adea;
+        }
+      scalar_t dPV[3][3];
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+#pragma unroll
+        for (int J = 0; J < 3; ++J)
+          dPV[i][J] = (dF[i][0] * S[0][J] + dF[i][1] * S[1][J] + dF[i][2] * S[2][J] +
+                       F[i][0] * dS[0][J] + F[i][1] * dS[1][J] + F[i][2] * dS[2][J]) * V;
+      add_nodal(tb, dPV, k, t, Cs, c, out);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// B3 block-Jacobi diagonal: sum_q V [(alpha + beta/2) s_a s_a^T
+// + (beta/2) B G_aa + (g_a.S.g_a) I], FA = F A, B = FA F^T, s_a = FA g_a,
+// G_aa = g_a.A.g_a; rows 9*pair + 3i + kk.
+// Replaces pallas_structured.py::_diag_kernel. Bound by the 243 output rows
+// it read-modify-writes 240 times per cell (9 per node slot); they stay in
+// L1/L2 between updates. Once per Newton step.
+// ---------------------------------------------------------------------------
+template <typename scalar_t, int Q, int NPE, int T>
+__global__ void __launch_bounds__(kBlock)
+diag_kernel(const scalar_t* __restrict__ Fb, const scalar_t* __restrict__ Sb,
+            const scalar_t* __restrict__ Ab, const scalar_t* __restrict__ alb,
+            const scalar_t* __restrict__ beb, const scalar_t* __restrict__ gN,
+            const scalar_t* __restrict__ dV, const int* __restrict__ pair_of,
+            scalar_t* __restrict__ out, int C, int n_out) {
+  __shared__ Tables<scalar_t, Q, NPE, T> tb;
+  stage(tb, gN, dV, pair_of);
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= C) return;
+  const size_t Cs = C;
+  for (int r = 0; r < n_out; ++r) out[(size_t)r * Cs + c] = scalar_t(0);
+#pragma unroll 1
+  for (int t = 0; t < T; ++t) {
+#pragma unroll 1
+    for (int k = 0; k < Q; ++k) {
+      scalar_t F[3][3], S[3][3], A[3][3];
+      load3<scalar_t, T>(Fb, k, t, Cs, c, F);
+      load3<scalar_t, T>(Sb, k, t, Cs, c, S);
+      load3<scalar_t, T>(Ab, k, t, Cs, c, A);
+      const scalar_t al = alb[(size_t)(k * T + t) * Cs + c];
+      const scalar_t be = beb[(size_t)(k * T + t) * Cs + c];
+      const scalar_t V = tb.dV[k * T + t];
+      scalar_t FA[3][3], B[3][3];
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+#pragma unroll
+        for (int j = 0; j < 3; ++j)
+          FA[i][j] = F[i][0] * A[0][j] + F[i][1] * A[1][j] + F[i][2] * A[2][j];
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+#pragma unroll
+        for (int j = 0; j < 3; ++j)
+          B[i][j] = FA[i][0] * F[j][0] + FA[i][1] * F[j][1] + FA[i][2] * F[j][2];
+      const scalar_t w1 = (al + scalar_t(0.5) * be) * V;
+      const scalar_t w2 = scalar_t(0.5) * be * V;
+#pragma unroll
+      for (int a = 0; a < NPE; ++a) {
+        const scalar_t g[3] = {g_at(tb, k, a, 0, t), g_at(tb, k, a, 1, t),
+                               g_at(tb, k, a, 2, t)};
+        scalar_t s[3], Ag[3], Sg[3];
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+          s[i] = FA[i][0] * g[0] + FA[i][1] * g[1] + FA[i][2] * g[2];
+          Ag[i] = A[i][0] * g[0] + A[i][1] * g[1] + A[i][2] * g[2];
+          Sg[i] = S[i][0] * g[0] + S[i][1] * g[1] + S[i][2] * g[2];
+        }
+        const scalar_t Gaa = g[0] * Ag[0] + g[1] * Ag[1] + g[2] * Ag[2];
+        const scalar_t geo = V * (g[0] * Sg[0] + g[1] * Sg[1] + g[2] * Sg[2]);
+        const int base = 9 * tb.pair_of[t * NPE + a];
+#pragma unroll
+        for (int i = 0; i < 3; ++i)
+#pragma unroll
+          for (int kk = 0; kk < 3; ++kk) {
+            scalar_t term = w1 * s[i] * s[kk] + w2 * B[i][kk] * Gaa;
+            if (i == kk) term += geo;
+            out[(size_t)(base + 3 * i + kk) * Cs + c] += term;
+          }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// B4 internal force from the frozen state: f_a = sum_q V (F S) g_a.
+// Replaces pallas_structured.py::_force_kernel. Bound by reading F and S
+// (432 rows per cell) once.
+// ---------------------------------------------------------------------------
+template <typename scalar_t, int Q, int NPE, int T>
+__global__ void __launch_bounds__(kBlock)
+force_kernel(const scalar_t* __restrict__ Fb, const scalar_t* __restrict__ Sb,
+             const scalar_t* __restrict__ gN, const scalar_t* __restrict__ dV,
+             const int* __restrict__ pair_of, scalar_t* __restrict__ out, int C,
+             int n_out) {
+  __shared__ Tables<scalar_t, Q, NPE, T> tb;
+  stage(tb, gN, dV, pair_of);
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= C) return;
+  const size_t Cs = C;
+  for (int r = 0; r < n_out; ++r) out[(size_t)r * Cs + c] = scalar_t(0);
+#pragma unroll 1
+  for (int t = 0; t < T; ++t) {
+#pragma unroll 1
+    for (int k = 0; k < Q; ++k) {
+      scalar_t F[3][3], S[3][3], PV[3][3];
+      load3<scalar_t, T>(Fb, k, t, Cs, c, F);
+      load3<scalar_t, T>(Sb, k, t, Cs, c, S);
+      const scalar_t V = tb.dV[k * T + t];
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+#pragma unroll
+        for (int J = 0; J < 3; ++J)
+          PV[i][J] = (F[i][0] * S[0][J] + F[i][1] * S[1][J] + F[i][2] * S[2][J]) * V;
+      add_nodal(tb, PV, k, t, Cs, c, out);
+    }
+  }
+}
+
+inline unsigned grid_for(int C) { return (unsigned)((C + kBlock - 1) / kBlock); }
+
+}  // namespace
+
+// Instantiated lattices: (Q, NPE, T) = (4, 10, 6) TET10 and (1, 4, 6) TET4.
+#define FEA_DISPATCH(q, npe, T, ...)                               \
+  do {                                                             \
+    if ((q) == 4 && (npe) == 10 && (T) == 6) {                     \
+      constexpr int kQ = 4, kNPE = 10, kT = 6;                     \
+      __VA_ARGS__;                                                 \
+    } else if ((q) == 1 && (npe) == 4 && (T) == 6) {               \
+      constexpr int kQ = 1, kNPE = 4, kT = 6;                      \
+      __VA_ARGS__;                                                 \
+    } else {                                                       \
+      return (int)cudaErrorInvalidValue;                           \
+    }                                                              \
+  } while (0)
+
+// Plain C interface (loaded with ctypes). Each entry launches on `stream`,
+// does not synchronise, and returns cudaGetLastError() after the launch.
+extern "C" {
+
+int fea_struct_freeze_f32(const float* cache, const float* gN, const int* pair_of,
+                          float* F, float* S, float* A, float* alpha, float* beta,
+                          int C, int q, int npe, int T, int kind, float lam, float mu,
+                          void* stream) {
+  if (C <= 0 || kind < 0 || kind > 2) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  FEA_DISPATCH(q, npe, T,
+               freeze_kernel<float, kQ, kNPE, kT><<<grid_for(C), kBlock, 0, s>>>(
+                   cache, gN, pair_of, F, S, A, alpha, beta, C, kind, lam, mu));
+  return (int)cudaGetLastError();
+}
+
+int fea_struct_apply_f32(const float* cache, const float* F, const float* S,
+                         const float* A, const float* alpha, const float* beta,
+                         const float* gN, const float* dV, const int* pair_of, float* out,
+                         int C, int q, int npe, int T, int P, void* stream) {
+  if (C <= 0 || P <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  FEA_DISPATCH(q, npe, T,
+               apply_kernel<float, kQ, kNPE, kT><<<grid_for(C), kBlock, 0, s>>>(
+                   cache, F, S, A, alpha, beta, gN, dV, pair_of, out, C, 3 * P));
+  return (int)cudaGetLastError();
+}
+
+int fea_struct_diag_f32(const float* F, const float* S, const float* A, const float* alpha,
+                        const float* beta, const float* gN, const float* dV,
+                        const int* pair_of, float* out, int C, int q, int npe, int T, int P,
+                        void* stream) {
+  if (C <= 0 || P <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  FEA_DISPATCH(q, npe, T,
+               diag_kernel<float, kQ, kNPE, kT><<<grid_for(C), kBlock, 0, s>>>(
+                   F, S, A, alpha, beta, gN, dV, pair_of, out, C, 9 * P));
+  return (int)cudaGetLastError();
+}
+
+int fea_struct_force_f32(const float* F, const float* S, const float* gN, const float* dV,
+                         const int* pair_of, float* out, int C, int q, int npe, int T, int P,
+                         void* stream) {
+  if (C <= 0 || P <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  FEA_DISPATCH(q, npe, T,
+               force_kernel<float, kQ, kNPE, kT><<<grid_for(C), kBlock, 0, s>>>(
+                   F, S, gN, dV, pair_of, out, C, 3 * P));
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

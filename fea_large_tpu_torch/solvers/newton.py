@@ -1,0 +1,310 @@
+"""Mixed-precision Newton driver with incremental load stepping
+(counterpart of `fea_large_tpu/solvers/newton.py`, the host-loop mixed path).
+
+Per Newton iteration (`NewtonSolver._newton_mixed`):
+  * the residual R = M (scale f_ext - f_int(u)): in f64 from the plain f64
+    element pass (`_residual_soa_fn`), or, while ||R|| > 3e-2 ||R0|| under
+    Eisenstat-Walker forcing, in f32 from the frozen tangent state (the
+    `resid32` gate); the converging iterations always use f64;
+  * the f32 tangent state (freeze kernel), the block-Jacobi blocks (diag
+    kernel), and a chunked PCG solve of the masked f32 tangent system
+    (tangent-action kernel), preconditioned by block-Jacobi plus the
+    optional two-level coarse correction (solvers/multilevel.py); a
+    two-level solve that breaks down is retried with block-Jacobi alone;
+  * the forcing term `newton_lin_tol` (Eisenstat-Walker choice 2 with the
+    lower cap `ew_eta_min`, the termination safeguard and the f32 floor).
+`solve` steps the load factor to 1 with bisection on Newton failure.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import torch
+
+from fea_large_tpu_torch.ops.soa import (
+    SoAProblem,
+    soa_apply_tangent,
+    soa_diag_blocks,
+    soa_freeze,
+    soa_internal_force,
+)
+from fea_large_tpu_torch.solvers.linear import (
+    apply_block_jacobi,
+    drive_chunked_pcg,
+    jacobi_inverse_blocks,
+    pcg_chunk,
+    pcg_init,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class SolverOptions:
+    """Solver configuration: the reference's fields and defaults, less the
+    unstructured Pallas switch and the device-loop budget. The port runs
+    linear="pcg", precision="mixed", device_loop=False, resid_df False or
+    None, preconditioner "jacobi" or "two_level" with coarse_modes 3 or 6;
+    `NewtonSolver` raises on any other value."""
+
+    linear: str = "pcg"
+    n_steps: int = 1
+    newton_rtol: float = 1e-10
+    newton_atol: float = 1e-12
+    max_newton: int = 30
+    pcg_tol: float = 1e-12
+    pcg_maxiter: int = 5000
+    pcg_chunk: int = 250
+    max_bisections: int = 5
+    preconditioner: str = "jacobi"
+    agg_size: int | None = None
+    coarse_modes: int = 3
+    forcing: str = "fixed"
+    ew_eta_min: float = 0.0
+    device_loop: bool = True
+    resid_df: bool | None = None
+    precision: str = "f64"
+
+
+@dataclasses.dataclass
+class IncrementRecord:
+    """Convergence record of one load increment."""
+
+    load_factor: float
+    newton_iters: int
+    residual_norms: list
+    pcg_iters: list
+    wall_time: float
+
+
+@dataclasses.dataclass
+class SolveResult:
+    u: torch.Tensor  # [N, 3] f64
+    converged: bool
+    history: list  # list[IncrementRecord]
+
+
+def _unsupported(opts: SolverOptions) -> str | None:
+    if opts.linear != "pcg":
+        return f"linear={opts.linear!r}"
+    if opts.precision != "mixed":
+        return f"precision={opts.precision!r}"
+    if opts.device_loop:
+        return "device_loop=True (the device-resident Newton loop)"
+    if opts.resid_df:
+        return "resid_df=True (the double-word residual)"
+    if opts.preconditioner not in ("jacobi", "two_level"):
+        return f"preconditioner={opts.preconditioner!r}"
+    if opts.preconditioner == "two_level" and opts.coarse_modes not in (3, 6):
+        return f"coarse_modes={opts.coarse_modes}"
+    return None
+
+
+def newton_lin_tol(opts, it, norms, norm0, eta):
+    """(lin_tol, eta') for Newton iteration `it`: Eisenstat-Walker choice-2
+    forcing (gamma 0.9, alpha 2, safeguard) when opts.forcing == "ew", the
+    lower cap `ew_eta_min`, the termination safeguard (never solve tighter
+    than half the reduction the Newton stop still needs), then the
+    precision floor of the mixed path, ~10 eps32 (its f32 system is
+    rebuilt from the residual every step)."""
+    lin_tol = opts.pcg_tol
+    if opts.forcing == "ew":
+        if it > 0:
+            cand = 0.9 * (norms[-1] / norms[-2]) ** 2
+            safe = 0.9 * eta**2
+            eta = max(cand, safe) if safe > 0.1 else cand
+        eta = max(eta, opts.ew_eta_min)
+        stop_n = max(opts.newton_rtol * norm0, opts.newton_atol)
+        eta = max(eta, 0.5 * stop_n / max(norms[-1], 1e-300))
+        eta = min(max(eta, opts.pcg_tol), 0.5)
+        lin_tol = eta
+    return max(lin_tol, 1.2e-6), eta
+
+
+def _residual_soa_fn(u, scale, soa64, material, bc, f_ext):
+    """f64 residual (r [N, 3], ||r||) from the f64 element pass."""
+    state = soa_freeze(soa64, material, u.T.contiguous())
+    f_int = soa_internal_force(soa64, state).T
+    r = bc.project(scale * f_ext - f_int)
+    return r, torch.linalg.norm(r)
+
+
+def _mixed_matvec(soa, state, free32_T, v):
+    """Masked f32 tangent action M K M v + (I - M) v; v [N, 3]."""
+    vm_T = (v.T * free32_T).contiguous()
+    y_T = soa_apply_tangent(soa, state, vm_T) * free32_T
+    return y_T.T + (v - vm_T.T)
+
+
+def _mixed_precond(inv_blocks, free32, coarse):
+    """Block-Jacobi, plus the two-level coarse correction when `coarse`."""
+
+    def apply(r):
+        z = apply_block_jacobi(inv_blocks, free32, r)
+        if coarse is not None:
+            z = z + free32 * coarse.apply(r)
+        return z
+
+    return apply
+
+
+class NewtonSolver:
+    """Total-Lagrangian quasi-static solver for one mesh/material/BC setup
+    on the mesh's device. Builds the f32 and f64 element geometry and, for
+    "two_level", the coarse space (host setup + device probing)."""
+
+    def __init__(self, mesh, material, bc, f_ext=None, options=None):
+        self.options = options or SolverOptions()
+        why = _unsupported(self.options)
+        if why is not None:
+            raise NotImplementedError(f"{why} is not ported (see ROADMAP.md)")
+        self.mesh = mesh
+        self.material = material
+        self.bc = bc
+        #: two-level -> block-Jacobi fallbacks taken on CG breakdown
+        self.precond_fallbacks = 0
+        self.f_ext = (
+            torch.zeros((mesh.n_nodes, 3), dtype=torch.float64, device=mesh.device)
+            if f_ext is None else f_ext
+        )
+        self._soa = SoAProblem.build(mesh, torch.float32)
+        self._soa64 = SoAProblem.build(mesh, torch.float64)
+        self._coarse = None
+        if self.options.preconditioner == "two_level":
+            from fea_large_tpu_torch.solvers.multilevel import build_coarse_space
+
+            self._coarse = build_coarse_space(
+                mesh, material, bc, agg_size=self.options.agg_size,
+                modes=self.options.coarse_modes, soa=self._soa,
+            )
+
+    def _linear_solve(self, state, inv_blocks, b, lin_tol, free32, free32_T):
+        """Chunked PCG on the masked f32 tangent system; the two-level
+        preconditioner falls back to block-Jacobi alone when its solve is
+        not accepted. Returns (x, iterations, accepted)."""
+        opts = self.options
+
+        def matvec(v):
+            return _mixed_matvec(self._soa, state, free32_T, v)
+
+        def run(coarse, first_chunk):
+            precond = _mixed_precond(inv_blocks, free32, coarse)
+
+            def prepare(x0):
+                st = pcg_init(matvec, b, precond, x0=x0, tol=lin_tol)
+                if x0 is None and first_chunk:
+                    st = pcg_chunk(matvec, st, precond,
+                                   maxiter=min(opts.pcg_chunk, opts.pcg_maxiter))
+                return st
+
+            def chunk(st, n):
+                return pcg_chunk(matvec, st, precond, maxiter=n)
+
+            return drive_chunked_pcg(
+                prepare, chunk, tol=lin_tol, chunk_iters=opts.pcg_chunk,
+                maxiter=opts.pcg_maxiter,
+            )
+
+        x, iters, ok, rel = run(self._coarse, True)
+        accept = ok or rel <= 1e-3
+        if not accept and self._coarse is not None:
+            x_fb, it_fb, ok_fb, rel_fb = run(None, False)
+            self.precond_fallbacks += 1
+            iters += it_fb
+            accept = ok_fb or rel_fb <= 1e-3
+            if accept:
+                x = x_fb
+        return x, iters, accept
+
+    def _newton_mixed(self, u, scale):
+        opts = self.options
+        t0 = time.perf_counter()
+        scale = float(scale)
+        u = self.bc.impose(u, scale)
+        free32 = self.bc.free_mask.to(torch.float32)
+        free32_T = free32.T.contiguous()
+        f_ext32 = self.f_ext.to(torch.float32)
+        use_ew = opts.forcing == "ew"
+        norms, pcg_iters = [], []
+        norm0 = stop_n = None
+        eta = 0.5
+        x_prev = None
+        for it in range(opts.max_newton):
+            if x_prev is not None:
+                u = u + x_prev.to(u.dtype)
+            state = None
+            # f32 residual only while far above the f32 rounding floor; the
+            # iterations that decide convergence take the f64 pass
+            if use_ew and norm0 is not None and norms[-1] > 3e-2 * norm0:
+                state = soa_freeze(self._soa, self.material, u.to(torch.float32).T.contiguous())
+                f_int_T = soa_internal_force(self._soa, state)
+                b = (scale * f_ext32 - f_int_T.T) * free32
+                norm = float(torch.linalg.norm(b))
+            else:
+                b64, norm_t = _residual_soa_fn(
+                    u, scale, self._soa64, self.material, self.bc, self.f_ext
+                )
+                b = b64.to(torch.float32)
+                norm = float(norm_t)
+            if norm != norm:  # NaN: poisoned state; fail -> bisection
+                break
+            norms.append(norm)
+            if norm0 is None:
+                norm0 = max(norm, 1e-300)
+                stop_n = max(opts.newton_rtol * norm0, opts.newton_atol)
+            if norm <= stop_n:
+                rec = IncrementRecord(scale, it, norms, pcg_iters, time.perf_counter() - t0)
+                return u, True, rec
+            if it == opts.max_newton - 1:
+                break  # this iteration's direction could never be applied
+            lin_tol, eta = newton_lin_tol(opts, it, norms, norm0, eta)
+            if state is None:
+                state = soa_freeze(self._soa, self.material, u.to(torch.float32).T.contiguous())
+            diag = soa_diag_blocks(self._soa, state).permute(2, 0, 1)
+            inv_blocks = jacobi_inverse_blocks(diag, free32)
+            x_prev, lin_iters, accept = self._linear_solve(
+                state, inv_blocks, b, lin_tol, free32, free32_T
+            )
+            pcg_iters.append(int(lin_iters))
+            if not accept:
+                break
+        rec = IncrementRecord(scale, len(norms), norms, pcg_iters, time.perf_counter() - t0)
+        return u, False, rec
+
+    def _newton(self, u, scale):
+        """Newton iteration at the fixed load factor `scale`:
+        (u, converged, IncrementRecord)."""
+        return self._newton_mixed(u, scale)
+
+    def solve(self, u0=None, callback=None, start_factor: float = 0.0) -> SolveResult:
+        """Incremental loading from `start_factor` to 1 in `n_steps`
+        increments, with bisection on Newton failure. `callback(record, u)`
+        fires after each converged increment."""
+        opts = self.options
+        u = (
+            torch.zeros((self.mesh.n_nodes, 3), dtype=torch.float64, device=self.mesh.device)
+            if u0 is None else u0
+        )
+        history: list[IncrementRecord] = []
+        lam = float(start_factor)
+        dlam_nominal = 1.0 / opts.n_steps
+        dlam = dlam_nominal
+        bisections = 0
+        while lam < 1.0 - 1e-12:
+            target = min(lam + dlam, 1.0)
+            u_try, ok, rec = self._newton(u, target)
+            history.append(rec)
+            if ok:
+                u, lam = u_try, target
+                if callback is not None:
+                    callback(rec, u)
+                dlam = min(2.0 * dlam, dlam_nominal, 1.0 - lam)
+                if dlam <= 0.0:
+                    dlam = 1.0 - lam
+                bisections = 0
+            else:
+                bisections += 1
+                if bisections > opts.max_bisections:
+                    return SolveResult(u=u, converged=False, history=history)
+                dlam *= 0.5
+        return SolveResult(u=u, converged=True, history=history)
