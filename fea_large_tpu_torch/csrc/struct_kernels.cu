@@ -1,12 +1,14 @@
 // Structured-lattice element passes for Hopper (sm_90a): freeze, tangent
 // action, block-Jacobi diagonal and internal force of the mixed-precision
-// Newton path, on a uniform Kuhn lattice.
+// Newton path, and its f64 residual, on a uniform Kuhn lattice.
 //
-// Replaces the four Pallas TPU kernels of fea_large_tpu/ops/pallas_structured.py:
+// Replaces the four Pallas TPU kernels of fea_large_tpu/ops/pallas_structured.py
+// and the structured residual kernel of fea_large_tpu/ops/pallas_residual.py:
 //   fea_struct_freeze_f32  <- _freeze_kernel  (B2)
 //   fea_struct_apply_f32   <- _apply_kernel   (B1)
 //   fea_struct_diag_f32    <- _diag_kernel    (B3)
 //   fea_struct_force_f32   <- _force_kernel   (B4)
+//   fea_struct_resid_f64   <- pallas_residual.py::_resid_kernel (B5)
 // Each computes what its TPU kernel computes; the plain PyTorch versions
 // sit beside the wrappers in fea_large_tpu_torch/ops/struct_kernels.py.
 //
@@ -39,20 +41,22 @@
 // output rows for register pressure. Folding the pair gather and scatter
 // into the kernel, and register accumulation, are later work.
 //
-// Scalar type is a template parameter; only float is instantiated here
-// (the f64 residual of the mixed path stays a plain PyTorch pass until it
-// gets its own kernel, which is to reuse slot_grad and material_point).
+// Scalar type is a template parameter: B1-B4 are instantiated for float,
+// B5 for double. The TPU runs B5 in double-word f32 arithmetic because
+// Pallas there is f32-only; Hopper has native f64, so B5 is the same
+// freeze-then-force math as B2 + B4 in double, fused into one pass that
+// writes only the 81 f64 pair rows (no state leaves the registers).
 
 #include <cuda_runtime.h>
 
+#include "material_point.cuh"
+
 namespace {
 
-constexpr int kBlock = 128;
+using fea::material_point;
+using fea::right_cauchy_green;
 
-__device__ __forceinline__ float fea_log(float x) { return logf(x); }
-__device__ __forceinline__ double fea_log(double x) { return log(x); }
-__device__ __forceinline__ float fea_sqrt(float x) { return sqrtf(x); }
-__device__ __forceinline__ double fea_sqrt(double x) { return sqrt(x); }
+constexpr int kBlock = 128;
 
 template <typename scalar_t, int Q, int NPE, int T>
 struct Tables {
@@ -148,67 +152,6 @@ __device__ __forceinline__ void add_nodal(const Tables<scalar_t, Q, NPE, T>& tb,
   }
 }
 
-// Constitutive state of material `kind` at the right Cauchy-Green tensor Cm:
-// S, the tangent factors (alpha, A, beta) of CC:X = alpha (A:X) A + beta A X A.
-// kind 0: St. Venant-Kirchhoff; 1: neo-Hookean (Ciarlet); 2: neo-Hookean
-// with the volumetric split. Same closed forms as the plain versions
-// (fea_large_tpu_torch/materials).
-template <typename scalar_t>
-__device__ __forceinline__ void material_point(int kind, scalar_t lam, scalar_t mu,
-                                               const scalar_t Cm[3][3], scalar_t S[3][3],
-                                               scalar_t A[3][3], scalar_t& alpha,
-                                               scalar_t& beta) {
-  if (kind == 0) {
-    const scalar_t trE = scalar_t(0.5) * (Cm[0][0] + Cm[1][1] + Cm[2][2] - scalar_t(3));
-#pragma unroll
-    for (int i = 0; i < 3; ++i)
-#pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        const scalar_t d = (i == j) ? scalar_t(1) : scalar_t(0);
-        S[i][j] = lam * trE * d + mu * (Cm[i][j] - d);
-        A[i][j] = d;
-      }
-    alpha = lam;
-    beta = scalar_t(2) * mu;
-    return;
-  }
-  // C^-1 by the adjugate (explicit cofactors, det along row 0)
-  scalar_t c[3][3];
-  c[0][0] = Cm[1][1] * Cm[2][2] - Cm[1][2] * Cm[2][1];
-  c[0][1] = Cm[0][2] * Cm[2][1] - Cm[0][1] * Cm[2][2];
-  c[0][2] = Cm[0][1] * Cm[1][2] - Cm[0][2] * Cm[1][1];
-  c[1][0] = Cm[1][2] * Cm[2][0] - Cm[1][0] * Cm[2][2];
-  c[1][1] = Cm[0][0] * Cm[2][2] - Cm[0][2] * Cm[2][0];
-  c[1][2] = Cm[0][2] * Cm[1][0] - Cm[0][0] * Cm[1][2];
-  c[2][0] = Cm[1][0] * Cm[2][1] - Cm[1][1] * Cm[2][0];
-  c[2][1] = Cm[0][1] * Cm[2][0] - Cm[0][0] * Cm[2][1];
-  c[2][2] = Cm[0][0] * Cm[1][1] - Cm[0][1] * Cm[1][0];
-  const scalar_t detC = Cm[0][0] * c[0][0] + Cm[0][1] * c[1][0] + Cm[0][2] * c[2][0];
-  const scalar_t inv_det = scalar_t(1) / detC;
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int j = 0; j < 3; ++j) A[i][j] = c[i][j] * inv_det;
-  scalar_t vol;
-  if (kind == 1) {  // S = mu (I - C^-1) + lam lnJ C^-1
-    const scalar_t lnJ = scalar_t(0.5) * fea_log(detC);
-    vol = lam * lnJ;
-    alpha = lam;
-  } else {  // S = mu (I - C^-1) + lam J (J - 1) C^-1
-    const scalar_t J = fea_sqrt(detC);
-    vol = lam * J * (J - scalar_t(1));
-    alpha = lam * J * (scalar_t(2) * J - scalar_t(1));
-  }
-  beta = scalar_t(2) * (mu - vol);
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      const scalar_t d = (i == j) ? scalar_t(1) : scalar_t(0);
-      S[i][j] = mu * (d - A[i][j]) + vol * A[i][j];
-    }
-}
-
 // ---------------------------------------------------------------------------
 // B2 freeze: F = I + sum_a u_a (x) g_a, C = F^T F, material state.
 // Replaces pallas_structured.py::_freeze_kernel. Bound by its writes (696
@@ -238,11 +181,7 @@ freeze_kernel(const scalar_t* __restrict__ cache, const scalar_t* __restrict__ g
 #pragma unroll
       for (int i = 0; i < 3; ++i) F[i][i] += scalar_t(1);
       scalar_t Cm[3][3];
-#pragma unroll
-      for (int i = 0; i < 3; ++i)
-#pragma unroll
-        for (int j = 0; j < 3; ++j)
-          Cm[i][j] = F[0][i] * F[0][j] + F[1][i] * F[1][j] + F[2][i] * F[2][j];
+      right_cauchy_green(F, Cm);
       scalar_t S[3][3], A[3][3], alpha, beta;
       material_point(kind, lam, mu, Cm, S, A, alpha, beta);
       store3<scalar_t, T>(Fo, k, t, Cs, c, F);
@@ -436,6 +375,55 @@ force_kernel(const scalar_t* __restrict__ Fb, const scalar_t* __restrict__ Sb,
   }
 }
 
+// ---------------------------------------------------------------------------
+// B5 f64 residual: f_a = sum_q V (F S(C)) g_a with F = I + sum_a u_a (x) g_a,
+// C = F^T F, straight from the f64 pair cache: B2's kinematics and
+// material law followed by B4's contraction, in double, with the state
+// kept in registers. Replaces pallas_residual.py::_resid_kernel (whose
+// double-word (hi, lo) f32 arithmetic and tet-slot groups exist only for
+// the TPU). Bound by its memory traffic, 81 f64 rows read and 81 written
+// per cell (55.6 MB at C = 42,875), against ~0.55 GFLOP of f64 arithmetic
+// per call: close to the card's f64 balance point, so the registers (F,
+// C, S, the cofactors and 30 nodal values in double) matter as much as
+// the bytes.
+// ---------------------------------------------------------------------------
+template <int Q, int NPE, int T>
+__global__ void __launch_bounds__(kBlock)
+resid_kernel(const double* __restrict__ cache, const double* __restrict__ gN,
+             const double* __restrict__ dV, const int* __restrict__ pair_of,
+             double* __restrict__ out, int C, int n_out, int kind, double lam,
+             double mu) {
+  __shared__ Tables<double, Q, NPE, T> tb;
+  stage(tb, gN, dV, pair_of);
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= C) return;
+  const size_t Cs = C;
+  for (int r = 0; r < n_out; ++r) out[(size_t)r * Cs + c] = 0.0;
+#pragma unroll 1
+  for (int t = 0; t < T; ++t) {
+    double ue[NPE][3];
+    load_slot(tb, cache, t, Cs, c, ue);
+#pragma unroll 1
+    for (int k = 0; k < Q; ++k) {
+      double F[3][3];
+      slot_grad(tb, ue, k, t, F);
+#pragma unroll
+      for (int i = 0; i < 3; ++i) F[i][i] += 1.0;
+      double Cm[3][3], S[3][3], A[3][3], alpha, beta;
+      right_cauchy_green(F, Cm);
+      material_point(kind, lam, mu, Cm, S, A, alpha, beta);
+      const double V = tb.dV[k * T + t];
+      double PV[3][3];
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+#pragma unroll
+        for (int J = 0; J < 3; ++J)
+          PV[i][J] = (F[i][0] * S[0][J] + F[i][1] * S[1][J] + F[i][2] * S[2][J]) * V;
+      add_nodal(tb, PV, k, t, Cs, c, out);
+    }
+  }
+}
+
 inline unsigned grid_for(int C) { return (unsigned)((C + kBlock - 1) / kBlock); }
 
 }  // namespace
@@ -502,6 +490,17 @@ int fea_struct_force_f32(const float* F, const float* S, const float* gN, const 
   FEA_DISPATCH(q, npe, T,
                force_kernel<float, kQ, kNPE, kT><<<grid_for(C), kBlock, 0, s>>>(
                    F, S, gN, dV, pair_of, out, C, 3 * P));
+  return (int)cudaGetLastError();
+}
+
+int fea_struct_resid_f64(const double* cache, const double* gN, const double* dV,
+                         const int* pair_of, double* out, int C, int q, int npe, int T,
+                         int P, int kind, double lam, double mu, void* stream) {
+  if (C <= 0 || P <= 0 || kind < 0 || kind > 2) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  FEA_DISPATCH(q, npe, T,
+               resid_kernel<kQ, kNPE, kT><<<grid_for(C), kBlock, 0, s>>>(
+                   cache, gN, dV, pair_of, out, C, 3 * P, kind, lam, mu));
   return (int)cudaGetLastError();
 }
 

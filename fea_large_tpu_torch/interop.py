@@ -13,8 +13,7 @@ from fea_large_tpu_torch.config import DTYPE, as_device
 from fea_large_tpu_torch.materials import MATERIAL_REGISTRY, Material
 from fea_large_tpu_torch.mesh.core import Mesh
 from fea_large_tpu_torch.mesh.structure import BoxStructure
-from fea_large_tpu_torch.ops.soa import SoAState
-
+from fea_large_tpu_torch.ops.soa import ScatterBuckets, SoAProblem, SoAState
 
 
 def _tuples(x):
@@ -24,7 +23,7 @@ def _tuples(x):
 def mesh_from_numpy(coords, conn, element_type: str, node_sets: dict | None = None,
                     structure_fields: dict | None = None, device="cpu") -> Mesh:
     """Mesh from coords [N, 3], conn [E, npe], named node sets and, for a
-    Kuhn lattice, the BoxStructure fields (cells, classes, class_dims,
+    Kuhn lattice, the BoxStructure fields (None: an unstructured mesh) (cells, classes, class_dims,
     class_base, slot_class, slot_offset) as nested sequences of ints."""
     structure = None
     if structure_fields is not None:
@@ -63,3 +62,28 @@ def soa_state_from_numpy(F, S, A, alpha, beta, dtype=torch.float32, device="cpu"
         return torch.tensor(np.asarray(x), dtype=dtype, device=dev)
 
     return SoAState(F=t(F), S=t(S), A=t(A), alpha=t(alpha), beta=t(beta))
+
+
+def scatter_buckets_from_numpy(idx, mask, inv, device="cpu") -> ScatterBuckets:
+    """ScatterBuckets from per-bucket idx [nb, cap] and mask [nb, cap]
+    sequences and inv [N]."""
+    dev = as_device(device)
+    return ScatterBuckets(
+        idx=tuple(torch.tensor(np.asarray(x), dtype=torch.int64, device=dev) for x in idx),
+        mask=tuple(torch.tensor(np.asarray(x), dtype=torch.float32, device=dev) for x in mask),
+        inv=torch.tensor(np.asarray(inv), dtype=torch.int64, device=dev),
+    )
+
+
+def soa_problem_from_numpy(n_nodes, gradN, detJxW, conn_T, buckets,
+                           dtype=torch.float32, device="cpu") -> SoAProblem:
+    """Unstructured SoAProblem from gradN [q, npe, 3, E], detJxW [q, E],
+    conn_T [npe, E] and a ScatterBuckets."""
+    dev = as_device(device)
+    return SoAProblem(
+        n_nodes=int(n_nodes),
+        gradN=torch.tensor(np.asarray(gradN), dtype=dtype, device=dev),
+        detJxW=torch.tensor(np.asarray(detJxW), dtype=dtype, device=dev),
+        conn_T=torch.tensor(np.asarray(conn_T), dtype=torch.int64, device=dev),
+        buckets=buckets,
+    )

@@ -60,7 +60,9 @@ class Mesh:
 
     @staticmethod
     def create(coords, conn, element_type: str, node_sets: dict | None = None,
-               structure=None, device="cpu") -> "Mesh":
+               structure=None, device="cuda") -> "Mesh":
+        """Mesh on `device` (the card by default; raises where CUDA is
+        absent, with no fallback to the CPU)."""
         coords_np = np.asarray(coords, np.float64)
         conn_np = np.asarray(conn, np.int64)
         npe = {"tet4": 4, "tet10": 10}[element_type]

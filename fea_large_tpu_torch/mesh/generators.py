@@ -1,5 +1,9 @@
 """Box mesh generators (host-side numpy; counterpart of
-`fea_large_tpu/mesh/generators.py`, Kuhn lattice and TET10 upgrade)."""
+`fea_large_tpu/mesh/generators.py`): the 5-tet box, the Kuhn lattice and
+the TET10 upgrade.
+
+Every generator builds on the card unless the caller passes
+`device="cpu"`; without CUDA the default raises (no fallback)."""
 
 from __future__ import annotations
 
@@ -13,26 +17,18 @@ from fea_large_tpu_torch.mesh.structure import (
     structure_conn,
 )
 
+# 5-tet decomposition of the unit cube, two mirror variants so that
+# neighbouring cells share diagonals (conforming mesh).
+_CUBE_TETS_EVEN = np.array(
+    [[0, 1, 2, 5], [0, 2, 3, 7], [0, 5, 7, 4], [2, 7, 5, 6], [0, 2, 7, 5]]
+)
+_CUBE_TETS_ODD = np.array(
+    [[1, 3, 0, 4], [1, 2, 3, 6], [1, 6, 4, 5], [3, 4, 6, 7], [1, 3, 6, 4]]
+)
 
-def box_mesh_kuhn(
-    nx: int,
-    ny: int,
-    nz: int,
-    lx: float = 1.0,
-    ly: float = 1.0,
-    lz: float = 1.0,
-    element_type: str = "tet4",
-    tol: float = 1e-9,
-    device="cpu",
-) -> Mesh:
-    """Box [0,lx]x[0,ly]x[0,lz] of nx*ny*nz cells with the uniform
-    Kuhn/Freudenthal 6-tet decomposition and class-contiguous node
-    numbering, carrying a `BoxStructure` descriptor (mesh/structure.py).
-    Node sets: the six faces xmin ... zmax (mid-side nodes included)."""
-    st = build_box_structure(nx, ny, nz, element_type)
-    coords = class_coords(st, lx, ly, lz)
-    conn = structure_conn(st)
-    sets = make_node_sets(
+
+def _face_sets(coords, lx, ly, lz, tol):
+    return make_node_sets(
         coords,
         {
             "xmin": lambda c: c[:, 0] < tol,
@@ -43,7 +39,79 @@ def box_mesh_kuhn(
             "zmax": lambda c: c[:, 2] > lz - tol,
         },
     )
-    return Mesh.create(coords, conn, element_type, sets, structure=st,
+
+
+def box_mesh(
+    nx: int,
+    ny: int,
+    nz: int,
+    lx: float = 1.0,
+    ly: float = 1.0,
+    lz: float = 1.0,
+    element_type: str = "tet4",
+    tol: float = 1e-9,
+    device="cuda",
+) -> Mesh:
+    """Box [0,lx]x[0,ly]x[0,lz] of nx*ny*nz cells, 5 tets each, the
+    parity of (i + j + k) choosing the mirror variant; no `BoxStructure`,
+    so the element passes take the unstructured (indexed) path. Cells in
+    lexicographic (i, j, k) order, 5 tets per cell; negatively oriented
+    tets get two vertices swapped. Node sets: the six faces xmin ... zmax
+    (mid-side nodes included)."""
+    xs = np.linspace(0.0, lx, nx + 1)
+    ys = np.linspace(0.0, ly, ny + 1)
+    zs = np.linspace(0.0, lz, nz + 1)
+    X, Y, Z = np.meshgrid(xs, ys, zs, indexing="ij")
+    coords = np.stack([X.ravel(), Y.ravel(), Z.ravel()], axis=1)
+
+    I, J, K = (g.ravel() for g in np.meshgrid(
+        np.arange(nx), np.arange(ny), np.arange(nz), indexing="ij"))
+
+    def nid(i, j, k):
+        return (i * (ny + 1) + j) * (nz + 1) + k
+
+    corner = np.stack(
+        [nid(I, J, K), nid(I + 1, J, K), nid(I + 1, J + 1, K), nid(I, J + 1, K),
+         nid(I, J, K + 1), nid(I + 1, J, K + 1), nid(I + 1, J + 1, K + 1),
+         nid(I, J + 1, K + 1)],
+        axis=1,
+    )  # [cells, 8]
+    even = ((I + J + K) % 2 == 0)[:, None, None]
+    conn = np.where(
+        even, corner[:, _CUBE_TETS_EVEN], corner[:, _CUBE_TETS_ODD]
+    ).reshape(-1, 4)
+
+    # enforce positive orientation (det of edge matrix > 0)
+    v = coords[conn]
+    flip = np.linalg.det(v[:, 1:4] - v[:, :1]) < 0
+    conn[flip] = conn[flip][:, [0, 2, 1, 3]]
+
+    if element_type == "tet10":
+        coords, conn = tet4_to_tet10(coords, conn)
+    return Mesh.create(coords, conn, element_type,
+                       _face_sets(coords, lx, ly, lz, tol), device=device)
+
+
+def box_mesh_kuhn(
+    nx: int,
+    ny: int,
+    nz: int,
+    lx: float = 1.0,
+    ly: float = 1.0,
+    lz: float = 1.0,
+    element_type: str = "tet4",
+    tol: float = 1e-9,
+    device="cuda",
+) -> Mesh:
+    """Box [0,lx]x[0,ly]x[0,lz] of nx*ny*nz cells with the uniform
+    Kuhn/Freudenthal 6-tet decomposition and class-contiguous node
+    numbering, carrying a `BoxStructure` descriptor (mesh/structure.py).
+    Node sets: the six faces xmin ... zmax (mid-side nodes included)."""
+    st = build_box_structure(nx, ny, nz, element_type)
+    coords = class_coords(st, lx, ly, lz)
+    conn = structure_conn(st)
+    return Mesh.create(coords, conn, element_type,
+                       _face_sets(coords, lx, ly, lz, tol), structure=st,
                        device=device)
 
 

@@ -13,48 +13,39 @@ Decomposition, kept from the reference:
     tet-slot-major); per-point scalars are rows k*T + t; output rows are
     n_comp*pair + comp.
 
-Each pass has a kernel (csrc/struct_kernels.cu, CUDA C++ for sm_90a, f32)
-and a plain version in this module (`*_plain`, any float dtype). A wrapper
-(`struct_apply`, `struct_freeze`, `struct_diag`, `struct_force`) runs the
-plain version when its tensors lie on the CPU; on a CUDA tensor it launches
-the kernel or raises. There is no fallback from a failed build or launch.
-`LAUNCHES` counts kernel launches per pass.
+Each pass has a kernel (csrc/struct_kernels.cu, CUDA C++ for sm_90a: the
+four f32 passes, and the f64 residual) and a plain version in this module
+(`*_plain`, any float dtype). A wrapper (`struct_apply`, `struct_freeze`,
+`struct_diag`, `struct_force`, `struct_resid`) runs the plain version when
+its tensors lie on the CPU; on a CUDA tensor it launches the kernel or
+raises. There is no fallback from a failed build or launch. `LAUNCHES`
+counts kernel launches per pass.
 
-The kernels are built with nvcc into a shared library with a plain C
-interface, at first use, under build/fea_kernels/ (named by a hash of the
-source and flags, so a changed source rebuilds), and loaded with ctypes.
+The kernels are built with nvcc at first use (ops/cuda_build.py) and
+loaded with ctypes.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from fea_large_tpu_torch.ops import cuda_build
 from fea_large_tpu_torch.ops.smallmat import mm3
 
 #: kernel launches per pass since the last reset (the wrappers increment
 #: these where they launch their kernel, and nowhere else)
-LAUNCHES = {"freeze": 0, "apply": 0, "diag": 0, "force": 0}
+LAUNCHES = {"freeze": 0, "apply": 0, "diag": 0, "force": 0, "resid": 0}
 
 #: (q, npe, T) lattices the kernels are instantiated for: TET10 with the
 #: 4-point rule and TET4 with the 1-point rule, on the 6-tet Kuhn cell
 SUPPORTED = ((4, 10, 6), (1, 4, 6))
 
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "struct_kernels.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "fea_kernels"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+SOURCE = cuda_build.CSRC / "struct_kernels.cu"
 
 
 # ---------------------------------------------------------------------------
@@ -274,78 +265,40 @@ def struct_diag_plain(tb: StructTables, F, S, A, alpha, beta):
     return _pair_rows(tb, contrib)
 
 
+def struct_resid_plain(tb: StructTables, cache: torch.Tensor, material):
+    """Internal force f_a = sum_q V (F S(C)) g_a straight from the pair
+    cache of u: the freeze followed by the force, [3P, C]."""
+    F, S = struct_freeze_plain(tb, cache, material)[:2]
+    return struct_force_plain(tb, F, S)
+
+
 # ---------------------------------------------------------------------------
-# kernel build and load
+# kernel library
 # ---------------------------------------------------------------------------
-
-
-_LIB = None
-
-
-def _nvcc() -> str:
-    """nvcc on PATH, else under $CUDA_HOME (default /usr/local/cuda)."""
-    path = shutil.which("nvcc")
-    fallback = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if path is None and fallback.exists():
-        path = str(fallback)
-    if path is None:
-        raise RuntimeError("nvcc not found: the structured kernels cannot be built")
-    return path
-
-
-def build_library() -> tuple[Path, float, str]:
-    """Compile csrc/struct_kernels.cu into build/fea_kernels/ unless a
-    library for the same source and flags is there. Returns (path, build
-    seconds (0 if reused), compiler log)."""
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libfea_struct_{tag}.so"
-    log_path = lib.with_suffix(".log")
-    if lib.exists():
-        return lib, 0.0, log_path.read_text() if log_path.exists() else ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-        capture_output=True, text=True,
-    )
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-    log_path.write_text(log)
-    os.replace(tmp, lib)
-    return lib, seconds, log
 
 
 def _library():
-    global _LIB
-    if _LIB is None:
-        path, _, _ = build_library()
-        lib = ctypes.CDLL(str(path))
-        P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.fea_struct_freeze_f32.argtypes = [P] * 8 + [I] * 5 + [Fl, Fl, P]
-        lib.fea_struct_apply_f32.argtypes = [P] * 10 + [I] * 5 + [P]
-        lib.fea_struct_diag_f32.argtypes = [P] * 9 + [I] * 5 + [P]
-        lib.fea_struct_force_f32.argtypes = [P] * 6 + [I] * 5 + [P]
-        for fn in ("freeze", "apply", "diag", "force"):
-            getattr(lib, f"fea_struct_{fn}_f32").restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
+    P, I, Fl, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
+    return cuda_build.load(SOURCE, {
+        "fea_struct_freeze_f32": [P] * 8 + [I] * 5 + [Fl, Fl, P],
+        "fea_struct_apply_f32": [P] * 10 + [I] * 5 + [P],
+        "fea_struct_diag_f32": [P] * 9 + [I] * 5 + [P],
+        "fea_struct_force_f32": [P] * 6 + [I] * 5 + [P],
+        "fea_struct_resid_f64": [P] * 5 + [I] * 6 + [D, D, P],
+    })
 
 
-def _check(tb: StructTables, named: dict, shapes: dict):
-    """Raise unless every tensor is a contiguous f32 CUDA tensor on the
-    tables' device with the expected shape, on a supported lattice."""
+def _check(tb: StructTables, named: dict, shapes: dict, dtype=torch.float32):
+    """Raise unless every tensor is a contiguous CUDA tensor of `dtype` on
+    the tables' device with the expected shape, on a supported lattice."""
     if (tb.q, tb.npe, tb.T) not in SUPPORTED:
         raise ValueError(f"no kernel for (q, npe, T) = {(tb.q, tb.npe, tb.T)}")
     dev = tb.gN.device
     for name, x in {**named, "gN": tb.gN, "dV": tb.dV}.items():
         if x.device != dev or x.device.type != "cuda":
             raise ValueError(f"{name}: expected a CUDA tensor on {dev}, got {x.device}")
-        if x.dtype != torch.float32:
-            raise TypeError(f"{name}: the kernel takes float32, got {x.dtype}")
+        if x.dtype != dtype:
+            raise TypeError(f"{name}: the kernel takes {dtype}, got {x.dtype}")
         if not x.is_contiguous():
             raise ValueError(f"{name}: must be contiguous")
     for name, shape in shapes.items():
@@ -353,9 +306,9 @@ def _check(tb: StructTables, named: dict, shapes: dict):
             raise ValueError(f"{name}: expected shape {shape}, got {tuple(named[name].shape)}")
 
 
-def _launch(fn: str, *args):
+def _launch(fn: str, *args, suffix="f32"):
     stream = torch.cuda.current_stream(torch.cuda.current_device()).cuda_stream
-    err = getattr(_library(), f"fea_struct_{fn}_f32")(*args, stream)
+    err = getattr(_library(), f"fea_struct_{fn}_{suffix}")(*args, stream)
     if err != 0:
         raise RuntimeError(f"struct {fn} kernel launch failed: CUDA error {err}")
     LAUNCHES[fn] += 1
@@ -439,5 +392,24 @@ def struct_force(tb: StructTables, F, S):
         _launch(
             "force", _ptr(F), _ptr(S), _ptr(tb.gN), _ptr(tb.dV),
             _ptr(tb.pair_of), _ptr(out), *_dims(tb, tb.P),
+        )
+    return out
+
+
+def struct_resid(tb: StructTables, cache: torch.Tensor, material):
+    """B5 (`pallas_residual.py::_resid_kernel`), in f64: see
+    `struct_resid_plain`."""
+    if cache.device.type == "cpu":
+        return struct_resid_plain(tb, cache, material)
+    if material.kind not in (0, 1, 2):
+        raise ValueError(f"no residual kernel for material {type(material).__name__}")
+    _check(tb, {"cache": cache}, {"cache": (3 * tb.P, tb.C)}, torch.float64)
+    out = cache.new_empty((3 * tb.P, tb.C))
+    with torch.cuda.device(cache.device):
+        _launch(
+            "resid", _ptr(cache), _ptr(tb.gN), _ptr(tb.dV), _ptr(tb.pair_of),
+            _ptr(out), *_dims(tb, tb.P, material.kind),
+            ctypes.c_double(material.lam), ctypes.c_double(material.mu),
+            suffix="f64",
         )
     return out

@@ -1,11 +1,15 @@
-"""Two-level additive preconditioner on Kuhn lattices (counterpart of
+"""Two-level additive preconditioner (counterpart of
 `fea_large_tpu/solvers/multilevel.py`, modes 3 and 6, probing assembly):
 
     M^-1 r = Jacobi(r) + P Ac^-1 P^T r
 
-  * P: per lattice-block aggregate (ops/pooling.py) the 3 translations
-    (modes=3), plus the 3 rotations about the aggregate centroid with a
-    normalized arm (modes=6, the rigid-body modes).
+  * P: per aggregate the 3 translations (modes=3), plus the 3 rotations
+    about the aggregate centroid with a normalized arm (modes=6, the
+    rigid-body modes). On a Kuhn lattice the aggregates are lattice blocks
+    and the transfer is pooled (ops/pooling.py, no indexed ops); on an
+    unstructured mesh they are geometric bins of the nodes
+    (`aggregate_nodes`), P^T sums through `ScatterBuckets` over the
+    aggregate ids (fixed order) and P is the row gather xc[agg].
   * Ac = P^T (M K0 M) P at the reference state u = 0, assembled on the
     device by probing: one masked f32 tangent action per (color of the
     distance-2 aggregate coloring, mode), restricted per aggregate and set
@@ -21,7 +25,7 @@ import numpy as np
 import torch
 
 from fea_large_tpu_torch.ops.pooling import LatticePool, make_lattice_pool
-from fea_large_tpu_torch.ops.soa import soa_apply_tangent, soa_freeze
+from fea_large_tpu_torch.ops.soa import ScatterBuckets, soa_apply_tangent, soa_freeze
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,14 +34,15 @@ class CoarseSpace:
 
     acinv  f32[modes*Nc, modes*Nc] symmetric explicit inverse of Ac
     dvec   f32[N, 3] normalized rotational arm (modes=6), else None
-    pool   the lattice-block transfer
+    pool   the transfer: a `LatticePool` on Kuhn lattices, an
+           `AggregateTransfer` on unstructured meshes
     """
 
     acinv: torch.Tensor
     dvec: torch.Tensor | None
     n_agg: int
     modes: int
-    pool: LatticePool
+    pool: "LatticePool | AggregateTransfer"
 
     def restrict(self, r: torch.Tensor) -> torch.Tensor:
         """P^T r: [N, 3] -> [Nc, modes]; rotation mode 3+k of aggregate A
@@ -76,6 +81,50 @@ def default_agg_size(n_nodes: int, target_coarse: int = 5000,
         scale *= 0.56
     target = int(target_coarse * scale)
     return int(np.clip(n_nodes // target, 60, 4096))
+
+
+@dataclasses.dataclass(frozen=True)
+class AggregateTransfer:
+    """Aggregation of an unstructured mesh's nodes by an explicit map:
+    restrict sums each aggregate's rows through `ScatterBuckets` over the
+    aggregate ids (fixed order, no atomics), prolong is the row gather
+    w[agg]. The same interface as `LatticePool`."""
+
+    agg: torch.Tensor  # int64 [N] aggregate id per node
+    buckets: ScatterBuckets
+
+    @staticmethod
+    def build(agg: np.ndarray, device) -> "AggregateTransfer":
+        return AggregateTransfer(
+            agg=torch.as_tensor(agg, device=device),
+            buckets=ScatterBuckets.build(agg[None, :], int(agg.max()) + 1, device),
+        )
+
+    def agg_host(self) -> np.ndarray:
+        return self.agg.cpu().numpy()
+
+    def restrict(self, v: torch.Tensor) -> torch.Tensor:
+        """[N, C] -> [n_agg, C] per-aggregate sums."""
+        return self.buckets.apply(v.T).T
+
+    def prolong(self, w: torch.Tensor) -> torch.Tensor:
+        """[n_agg, C] -> [N, C]: each node reads its aggregate's value."""
+        return w[self.agg]
+
+
+def aggregate_nodes(coords: np.ndarray, agg_size: int = 512) -> np.ndarray:
+    """Geometric aggregation: bin the nodes into a uniform grid with
+    ~agg_size nodes per bin, labels compacted. Host-side, O(N)."""
+    coords = np.asarray(coords)
+    n_cells = max(1, coords.shape[0] // agg_size)
+    per_axis = max(1, round(n_cells ** (1.0 / 3.0)))
+    lo = coords.min(axis=0)
+    hi = coords.max(axis=0)
+    span = np.where(hi > lo, hi - lo, 1.0)
+    ijk = np.minimum((per_axis * (coords - lo) / span).astype(np.int64), per_axis - 1)
+    raw = (ijk[:, 0] * per_axis + ijk[:, 1]) * per_axis + ijk[:, 2]
+    _, agg = np.unique(raw, return_inverse=True)
+    return agg.astype(np.int64)
 
 
 def _rbm_dvec(coords: np.ndarray, agg: np.ndarray, cent: np.ndarray,
@@ -220,22 +269,23 @@ def build_coarse_space(mesh, material, bc, agg_size: int | None = None,
                        modes: int = 3, soa=None) -> CoarseSpace:
     """Assemble and invert the coarse operator at the reference state u=0,
     where both hyperelastic tangents reduce to isotropic linear elasticity.
-    Needs a Kuhn lattice (the pooled transfer) and the f32 SoAProblem
-    `soa` (the probing assembly)."""
+    Needs the f32 SoAProblem `soa` (the probing assembly); the reference's
+    host builders (soa=None) are not ported."""
     if modes not in (3, 6):
         raise NotImplementedError(f"coarse modes={modes} is not ported (3 or 6)")
+    if soa is None:
+        raise NotImplementedError("the host coarse builders are not ported: pass soa")
     st = mesh.structure
-    if st is None or soa is None:
-        raise NotImplementedError(
-            "the host coarse builders are not ported: pass a Kuhn lattice and soa"
-        )
     dev = mesh.device
     coords = mesh.coords_host
     if agg_size is None:
         agg_size = default_agg_size(
-            mesh.n_nodes, target_coarse={3: 5000, 6: 2500}[modes], structured=True
+            mesh.n_nodes, target_coarse={3: 5000, 6: 2500}[modes], structured=st is not None
         )
-    pool = make_lattice_pool(st, max(1, mesh.n_nodes // agg_size))
+    if st is not None:
+        pool = make_lattice_pool(st, max(1, mesh.n_nodes // agg_size))
+    else:
+        pool = AggregateTransfer.build(aggregate_nodes(coords, agg_size), dev)
     agg = pool.agg_host()
     n_agg = int(agg.max()) + 1
     dvec_np = None

@@ -2,15 +2,19 @@
 (counterpart of `fea_large_tpu/solvers/newton.py`, the host-loop mixed path).
 
 Per Newton iteration (`NewtonSolver._newton_mixed`):
-  * the residual R = M (scale f_ext - f_int(u)): in f64 from the plain f64
-    element pass (`_residual_soa_fn`), or, while ||R|| > 3e-2 ||R0|| under
-    Eisenstat-Walker forcing, in f32 from the frozen tangent state (the
-    `resid32` gate); the converging iterations always use f64;
-  * the f32 tangent state (freeze kernel), the block-Jacobi blocks (diag
-    kernel), and a chunked PCG solve of the masked f32 tangent system
-    (tangent-action kernel), preconditioned by block-Jacobi plus the
-    optional two-level coarse correction (solvers/multilevel.py); a
-    two-level solve that breaks down is retried with block-Jacobi alone;
+  * the residual R = M (scale f_ext - f_int(u)): in f64, or, while
+    ||R|| > 3e-2 ||R0|| under Eisenstat-Walker forcing, in f32 from the
+    frozen tangent state (the `resid32` gate); the converging iterations
+    always use f64. The f64 pass is the fused residual kernel B5 on Kuhn
+    lattices when `resid_df` routes it (`_residual_df_fn`), else the plain
+    f64 element pass (`_residual_soa_fn`);
+  * the f32 tangent state (freeze), the block-Jacobi blocks (diag), and a
+    chunked PCG solve of the masked f32 tangent system (tangent action),
+    preconditioned by block-Jacobi plus the optional two-level coarse
+    correction (solvers/multilevel.py); a two-level solve that breaks down
+    is retried with block-Jacobi alone. On the card the f32 freeze, tangent
+    action and force are the lattice kernels on Kuhn lattices and the
+    element-block kernels (ops/elem_kernels.py) on unstructured meshes;
   * the forcing term `newton_lin_tol` (Eisenstat-Walker choice 2 with the
     lower cap `ew_eta_min`, the termination safeguard and the f32 floor).
 `solve` steps the load factor to 1 with bisection on Newton failure.
@@ -23,6 +27,7 @@ import time
 
 import torch
 
+from fea_large_tpu_torch.ops.residual import resid_df_supported, soa_internal_force_df
 from fea_large_tpu_torch.ops.soa import (
     SoAProblem,
     soa_apply_tangent,
@@ -42,10 +47,20 @@ from fea_large_tpu_torch.solvers.linear import (
 @dataclasses.dataclass(frozen=True)
 class SolverOptions:
     """Solver configuration: the reference's fields and defaults, less the
-    unstructured Pallas switch and the device-loop budget. The port runs
-    linear="pcg", precision="mixed", device_loop=False, resid_df False or
-    None, preconditioner "jacobi" or "two_level" with coarse_modes 3 or 6;
-    `NewtonSolver` raises on any other value."""
+    device-loop budget. The port runs linear="pcg", precision="mixed",
+    device_loop=False, preconditioner "jacobi" or "two_level" with
+    coarse_modes 3 or 6; `NewtonSolver` raises on any other value.
+
+    pallas    accepted for parity with the reference, and without effect:
+              there it picks the Pallas element-block passes over the XLA
+              ones; here the f32 passes of every mesh run their kernels on
+              the card (ops/soa.py), and plain PyTorch only on the CPU
+    resid_df  the f64 residual through the fused kernel B5 on Kuhn
+              lattices: None = on for CUDA tensors where supported, True =
+              on where supported (the plain version on CPU tensors), False
+              = off. B5 computes in f64, so the reference's margin-guarded
+              f64 confirmation (and its `_DF_ERR_REL`) has nothing to guard
+              and is not ported."""
 
     linear: str = "pcg"
     n_steps: int = 1
@@ -61,6 +76,7 @@ class SolverOptions:
     coarse_modes: int = 3
     forcing: str = "fixed"
     ew_eta_min: float = 0.0
+    pallas: bool = False
     device_loop: bool = True
     resid_df: bool | None = None
     precision: str = "f64"
@@ -91,8 +107,6 @@ def _unsupported(opts: SolverOptions) -> str | None:
         return f"precision={opts.precision!r}"
     if opts.device_loop:
         return "device_loop=True (the device-resident Newton loop)"
-    if opts.resid_df:
-        return "resid_df=True (the double-word residual)"
     if opts.preconditioner not in ("jacobi", "two_level"):
         return f"preconditioner={opts.preconditioner!r}"
     if opts.preconditioner == "two_level" and opts.coarse_modes not in (3, 6):
@@ -125,6 +139,14 @@ def _residual_soa_fn(u, scale, soa64, material, bc, f_ext):
     """f64 residual (r [N, 3], ||r||) from the f64 element pass."""
     state = soa_freeze(soa64, material, u.T.contiguous())
     f_int = soa_internal_force(soa64, state).T
+    r = bc.project(scale * f_ext - f_int)
+    return r, torch.linalg.norm(r)
+
+
+def _residual_df_fn(u, scale, soa64, material, bc, f_ext):
+    """f64 residual (r [N, 3], ||r||) from the fused residual kernel B5
+    (ops/residual.py): the same pass as `_residual_soa_fn`, in one kernel."""
+    f_int = soa_internal_force_df(soa64, material, u.T.contiguous()).T
     r = bc.project(scale * f_ext - f_int)
     return r, torch.linalg.norm(r)
 
@@ -168,7 +190,12 @@ class NewtonSolver:
             if f_ext is None else f_ext
         )
         self._soa = SoAProblem.build(mesh, torch.float32)
-        self._soa64 = SoAProblem.build(mesh, torch.float64)
+        self._soa64 = SoAProblem.build(mesh, torch.float64, share_maps_from=self._soa)
+        supported = resid_df_supported(self._soa64, material)
+        if self.options.resid_df is None:
+            self._resid_df = mesh.device.type == "cuda" and supported
+        else:
+            self._resid_df = bool(self.options.resid_df) and supported
         self._coarse = None
         if self.options.preconditioner == "two_level":
             from fea_large_tpu_torch.solvers.multilevel import build_coarse_space
@@ -177,6 +204,10 @@ class NewtonSolver:
                 mesh, material, bc, agg_size=self.options.agg_size,
                 modes=self.options.coarse_modes, soa=self._soa,
             )
+
+    def _freeze(self, u):
+        """f32 tangent state at u [N, 3]."""
+        return soa_freeze(self._soa, self.material, u.to(torch.float32).T.contiguous())
 
     def _linear_solve(self, state, inv_blocks, b, lin_tol, free32, free32_T):
         """Chunked PCG on the masked f32 tangent system; the two-level
@@ -236,14 +267,13 @@ class NewtonSolver:
             # f32 residual only while far above the f32 rounding floor; the
             # iterations that decide convergence take the f64 pass
             if use_ew and norm0 is not None and norms[-1] > 3e-2 * norm0:
-                state = soa_freeze(self._soa, self.material, u.to(torch.float32).T.contiguous())
+                state = self._freeze(u)
                 f_int_T = soa_internal_force(self._soa, state)
                 b = (scale * f_ext32 - f_int_T.T) * free32
                 norm = float(torch.linalg.norm(b))
             else:
-                b64, norm_t = _residual_soa_fn(
-                    u, scale, self._soa64, self.material, self.bc, self.f_ext
-                )
+                resid = _residual_df_fn if self._resid_df else _residual_soa_fn
+                b64, norm_t = resid(u, scale, self._soa64, self.material, self.bc, self.f_ext)
                 b = b64.to(torch.float32)
                 norm = float(norm_t)
             if norm != norm:  # NaN: poisoned state; fail -> bisection
@@ -259,7 +289,7 @@ class NewtonSolver:
                 break  # this iteration's direction could never be applied
             lin_tol, eta = newton_lin_tol(opts, it, norms, norm0, eta)
             if state is None:
-                state = soa_freeze(self._soa, self.material, u.to(torch.float32).T.contiguous())
+                state = self._freeze(u)
             diag = soa_diag_blocks(self._soa, state).permute(2, 0, 1)
             inv_blocks = jacobi_inverse_blocks(diag, free32)
             x_prev, lin_iters, accept = self._linear_solve(

@@ -37,7 +37,7 @@ torch.set_num_threads(2)
     [("tet10", (4, 4, 4), 8), ("tet10", (5, 3, 4), 6), ("tet4", (7, 5, 3), 10), ("tet10", (3, 3, 3), 27)],
 )
 def test_lattice_pool_matches_reference(et, cells, target):
-    st = box_mesh_kuhn(*cells, element_type=et).structure
+    st = box_mesh_kuhn(*cells, element_type=et, device="cpu").structure
     ref = ref_pooling.make_lattice_pool(st, target)
     port = pooling.make_lattice_pool(st, target)
     assert (port.block, port.nb, port.n_agg) == (ref.block, ref.nb, ref.n_agg)
@@ -66,7 +66,7 @@ def test_default_agg_size_matches_reference():
 @pytest.fixture(scope="module")
 def problem():
     ref_mesh = ref_box_mesh_kuhn(4, 4, 4, element_type="tet10")
-    mesh = box_mesh_kuhn(4, 4, 4, element_type="tet10")
+    mesh = box_mesh_kuhn(4, 4, 4, element_type="tet10", device="cpu")
     ref_bc = RefDirichletBuilder(ref_mesh).fix("zmin").prescribe("zmax", "z", -0.05).build()
     bc = DirichletBuilder(mesh).fix("zmin").prescribe("zmax", "z", -0.05).build()
     return dict(

@@ -51,7 +51,7 @@ MESHES = [("tet4", (3, 2, 4)), ("tet10", (2, 3, 2)), ("tet10", (4, 4, 4))]
 @pytest.mark.parametrize("et,cells", MESHES)
 def test_box_mesh_kuhn_matches_reference(et, cells):
     ref = ref_box_mesh_kuhn(*cells, element_type=et)
-    port = box_mesh_kuhn(*cells, element_type=et)
+    port = box_mesh_kuhn(*cells, element_type=et, device="cpu")
     assert np.array_equal(port.coords_host, ref.coords_host)
     assert np.array_equal(port.conn_host, np.asarray(ref.conn_host, np.int64))
     assert np.array_equal(port.coords.numpy(), ref.coords_host)
@@ -67,7 +67,7 @@ def test_box_mesh_kuhn_matches_reference(et, cells):
 @pytest.mark.parametrize("et,cells", MESHES)
 def test_box_structure_matches_reference(et, cells):
     ref = ref_box_mesh_kuhn(*cells, element_type=et).structure
-    port = box_mesh_kuhn(*cells, element_type=et).structure
+    port = box_mesh_kuhn(*cells, element_type=et, device="cpu").structure
     for f in ("cells", "classes", "class_dims", "class_base", "slot_class", "slot_offset"):
         assert getattr(port, f) == getattr(ref, f), f
     for prop in ("n_cells", "n_tets", "n_nodes", "npe"):
@@ -138,7 +138,7 @@ def test_material_registry_matches_reference():
 
 def test_dirichlet_matches_reference():
     ref_mesh = ref_box_mesh_kuhn(2, 2, 3, element_type="tet10")
-    mesh = box_mesh_kuhn(2, 2, 3, element_type="tet10")
+    mesh = box_mesh_kuhn(2, 2, 3, element_type="tet10", device="cpu")
     ref = RefDirichletBuilder(ref_mesh).fix("zmin").prescribe("zmax", "z", -0.05).prescribe(
         "xmax", "xy", 0.02).build()
     port = DirichletBuilder(mesh).fix("zmin").prescribe("zmax", "z", -0.05).prescribe(
@@ -163,7 +163,7 @@ def test_interop_builds_port_objects_from_reference_arrays():
         {f: getattr(st, f) for f in ("cells", "classes", "class_dims", "class_base",
                                      "slot_class", "slot_offset")},
     )
-    assert mesh.structure == box_mesh_kuhn(3, 2, 2, element_type="tet10").structure
+    assert mesh.structure == box_mesh_kuhn(3, 2, 2, element_type="tet10", device="cpu").structure
     np.testing.assert_array_equal(mesh.coords.numpy(), ref_mesh.coords_host)
     bc = RefDirichletBuilder(ref_mesh).fix("zmin").prescribe("zmax", "z", -0.05).build()
     pbc = interop.dirichlet_from_numpy(np.asarray(bc.free_mask), np.asarray(bc.values))
@@ -190,3 +190,21 @@ def test_port_never_imports_jax_or_the_reference():
     assert len(files) > 10
     for path in files:
         assert not bad.search(path.read_text()), path
+
+
+def test_generators_default_to_the_card():
+    """The entry points build on the card unless the caller asks for the
+    CPU; without CUDA the default raises instead of falling back."""
+    import inspect
+
+    from fea_large_tpu_torch.mesh.core import Mesh
+    from fea_large_tpu_torch.mesh.generators import box_mesh
+
+    for fn in (box_mesh, box_mesh_kuhn, Mesh.create):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    for build in (box_mesh, box_mesh_kuhn):
+        if torch.cuda.is_available():
+            assert build(2, 2, 2).device.type == "cuda"
+        else:
+            with pytest.raises(RuntimeError, match="CUDA"):
+                build(2, 2, 2)

@@ -9,7 +9,9 @@ device_loop=False (the host Newton loop).
 The reference takes 5 Newton iterations with PCG [5, 7, 15, 21, 14]. The
 port must take the same Newton count, start from the same residual norm
 (1e-12 relative: both are the f64 pass), and each PCG count may move by
-one (the f32 PCG sums in another order)."""
+one (the f32 PCG sums in another order). With `resid_df=True` the port's
+f64 residual goes through the fused residual pass (its plain version on
+the CPU) and must reproduce the same run."""
 
 import numpy as np
 import pytest
@@ -25,7 +27,7 @@ from fea_large_tpu.solvers.newton import SolverOptions as RefOptions
 
 from fea_large_tpu_torch.bc import DirichletBuilder
 from fea_large_tpu_torch.materials import NeoHookean
-from fea_large_tpu_torch.mesh.generators import box_mesh_kuhn
+from fea_large_tpu_torch.mesh.generators import box_mesh, box_mesh_kuhn
 from fea_large_tpu_torch.solvers.newton import NewtonSolver, SolverOptions
 
 torch.set_num_threads(2)
@@ -40,7 +42,7 @@ BENCH = dict(
 class _Case:
     def __init__(self, n=4):
         self.ref_mesh = ref_box_mesh_kuhn(n, n, n, element_type="tet10")
-        self.mesh = box_mesh_kuhn(n, n, n, element_type="tet10")
+        self.mesh = box_mesh_kuhn(n, n, n, element_type="tet10", device="cpu")
         self.ref_bc = RefDirichletBuilder(self.ref_mesh).fix("zmin").prescribe(
             "zmax", "z", -0.05).build()
         self.bc = DirichletBuilder(self.mesh).fix("zmin").prescribe("zmax", "z", -0.05).build()
@@ -126,8 +128,41 @@ def test_solve_bisection_matches_reference(case):
     assert len(port.history) >= 3
 
 
+def test_fused_residual_slice_matches_reference(case, slice_runs):
+    """resid_df=True routes the in-increment f64 residual through
+    ops/residual.py (B5's plain version on CPU tensors): the same Newton
+    count as the reference's resid_df=False host loop, PCG within one."""
+    (_, _, rec_r), _ = slice_runs[1e-6]
+    port = NewtonSolver(case.mesh, NeoHookean(1.0, 0.6), case.bc,
+                        options=SolverOptions(**{**BENCH, "resid_df": True}))
+    assert port._resid_df
+    u = torch.zeros((case.mesh.n_nodes, 3), dtype=torch.float64)
+    u[:, 2] = -0.05 * case.mesh.coords[:, 2]
+    _, ok, rec = port._newton(port.bc.impose(u, 1.0), 1.0)
+    assert ok and rec.newton_iters == rec_r.newton_iters
+    _pcg_close(rec.pcg_iters, rec_r.pcg_iters)
+    assert abs(rec.residual_norms[0] - rec_r.residual_norms[0]) <= 1e-12 * rec_r.residual_norms[0]
+    # resid_df=None turns the kernel on for CUDA tensors only
+    auto = NewtonSolver(case.mesh, NeoHookean(1.0, 0.6), case.bc,
+                        options=SolverOptions(**{**BENCH, "resid_df": None}))
+    assert not auto._resid_df
+
+
+def test_pallas_option_changes_nothing():
+    """`pallas` is accepted for parity with the reference and has no
+    effect: the element passes route by device and dtype alone."""
+    mesh = box_mesh(2, 2, 1, element_type="tet10", device="cpu")
+    bc = DirichletBuilder(mesh).fix("zmin").prescribe("zmax", "z", -0.05).build()
+    opts = {**BENCH, "preconditioner": "jacobi"}
+    runs = [NewtonSolver(mesh, NeoHookean(1.0, 0.6), bc, options=SolverOptions(**opts, pallas=flag))
+            ._newton(torch.zeros((mesh.n_nodes, 3), dtype=torch.float64), 1.0)
+            for flag in (False, True)]
+    (u0, ok0, rec0), (u1, ok1, rec1) = runs
+    assert ok0 and ok1 and torch.equal(u0, u1) and rec0.pcg_iters == rec1.pcg_iters
+
+
 @pytest.mark.parametrize("bad", [
-    dict(device_loop=True), dict(precision="f64"), dict(resid_df=True),
+    dict(device_loop=True), dict(precision="f64"), dict(linear="pcg_bcsr"),
     dict(linear="direct"), dict(preconditioner="three_level"), dict(coarse_modes=12),
 ])
 def test_newton_solver_rejects_unported_options(case, bad):

@@ -54,7 +54,7 @@ def _fields(coords):
 @pytest.mark.parametrize("et,cells", LATTICES)
 def test_soa_problem_tables_match_reference(et, cells):
     ref = ref_soa.SoAProblem.build(ref_box_mesh_kuhn(*cells, element_type=et), jnp.float64)
-    port = soa.SoAProblem.build(box_mesh_kuhn(*cells, element_type=et), torch.float64)
+    port = soa.SoAProblem.build(box_mesh_kuhn(*cells, element_type=et, device="cpu"), torch.float64)
     for p, r, host in ((port.gradN, ref.gradN, ref.tables_host[0]),
                        (port.detJxW, ref.detJxW, ref.tables_host[1])):
         np.testing.assert_allclose(p.numpy(), np.asarray(r), rtol=0, atol=1e-14)
@@ -68,7 +68,7 @@ def test_soa_problem_tables_match_reference(et, cells):
 def test_soa_passes_match_reference(et, cells, ref_cls, port_cls, jdt, tdt):
     ref_mesh = ref_box_mesh_kuhn(*cells, element_type=et)
     rp = ref_soa.SoAProblem.build(ref_mesh, jdt)
-    pp = soa.SoAProblem.build(box_mesh_kuhn(*cells, element_type=et), tdt)
+    pp = soa.SoAProblem.build(box_mesh_kuhn(*cells, element_type=et, device="cpu"), tdt)
     u, v = _fields(ref_mesh.coords_host)
     rmat = ref_cls(jnp.asarray(1.0, jdt), jnp.asarray(0.6, jdt))
     pmat = port_cls(1.0, 0.6)
@@ -87,7 +87,7 @@ def test_soa_passes_match_reference(et, cells, ref_cls, port_cls, jdt, tdt):
 
 @pytest.mark.parametrize("et,cells", LATTICES)
 def test_struct_pairs_match_reference(et, cells):
-    st = box_mesh_kuhn(*cells, element_type=et).structure
+    st = box_mesh_kuhn(*cells, element_type=et, device="cpu").structure
     pairs, pair_of = sk.struct_pairs(st)
     ref_pairs, ref_pair_of = ref_ps.struct_pairs(st)
     assert pairs == ref_pairs
@@ -100,7 +100,7 @@ def test_struct_pairs_match_reference(et, cells):
 def test_gather_and_scatter_match_reference(et, cells, n_comp):
     """The pair-cache gather and the pair-row scatter are exact memory ops
     in both packages: bitwise equal."""
-    mesh = box_mesh_kuhn(*cells, element_type=et)
+    mesh = box_mesh_kuhn(*cells, element_type=et, device="cpu")
     st = mesh.structure
     pairs, _ = sk.struct_pairs(st)
     rng = np.random.default_rng(7)
@@ -116,6 +116,6 @@ def test_gather_and_scatter_match_reference(et, cells, n_comp):
 
 
 def test_soa_rejects_mismatched_dtype():
-    p = soa.SoAProblem.build(box_mesh_kuhn(2, 2, 2, element_type="tet4"), torch.float32)
+    p = soa.SoAProblem.build(box_mesh_kuhn(2, 2, 2, element_type="tet4", device="cpu"), torch.float32)
     with pytest.raises(TypeError):
         soa.soa_freeze(p, NeoHookean(1.0, 0.6), torch.zeros((3, p.n_nodes), dtype=torch.float64))

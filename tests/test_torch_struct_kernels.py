@@ -57,7 +57,7 @@ def lattice(ref):
     jnp, ref_soa = ref["jnp"], ref["soa"]
     ref_mesh = ref["box_mesh_kuhn"](*CELLS, element_type="tet10")
     rp = ref_soa.SoAProblem.build(ref_mesh, jnp.float32)
-    pp = soa.SoAProblem.build(box_mesh_kuhn(*CELLS, element_type="tet10"), torch.float32)
+    pp = soa.SoAProblem.build(box_mesh_kuhn(*CELLS, element_type="tet10", device="cpu"), torch.float32)
     u, v = _fields(ref_mesh.coords_host)
     rmat = ref["nh"](jnp.asarray(1.0, jnp.float32), jnp.asarray(0.6, jnp.float32))
     rstate = ref_soa.soa_freeze(rp, rmat, jnp.asarray(u, jnp.float32))
@@ -116,7 +116,7 @@ def test_plain_freeze_matches_pallas(ref, lattice, kind, port_cls):
 def test_wrappers_run_the_plain_version_on_cpu():
     """CPU tensors go to the plain versions (bitwise), and nothing counts
     as a kernel launch."""
-    mesh = box_mesh_kuhn(*CELLS, element_type="tet10")
+    mesh = box_mesh_kuhn(*CELLS, element_type="tet10", device="cpu")
     pp = soa.SoAProblem.build(mesh, torch.float32)
     u, v = _fields(mesh.coords_host)
     pstate = soa.soa_freeze(pp, NeoHookean(1.0, 0.6), torch.tensor(u, dtype=torch.float32))
