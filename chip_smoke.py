@@ -2,18 +2,24 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths through the mixed-precision Newton solve of
-bench.py's problem (neo-Hookean (1.0, 0.6), zmin fixed, zmax pushed -0.05
-in z, 5% affine start, two-level PCG with 6 coarse modes, EW forcing,
-device_loop=False) at full width, and checks them:
+Drives the port's three paths through a Newton solve of bench.py's problem
+(neo-Hookean (1.0, 0.6), zmin fixed, zmax pushed -0.05 in z, 5% affine
+start, EW forcing with eta_min 1e-2, newton_rtol 1e-6) at full width, and
+checks them:
 
-  * the Kuhn path, bench.py's default: TET10 Kuhn lattice n=35, 1,073,733
+  * the Kuhn path, bench.py's default (mixed precision, two-level PCG with
+    6 coarse modes, device_loop=False): TET10 Kuhn lattice n=35, 1,073,733
     DOF, the lattice kernels B1-B4 and, with resid_df=None, the fused f64
     residual B5 (csrc/struct_kernels.cu);
-  * the 5-tet path, `FEA_BENCH_MESH=5tet FEA_BENCH_PALLAS=1`: TET10 5-tet
-    box n=36, 1,027,083 DOF, aggregates of 100 nodes, the element-block
-    kernels B6-B8 (csrc/elem_kernels.cu), which every f32 pass of an
-    unstructured mesh runs on the card, the coarse-space probes included.
+  * the 5-tet path, `FEA_BENCH_MESH=5tet FEA_BENCH_PALLAS=1` (mixed):
+    TET10 5-tet box n=36, 1,027,083 DOF, aggregates of 100 nodes, the
+    element-block kernels B6-B8 (csrc/elem_kernels.cu), which every f32
+    pass of an unstructured mesh runs on the card, the coarse-space probes
+    included, and, with resid_df=None, the fused f64 residual B9;
+  * the f64 assembled path of config 2 (linear="pcg_bcsr",
+    precision="f64", block-Jacobi PCG, pcg_tol 1e-8, bench.py's f64
+    settings): the same 5-tet box, nnzb 9,184,321, the BCSR product B10
+    (csrc/bcsr_kernels.cu) in every PCG iteration.
 
 Phases:
 
@@ -22,26 +28,34 @@ Phases:
      registers and spills per kernel;
   2. kernel checks, each kernel against its plain PyTorch version on the
      same inputs: B1-B4 and B5 on TET10 and TET4 Kuhn lattices n=21 (C =
-     9,261 = 72*128 + 45 cells), B6-B8 on TET10 and TET4 5-tet boxes n=13
-     (E = 10,985 = 85*128 + 105 elements), every freeze for all three
-     materials. Bounds relative to the largest entry: 2e-5 for the f32
-     kernels, 1e-12 for the f64 residual;
+     9,261 = 72*128 + 45 cells), B6-B9 on TET10 and TET4 5-tet boxes n=13
+     (E = 10,985 = 85*128 + 105 elements), every freeze and f64 residual
+     for all three materials, and B10 in f64 and f32 on the stiffness
+     assembled on those boxes (rows of varying length). Bounds relative to
+     the largest entry: 2e-5 for the f32 kernels, 1e-12 for the f64 ones;
   3. the Kuhn path: n=4 with resid_df=False and with resid_df=None against
      the JAX reference's counts (measured on CPU), then full width with
      resid_df=None;
-  4. the 5-tet path: n=4 against the reference's counts, then full width.
+  4. the 5-tet path: n=4 with resid_df=False and None against the
+     reference's counts, then full width with resid_df=None.
      At full width each path runs setup, one warm-up and two timed solves
      (bitwise-equal u and equal PCG lists required), prints s/step, peak
      memory and setup seconds, requires every kernel of the path launched
-     (counts set to 0 before the path, read after) and the freeze and
-     tangent-action kernels launched by the setup's probes already, and
-     recomputes the converged u's f64 residual on the host CPU (reduction
-     <= 1e-6);
-  5. timings at full width: each kernel and its plain version (CUDA
-     events, median of 10 calls) beside its bound, the passes of one
-     Newton and one PCG iteration on both paths, and the Kuhn solve with
-     the plain and the fused f64 residual in turns;
-  6. a JSON line of the kernels, then the result line.
+     (counts set to 0 before the path, read after), the fused f64 residual
+     launched once per f64 residual and the freeze and tangent-action
+     kernels launched by the setup's probes already, and recomputes the
+     converged u's f64 residual on the host CPU (reduction <= 1e-6);
+  5. the f64 BCSR path: config 2 of tests/test_parity.py (TET10 box 2^3,
+     zmax -0.2, two increments, pcg_tol 1e-13) against the reference's
+     counts, then full width: one warm-up and one timed solve (bitwise-equal
+     u and equal PCG lists), B10 launched at least once per PCG iteration,
+     peak memory, and the host CPU recheck of the converged residual;
+  6. timings at full width: each kernel and its plain version (CUDA
+     events, median of 10 calls) beside its bound, B10 beside cuSPARSE's
+     BSR product (`torch.sparse_bsr_tensor @ x`), the passes of one Newton
+     and one PCG iteration on every path, and the Kuhn and the 5-tet solves
+     with the plain and the fused f64 residual in turns;
+  7. a JSON line of the kernels, then the result line.
 
 Any failed check raises, so the exit code is non-zero and no result line
 is printed. Without a CUDA device it stops in phase 0.
@@ -53,16 +67,26 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
+from fea_large_tpu_torch.assembly.bcsr import BCSRStructure, assemble_bcsr
+from fea_large_tpu_torch.assembly.scatter import NodeScatter
 from fea_large_tpu_torch.bc import DirichletBuilder
+from fea_large_tpu_torch.elements.kernels import element_stiffness, precompute_geometry
 from fea_large_tpu_torch.materials import NeoHookean, NeoHookeanVolumetric, StVenantKirchhoff
 from fea_large_tpu_torch.mesh.generators import box_mesh, box_mesh_kuhn
+from fea_large_tpu_torch.ops import bcsr_kernels as bk
 from fea_large_tpu_torch.ops import cuda_build, elem_kernels as ek, soa, struct_kernels as sk
-from fea_large_tpu_torch.solvers.linear import jacobi_inverse_blocks
+from fea_large_tpu_torch.solvers.linear import (
+    block_jacobi_preconditioner,
+    jacobi_inverse_blocks,
+    pcg_chunk,
+    pcg_init,
+)
 from fea_large_tpu_torch.solvers.newton import (
     NewtonSolver,
     SolverOptions,
@@ -74,8 +98,10 @@ from fea_large_tpu_torch.solvers.newton import (
 
 #: f32 kernel vs f32 plain version: rounding in another summation order
 KERNEL_BOUND = 2e-5
-#: f64 residual kernel vs its f64 plain version
+#: f64 kernel (the fused residuals, the f64 BCSR product) vs its f64 plain
+#: version
 RESID_BOUND = 1e-12
+F64_KERNELS = ("struct_resid", "elem_resid", "bcsr_spmv/f64")
 
 #: H100 SXM data sheet: HBM3 bytes/s, f32 and f64 FLOP/s outside the
 #: tensor cores (at the 700 W power limit)
@@ -88,6 +114,12 @@ REFERENCE_N4 = {"newton_iters": 5, "pcg_iters": [5, 7, 15, 21, 14],
                 "residual0": 0.014014692693970307}
 REFERENCE_5TET_N4 = {"newton_iters": 5, "pcg_iters": [4, 4, 11, 15, 16],
                      "residual0": 0.014014692693970307}
+#: the JAX reference's config 2 (tests/test_parity.py: TET10 5-tet box 2^3,
+#: zmin fixed, zmax -0.2, linear="pcg_bcsr", f64, n_steps=2, pcg_tol
+#: 1e-13), measured on CPU: per increment (load factor, Newton count, PCG
+#: counts, first residual norm)
+REFERENCE_CONFIG2 = [(0.5, 5, [41, 40, 40, 37, 30], 0.5840485492109236),
+                     (1.0, 5, [41, 40, 40, 37, 34], 0.8107087021552396)]
 
 BENCH = dict(
     linear="pcg", precision="mixed", preconditioner="two_level", coarse_modes=6,
@@ -95,15 +127,20 @@ BENCH = dict(
     device_loop=False,
 )
 KUHN = dict(BENCH, resid_df=None)
-FIVE_TET = dict(BENCH, pallas=True, agg_size=100)
+FIVE_TET = dict(BENCH, pallas=True, agg_size=100, resid_df=None)
+#: bench.py's f64 settings (FEA_BENCH_PRECISION=f64: Jacobi, pcg_tol 1e-8)
+#: on the assembled system
+BCSR = dict(linear="pcg_bcsr", precision="f64", forcing="ew", ew_eta_min=1e-2,
+            newton_rtol=1e-6, pcg_tol=1e-8, pcg_maxiter=2000)
 
 #: cells per axis of the phase-2 checks, and (cells per axis, DOF) of the
 #: full-width solves
 CHECK_N = {"kuhn": 21, "5tet": 13}
-FULL = {"kuhn": (35, 1_073_733), "5tet": (36, 1_027_083)}
+FULL = {"kuhn": (35, 1_073_733), "5tet": (36, 1_027_083), "bcsr": (36, 1_027_083)}
 
 STRUCT_SRC = "fea_large_tpu_torch/csrc/struct_kernels.cu"
 ELEM_SRC = "fea_large_tpu_torch/csrc/elem_kernels.cu"
+BCSR_SRC = "fea_large_tpu_torch/csrc/bcsr_kernels.cu"
 KERNELS = {  # name -> (LAUNCHES dict, key, source, TPU kernel it replaces)
     "struct_freeze": (sk.LAUNCHES, "freeze", STRUCT_SRC, "fea_large_tpu/ops/pallas_structured.py:538"),
     "struct_apply": (sk.LAUNCHES, "apply", STRUCT_SRC, "fea_large_tpu/ops/pallas_structured.py:120"),
@@ -113,6 +150,8 @@ KERNELS = {  # name -> (LAUNCHES dict, key, source, TPU kernel it replaces)
     "elem_apply": (ek.LAUNCHES, "apply", ELEM_SRC, "fea_large_tpu/ops/pallas_kernels.py:44"),
     "elem_freeze": (ek.LAUNCHES, "freeze", ELEM_SRC, "fea_large_tpu/ops/pallas_kernels.py:176"),
     "elem_force": (ek.LAUNCHES, "force", ELEM_SRC, "fea_large_tpu/ops/pallas_kernels.py:307"),
+    "elem_resid": (ek.LAUNCHES, "resid", ELEM_SRC, "fea_large_tpu/ops/pallas_residual.py:349"),
+    "bcsr_spmv": (bk.LAUNCHES, "spmv", BCSR_SRC, "fea_large_tpu/ops/pallas_kernels.py:376"),
 }
 
 #: arithmetic per quadrature point, counted from the kernels' sources
@@ -152,7 +191,7 @@ def nbytes(*tensors):
 
 
 def reset_launches():
-    for counts in (sk.LAUNCHES, ek.LAUNCHES):
+    for counts in (sk.LAUNCHES, ek.LAUNCHES, bk.LAUNCHES):
         for key in counts:
             counts[key] = 0
 
@@ -192,16 +231,17 @@ def phase_card():
 
 def phase_build():
     print("== phase 1: build (one nvcc per source, started together)")
-    sources = (sk.SOURCE, ek.SOURCE)
+    sources = (sk.SOURCE, ek.SOURCE, bk.SOURCE)
     with ThreadPoolExecutor(len(sources)) as pool:
         builds = list(pool.map(cuda_build.build_library, sources))
     sk._library()
     ek._library()
+    bk._library()
     for src, (path, seconds, log) in zip(sources, builds):
         print(f"{src.name}: {path.name} (nvcc {seconds:.1f} s{'' if seconds else ', reused'})")
         name = None
         for line in log.splitlines():  # ptxas -v: entry function, spills, registers
-            m = re.search(r"([a-z]+_kernel)I([fd]?)((?:Li\d+E)+)", line)
+            m = re.search(r"([a-z]+_kernel)I([fd]?)((?:Li\d+E)*)", line)
             if "Compiling entry function" in line and m:
                 args = ([m.group(2)] if m.group(2) else []) + re.findall(r"Li(\d+)E", m.group(3))
                 name = f"{m.group(1)}<{', '.join(args)}>"
@@ -228,14 +268,52 @@ def lattice_inputs(mesh):
 
 
 def element_inputs(mesh):
-    """f32 problem of a 5-tet box and the element kernels' inputs."""
+    """f32 and f64 problems of a 5-tet box and the element kernels' inputs."""
     p = soa.SoAProblem.build(mesh, torch.float32)
+    p64 = soa.SoAProblem.build(mesh, torch.float64, share_maps_from=p)
     q, npe, _, E = p.gradN.shape
     u, v = smooth_fields(mesh.coords_host, mesh.device)
+    u64, _ = smooth_fields(mesh.coords_host, mesh.device, torch.float64)
     ue, ve = ek._gather_flat(p, u), ek._gather_flat(p, v)
     gradN = p.gradN.view(q * npe * 3, E)
     rows = ek.elem_freeze_plain(ue, gradN, NeoHookean(1.0, 0.6), npe=npe, q=q)
-    return dict(p=p, q=q, npe=npe, E=E, ue=ue, ve=ve, gradN=gradN, rows=rows)
+    return dict(p=p, q=q, npe=npe, E=E, ue=ue, ve=ve, gradN=gradN, rows=rows,
+                ue64=ek._gather_flat(p64, u64), gradN64=p64.gradN.view(q * npe * 3, E),
+                dV64=p64.detJxW)
+
+
+def spmv_x(n_nodes, device):
+    """A seeded random x [N, 3] f64 for the product checks: a smooth field
+    nearly cancels in K x, and the rounding relative to the output would
+    then grow with the cancellation, not with the kernel's error."""
+    x = np.random.default_rng(0).standard_normal((n_nodes, 3))
+    return torch.tensor(x, dtype=torch.float64, device=device)
+
+
+def bcsr_inputs(mesh):
+    """The BCSR structure of a 5-tet box, its stiffness at bench.py's smooth
+    field, and a random x, in f64 and f32."""
+    structure = BCSRStructure.build(mesh.conn_host, mesh.n_nodes, mesh.device)
+    u, _ = smooth_fields(mesh.coords_host, mesh.device, torch.float64)
+    geom = precompute_geometry(mesh.coords, mesh.conn, mesh.element)
+    K, _ = assemble_bcsr(u.T.contiguous(), mesh.conn, geom, NeoHookean(1.0, 0.6), structure,
+                         NodeScatter.build(mesh.conn_host, mesh.n_nodes, mesh.device))
+    x = spmv_x(mesh.n_nodes, mesh.device)
+    return dict(structure=structure, data64=K.data, x64=x, data32=K.data.float(), x32=x.float())
+
+
+def bcsr_calls(b):
+    """{name: (kernel call, plain call, inputs)} of B10 in f64 and f32; the
+    inputs are what the product reads once."""
+    st = b["structure"]
+    calls = {}
+    for tag in ("64", "32"):
+        data, x = b["data" + tag], b["x" + tag]
+        calls[f"bcsr_spmv/f{tag}"] = (
+            lambda d=data, v=x: bk.bcsr_spmv(st, d, v),
+            lambda d=data, v=x: bk.bcsr_spmv_plain(st, d, v),
+            (st.indptr, st.indices, data, x))
+    return calls
 
 
 def lattice_calls(x, materials):
@@ -265,11 +343,16 @@ def element_calls(x, materials):
     q, npe, ue, ve, gradN, rows = x["q"], x["npe"], x["ue"], x["ve"], x["gradN"], x["rows"]
     dV = x["p"].detJxW
     kw = dict(npe=npe, q=q)
+    ue64, gradN64, dV64 = x["ue64"], x["gradN64"], x["dV64"]
     calls = {}
     for mat in materials:
         calls[f"elem_freeze/{mat.name}"] = (
             lambda m=mat: ek.elem_freeze(ue, gradN, m, **kw),
             lambda m=mat: ek.elem_freeze_plain(ue, gradN, m, **kw), (ue, gradN), mat.kind)
+        calls[f"elem_resid/{mat.name}"] = (
+            lambda m=mat: ek.elem_resid(ue64, gradN64, dV64, m, **kw),
+            lambda m=mat: ek.elem_resid_plain(ue64, gradN64, dV64, m, **kw),
+            (ue64, gradN64, dV64), mat.kind)
     calls["elem_apply"] = (lambda: ek.elem_apply(ve, gradN, dV, *rows, **kw),
                            lambda: ek.elem_apply_plain(ve, gradN, dV, *rows, **kw),
                            (ve, gradN, dV, *rows), 1)
@@ -281,14 +364,14 @@ def element_calls(x, materials):
 
 def run_checks(calls):
     """Kernel vs plain on the same inputs: {name: (abs, rel)}."""
-    out = {name: compare(kern(), plain()) for name, (kern, plain, _, _) in calls.items()}
+    out = {name: compare(c[0](), c[1]()) for name, c in calls.items()}
     torch.cuda.synchronize()
     return out
 
 
 def report_checks(label, errs):
     for name, (err, rel) in errs.items():
-        bound = RESID_BOUND if name.startswith("struct_resid") else KERNEL_BOUND
+        bound = RESID_BOUND if name.startswith(F64_KERNELS) else KERNEL_BOUND
         ok = rel <= bound
         print(f"  {label:10s} {name:28s} rel {rel:.3e}  bound {bound:.0e}  "
               f"abs {err:.3e}  {'ok' if ok else 'FAIL'}")
@@ -304,10 +387,18 @@ def phase_kernel_checks(device):
         C = x["tb"].C
         print(f"Kuhn {et} n={nk}: C = {C} cells = {C // 128} x 128 + {C % 128}")
         report_checks(f"kuhn {et}", run_checks(lattice_calls(x, MATERIALS)))
-        x = element_inputs(box_mesh(n5, n5, n5, element_type=et, device=device))
+        mesh5 = box_mesh(n5, n5, n5, element_type=et, device=device)
+        x = element_inputs(mesh5)
         E = x["E"]
         print(f"5-tet {et} n={n5}: E = {E} elements = {E // ek.BLOCK} x {ek.BLOCK} + {E % ek.BLOCK}")
         report_checks(f"5tet {et}", run_checks(element_calls(x, MATERIALS)))
+        b = bcsr_inputs(mesh5)
+        st = b["structure"]
+        lengths = (st.indptr[1:] - st.indptr[:-1]).tolist()
+        print(f"BCSR {et} n={n5}: N = {st.n_nodes} rows = {st.n_nodes // bk.BLOCK} x {bk.BLOCK} "
+              f"+ {st.n_nodes % bk.BLOCK}, nnzb {st.nnzb}, blocks per row {min(lengths)}-{max(lengths)}")
+        check(min(lengths) < max(lengths), "the BCSR rows vary in length")
+        report_checks(f"bcsr {et}", run_checks(bcsr_calls(b)))
     print(f"phase 2: {time.perf_counter() - t0:.1f} s")
 
 
@@ -329,11 +420,20 @@ def solve_n4(build, opts, reference, label, device):
     return solver
 
 
+def f64_residuals(rec):
+    """How many of a mixed solve's residuals took the f64 pass: the first,
+    and every one after a residual at or below 3e-2 of the first (the
+    resid32 gate of `_newton_mixed` under EW forcing)."""
+    norms = rec.residual_norms
+    return sum(1 for it in range(len(norms)) if it == 0 or norms[it - 1] <= 3e-2 * norms[0])
+
+
 def full_width(label, build, opts, keys, device, card):
     """Setup, warm-up and two timed solves at full width; launch counts of
     the path's kernels `keys` (names in KERNELS) over the whole run. The
     setup's coarse-space probes must already launch the path's freeze and
-    tangent-action kernels."""
+    tangent-action kernels, and the path's fused residual kernel must
+    launch once per f64 residual of the solves."""
     n, n_dof = FULL[label]
     t0 = time.perf_counter()
     mesh = build(n, n, n, element_type="tet10", device=device)
@@ -360,6 +460,7 @@ def full_width(label, build, opts, keys, device, card):
     torch.cuda.synchronize()
     print(f"warm-up solve: {time.perf_counter() - t2:.3f} s, ok={ok}, newton {rec.newton_iters}, "
           f"pcg {rec.pcg_iters}")
+    n_f64 = f64_residuals(rec)
     runs = []
     for rep in range(2):
         t3 = time.perf_counter()
@@ -372,11 +473,15 @@ def full_width(label, build, opts, keys, device, card):
               f"(reduction {red:.3e}), {dt / max(rec.newton_iters, 1):.5f} s/step")
         check(ok and red <= 1e-6, f"{label} solve {rep} converged to reduction <= 1e-6")
         runs.append((u, rec, dt))
+        n_f64 += f64_residuals(rec)
     launches = {name: KERNELS[name][0][KERNELS[name][1]] for name in keys}
     peak = torch.cuda.max_memory_allocated()
     print(f"kernel launches (setup + 3 solves): {launches}")
     print(f"peak device memory: {peak} B ({peak / 2**30:.2f} GiB)")
     check(all(v > 0 for v in launches.values()), f"every kernel of the {label} path launched")
+    resid = next(k for k in keys if k.endswith("_resid"))
+    print(f"f64 residuals in the 3 solves: {n_f64}, {resid} launches: {launches[resid]}")
+    check(launches[resid] == n_f64, f"{resid} launched once per f64 residual")
     (ua, reca, _), (ub, recb, _) = runs
     check(torch.equal(ua, ub), "two timed solves give bitwise-equal u")
     check(reca.pcg_iters == recb.pcg_iters and reca.residual_norms == recb.residual_norms,
@@ -417,11 +522,91 @@ def phase_kuhn(device, card):
 def phase_5tet(device, card):
     print(f"== phase 4: 5-tet path ({card})")
     t0 = time.perf_counter()
-    solve_n4(box_mesh, FIVE_TET, REFERENCE_5TET_N4, "5tet", device)
+    solve_n4(box_mesh, dict(FIVE_TET, resid_df=False), REFERENCE_5TET_N4, "5tet resid_df=False",
+             device)
+    solver = solve_n4(box_mesh, FIVE_TET, REFERENCE_5TET_N4, "5tet resid_df=None", device)
+    check(solver._resid_df, "resid_df=None routes the fused residual B9 on the card")
     out = full_width("5tet", box_mesh, FIVE_TET,
                      [k for k in KERNELS if k.startswith("elem_")], device, card)
     print(f"phase 4: {time.perf_counter() - t0:.1f} s")
     return out
+
+
+def phase_bcsr(device, card):
+    print(f"== phase 5: f64 BCSR path ({card})")
+    t0 = time.perf_counter()
+    mat = NeoHookean(1.0, 0.6)
+    mesh = box_mesh(2, 2, 2, element_type="tet10", device=device)
+    bc = DirichletBuilder(mesh).fix("zmin").prescribe("zmax", "z", -0.2).build()
+    res = NewtonSolver(mesh, mat, bc, options=SolverOptions(
+        linear="pcg_bcsr", n_steps=2, pcg_tol=1e-13)).solve()
+    got = [(r.load_factor, r.newton_iters, r.pcg_iters, r.residual_norms[0]) for r in res.history]
+    print(f"config 2: {got}\n  (reference: {REFERENCE_CONFIG2})")
+    check(res.converged and len(got) == len(REFERENCE_CONFIG2),
+          "config 2 converges in the reference's increments")
+    for (lf, newton, pcg, r0), (lf_r, newton_r, pcg_r, r0_r) in zip(got, REFERENCE_CONFIG2):
+        check(lf == lf_r and newton == newton_r, "config 2 load factors and Newton counts")
+        check(len(pcg) == len(pcg_r) and all(abs(a - b) <= 1 for a, b in zip(pcg, pcg_r)),
+              "config 2 PCG counts within 1")
+        check(abs(r0 - r0_r) <= 1e-12 * r0_r, "config 2 first residual of each increment")
+    n, n_dof = FULL["bcsr"]
+    t1 = time.perf_counter()
+    mesh = box_mesh(n, n, n, element_type="tet10", device=device)
+    bc = bench_bc(mesh)
+    check(mesh.n_dof == n_dof, f"bcsr full width is {n_dof} DOF, got {mesh.n_dof}")
+    u0 = bench_start(mesh, bc)
+    torch.cuda.synchronize()
+    t_mesh = time.perf_counter() - t1
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t2 = time.perf_counter()
+    solver = NewtonSolver(mesh, mat, bc, options=SolverOptions(**BCSR))
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t2
+    st = solver.bcsr
+    print(f"bcsr n={n}: {mesh.n_nodes} nodes, {mesh.n_elements} tets, {mesh.n_dof} DOF, "
+          f"nnzb {st.nnzb} ({st.nnzb / st.n_nodes:.1f} blocks per row); mesh {t_mesh:.2f} s, "
+          f"solver setup (host BCSR build) {t_setup:.2f} s")
+    runs = []
+    for rep in ("warm-up", "timed"):
+        t3 = time.perf_counter()
+        u, ok, rec = solver._newton(u0, 1.0)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t3
+        red = rec.residual_norms[-1] / rec.residual_norms[0]
+        print(f"{rep} solve: {dt:.4f} s, newton {rec.newton_iters}, pcg {rec.pcg_iters} "
+              f"(total {sum(rec.pcg_iters)}), |R| {rec.residual_norms[0]:.6e} -> "
+              f"{rec.residual_norms[-1]:.6e} (reduction {red:.3e}), "
+              f"{dt / max(rec.newton_iters, 1):.5f} s/step")
+        check(ok and red <= 1e-6, f"bcsr {rep} solve converged to reduction <= 1e-6")
+        runs.append((u, rec, dt))
+    launches = bk.LAUNCHES["spmv"]
+    total_pcg = sum(sum(r.pcg_iters) for _, r, _ in runs)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"bcsr_spmv launches (2 solves): {launches}, PCG iterations: {total_pcg}")
+    print(f"peak device memory: {peak} B ({peak / 2**30:.2f} GiB)")
+    check(launches >= total_pcg, "B10 launched at least once per PCG iteration")
+    (ua, reca, _), (ub, recb, dtb) = runs
+    check(torch.equal(ua, ub), "warm-up and timed solve give bitwise-equal u")
+    check(reca.pcg_iters == recb.pcg_iters and reca.residual_norms == recb.residual_norms,
+          "warm-up and timed solve give identical PCG lists and residual norms")
+    check(bool(torch.isfinite(ua).all()) and tuple(ua.shape) == (mesh.n_nodes, 3), "finite u [N, 3]")
+    mesh_cpu = box_mesh(n, n, n, element_type="tet10", device="cpu")
+    p64 = soa.SoAProblem.build(mesh_cpu, torch.float64)
+    _, r_cpu = _residual_soa_fn(ua.cpu(), 1.0, p64, mat, bench_bc(mesh_cpu),
+                                torch.zeros((mesh.n_nodes, 3), dtype=torch.float64))
+    red_cpu = float(r_cpu) / reca.residual_norms[0]
+    print(f"host CPU f64 residual of the converged u: {float(r_cpu):.6e} (reduction {red_cpu:.3e})")
+    check(red_cpu <= 1e-6, "host-recomputed residual reduction <= 1e-6")
+    summary = {
+        "path": "bcsr", "n_dof": mesh.n_dof, "nnzb": st.nnzb, "newton_iters": recb.newton_iters,
+        "pcg_iters": recb.pcg_iters, "residual_reduction": red, "s_per_step": dtb / recb.newton_iters,
+        "solve_s": [dt for _, _, dt in runs], "setup_s": t_setup, "peak_bytes": peak,
+        "launches": {"bcsr_spmv": launches}, "card": card,
+    }
+    print("slice: " + json.dumps(summary))
+    print(f"phase 5: {time.perf_counter() - t0:.1f} s")
+    return solver, u0, {"bcsr_spmv": launches}
 
 
 def cuda_ms(fn, n=10):
@@ -484,25 +669,81 @@ def newton_pcg_passes(solver, u0, mat, freeze, f64_resid):
     }
 
 
-def resid_df_turns(solver, u0):
-    """The Kuhn solve with its f64 residual as the plain pass (resid_df
-    False, the path before B5) and as B5, in turns on one solver and one
-    card (plain, B5, B5, plain): seconds per Newton step of each."""
+def resid_df_turns(solver, u0, label, rounds=3):
+    """A mixed solve with its f64 residual as the plain pass (resid_df
+    False) and as the fused kernel, in turns on one solver and one card
+    (rounds of plain, fused, fused, plain): seconds per Newton step of
+    each, and their medians."""
     per_step = {False: [], True: []}
-    for fused in (False, True, True, False):
+    for fused in (False, True, True, False) * rounds:
         solver._resid_df = fused
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         _, ok, rec = solver._newton(u0, 1.0)
         torch.cuda.synchronize()
-        check(ok, "Kuhn solve converged")
+        check(ok, f"{label} solve converged")
         per_step[fused].append((time.perf_counter() - t0) / rec.newton_iters)
     solver._resid_df = True
-    print(f"  Kuhn s/step, f64 residual plain: {per_step[False]}, fused (B5): {per_step[True]}")
+    print(f"  {label} s/step, f64 residual plain: {per_step[False]}, fused: {per_step[True]}; "
+          f"medians {statistics.median(per_step[False]):.5f} plain, "
+          f"{statistics.median(per_step[True]):.5f} fused")
 
 
-def phase_timings(kuhn, five_tet, card):
-    print(f"== phase 5: full-width timings (CUDA events, median of 10; {card})")
+def bcsr_timings(solver, u0, mat, table):
+    """B10 at full width on the stiffness at u0 (f64): kernel vs plain,
+    its bound, cuSPARSE's BSR product, and the passes of one Newton and
+    one PCG iteration of the assembled path."""
+    st, bc = solver.bcsr, solver.bc
+    K, _ = assemble_bcsr(u0, solver.mesh.conn, solver.geom, mat, st, solver.scatter)
+    x = spmv_x(st.n_nodes, u0.device)
+    calls = bcsr_calls(dict(structure=st, data64=K.data, x64=x, data32=K.data.float(),
+                            x32=x.float()))
+    errs = run_checks(calls)
+    report_checks("bcsr full", errs)
+    kern, plain, inputs = calls["bcsr_spmv/f64"]
+    y = kern()
+    t_bytes = (nbytes(*inputs) + nbytes(y)) / HBM_BYTES_S
+    t_ops = 18 * st.nnzb / PEAK_FLOPS[torch.float64]
+    b_ms, b_by = max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+    ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
+    N = st.n_nodes
+    try:
+        with warnings.catch_warnings():  # torch marks BSR tensors as beta
+            warnings.simplefilter("ignore", UserWarning)
+            A = torch.sparse_bsr_tensor(st.indptr, st.indices, K.data, size=(3 * N, 3 * N))
+        xc = x.reshape(3 * N, 1)
+        lib_err = rel_err((A @ xc).reshape(N, 3), y)[1]
+        lib_ms = cuda_ms(lambda: A @ xc)
+        lib = f"{lib_ms:9.4f} ms (rel diff to the kernel {lib_err:.2e})"
+    except (RuntimeError, NotImplementedError) as exc:  # a yardstick, not a path of the port
+        lib_ms, lib = None, f"refused by torch on this card: {str(exc).splitlines()[0]}"
+    table["bcsr_spmv"] = dict(bound_ms=b_ms, bound_by=b_by, ms=ms, plain_ms=plain_ms,
+                              max_abs_err=errs["bcsr_spmv/f64"][0], library_ms=lib_ms)
+    print(f"  {'bcsr_spmv/f64':24s} kernel {ms:9.4f} ms   plain {plain_ms:9.4f} ms   bound "
+          f"{b_ms:8.4f} ms ({b_by}, {100 * b_ms / ms:5.1f}% of it)")
+    print(f"  {'bcsr_spmv/f32':24s} kernel {cuda_ms(calls['bcsr_spmv/f32'][0]):9.4f} ms")
+    print(f"  cuSPARSE BSR product (torch.sparse_bsr_tensor @ x, f64): {lib}")
+    ue = u0[solver.mesh.conn]
+    Ke, _ = element_stiffness(ue, solver.geom, mat)
+    free = bc.free_mask
+    precond = block_jacobi_preconditioner(K.block_diagonal(), free)
+
+    def matvec(v):
+        vm = bc.project(v)
+        return bc.project(K.matvec(vm)) + (v - vm)
+
+    pcg_state = pcg_init(matvec, bc.project(x), precond, tol=1e-30)
+    time_passes({
+        "f64 residual (_residual_fn)": lambda: solver._residual(u0, 1.0),
+        "element_stiffness f64": lambda: element_stiffness(ue, solver.geom, mat),
+        "assemble_blocks f64": lambda: st.assemble_blocks(Ke),
+        "block-Jacobi preconditioner": lambda: precond(x),
+        "one PCG iteration": lambda: pcg_chunk(matvec, pcg_state, precond, maxiter=1),
+    })
+
+
+def phase_timings(kuhn, five_tet, bcsr, card):
+    print(f"== phase 6: full-width timings (CUDA events, median of 10; {card})")
     t0 = time.perf_counter()
     mat = NeoHookean(1.0, 0.6)
     table = {}
@@ -516,17 +757,22 @@ def phase_timings(kuhn, five_tet, card):
     time_passes(newton_pcg_passes(solver, u0, mat, soa.soa_freeze, _residual_df_fn))
     time_passes({"f64 residual (_residual_soa_fn)": lambda: _residual_soa_fn(
         u0, 1.0, solver._soa64, mat, solver.bc, solver.f_ext)})
-    resid_df_turns(solver, u0)
+    resid_df_turns(solver, u0, "Kuhn")
     solver5, u05, _ = five_tet
     y = element_inputs(solver5.mesh)
     calls5 = element_calls(y, (mat,))
     errs5 = run_checks(calls5)
     report_checks("5tet full", errs5)
     time_calls(calls5, y["q"] * y["E"], y["npe"], table)
-    time_passes(newton_pcg_passes(solver5, u05, mat, soa.soa_freeze, _residual_soa_fn))
+    time_passes(newton_pcg_passes(solver5, u05, mat, soa.soa_freeze, _residual_df_fn))
+    time_passes({"f64 residual (_residual_soa_fn)": lambda: _residual_soa_fn(
+        u05, 1.0, solver5._soa64, mat, solver5.bc, solver5.f_ext)})
+    resid_df_turns(solver5, u05, "5-tet")
     for name, (err, _) in {**errs, **errs5}.items():
         table[name.split("/")[0]]["max_abs_err"] = err
-    print(f"phase 5: {time.perf_counter() - t0:.1f} s")
+    solver_b, u0b, _ = bcsr
+    bcsr_timings(solver_b, u0b, mat, table)
+    print(f"phase 6: {time.perf_counter() - t0:.1f} s")
     return table
 
 
@@ -539,8 +785,9 @@ def main():
     phase_kernel_checks(device)
     kuhn = phase_kuhn(device, card)
     five_tet = phase_5tet(device, card)
-    table = phase_timings(kuhn, five_tet, card)
-    launches = {**kuhn[2], **five_tet[2]}
+    bcsr = phase_bcsr(device, card)
+    table = phase_timings(kuhn, five_tet, bcsr, card)
+    launches = {**kuhn[2], **five_tet[2], **bcsr[2]}
     kernels = []
     for name, (_, _, source, replaces) in KERNELS.items():
         t = table[name]
@@ -548,7 +795,7 @@ def main():
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": None,
+            "library_ms": t.get("library_ms"),
         })
     print(f"total: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))

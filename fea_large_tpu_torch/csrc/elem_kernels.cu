@@ -1,14 +1,17 @@
-// Element-block passes for Hopper (sm_90a): freeze, tangent action and
-// internal force of the mixed-precision Newton path on an unstructured
-// tetrahedral mesh (any mesh without a Kuhn-lattice BoxStructure).
+// Element-block passes for Hopper (sm_90a): freeze, tangent action,
+// internal force and f64 residual of the mixed-precision Newton path on an
+// unstructured tetrahedral mesh (any mesh without a Kuhn-lattice
+// BoxStructure).
 //
-// Replaces the three element-block Pallas TPU kernels of
-// fea_large_tpu/ops/pallas_kernels.py:
-//   fea_elem_apply_f32   <- _apply_kernel   (B6)
-//   fea_elem_freeze_f32  <- _freeze_kernel  (B7)
-//   fea_elem_force_f32   <- _force_kernel   (B8)
-// Each computes what its TPU kernel computes; the plain PyTorch versions sit
-// beside the wrappers in fea_large_tpu_torch/ops/elem_kernels.py.
+// Replaces the four element-block Pallas TPU kernels:
+//   fea_elem_apply_f32   <- pallas_kernels.py::_apply_kernel        (B6)
+//   fea_elem_freeze_f32  <- pallas_kernels.py::_freeze_kernel       (B7)
+//   fea_elem_force_f32   <- pallas_kernels.py::_force_kernel        (B8)
+//   fea_elem_resid_f64   <- pallas_residual.py::_resid_kernel_unstr (B9)
+// (files under fea_large_tpu/ops/). Each computes what its TPU kernel
+// computes; the plain PyTorch versions sit beside the wrappers in
+// fea_large_tpu_torch/ops/elem_kernels.py. B9 runs in native f64 where the
+// TPU kernel splits every operand into (hi, lo) f32 pairs.
 //
 // Layout (kept from the reference): every operand is [rows, E], E elements,
 // element axis last. Gathered nodal values ve/ue rows 3a + i, geometry
@@ -31,9 +34,13 @@
 // TET10 element B6 reads 30 + 120 + 4 + 3*36 + 2*4 rows and writes 30
 // (300 rows, 280 MB per call at E = 233,280), B7 reads 150 and writes 116
 // (266 rows, 248 MB), B8 reads 120 + 4 + 2*36 and writes 30 (226 rows,
-// 211 MB), against ~0.5-1 kFLOP of f32 arithmetic per element-point. The
-// design reads each operand exactly once and keeps every temporary in
-// registers.
+// 211 MB), against ~0.5-1 kFLOP of f32 arithmetic per element-point. B9
+// reads 30 + 120 + 4 and writes 30 rows of f64 (184 rows, 343 MB) against
+// ~0.6 kFLOP of f64 per element-point: it writes no state, where the
+// two-pass f64 residual writes F and S and reads them back. The design
+// reads each operand exactly once and keeps every temporary in registers
+// (B9 keeps 30 nodal values and 30 accumulators in double; ptxas reports
+// its registers and spills in the build log).
 
 #include <cuda_runtime.h>
 
@@ -47,9 +54,9 @@ using fea::right_cauchy_green;
 constexpr int kMaxBlock = 256;
 
 // The 3*npe gathered nodal values of element e: v[a][i] = rows 3a + i.
-template <int NPE>
-__device__ __forceinline__ void load_nodal(const float* __restrict__ rows, size_t E,
-                                           int e, float v[NPE][3]) {
+template <int NPE, typename T>
+__device__ __forceinline__ void load_nodal(const T* __restrict__ rows, size_t E, int e,
+                                           T v[NPE][3]) {
 #pragma unroll
   for (int a = 0; a < NPE; ++a)
 #pragma unroll
@@ -57,9 +64,9 @@ __device__ __forceinline__ void load_nodal(const float* __restrict__ rows, size_
 }
 
 // The shape-function gradients of element e at point k: g[a][J].
-template <int NPE>
-__device__ __forceinline__ void load_grad(const float* __restrict__ gN, int k, size_t E,
-                                          int e, float g[NPE][3]) {
+template <int NPE, typename T>
+__device__ __forceinline__ void load_grad(const T* __restrict__ gN, int k, size_t E, int e,
+                                          T g[NPE][3]) {
 #pragma unroll
   for (int a = 0; a < NPE; ++a)
 #pragma unroll
@@ -67,14 +74,13 @@ __device__ __forceinline__ void load_grad(const float* __restrict__ gN, int k, s
 }
 
 // G[i][J] = sum_a v[a][i] g[a][J]
-template <int NPE>
-__device__ __forceinline__ void nodal_grad(const float v[NPE][3], const float g[NPE][3],
-                                           float G[3][3]) {
+template <int NPE, typename T>
+__device__ __forceinline__ void nodal_grad(const T v[NPE][3], const T g[NPE][3], T G[3][3]) {
 #pragma unroll
   for (int i = 0; i < 3; ++i)
 #pragma unroll
     for (int J = 0; J < 3; ++J) {
-      float s = 0.f;
+      T s = T(0);
 #pragma unroll
       for (int a = 0; a < NPE; ++a) s += v[a][i] * g[a][J];
       G[i][J] = s;
@@ -82,9 +88,9 @@ __device__ __forceinline__ void nodal_grad(const float v[NPE][3], const float g[
 }
 
 // acc[i][a] += sum_J PV[i][J] g[a][J]
-template <int NPE>
-__device__ __forceinline__ void add_nodal(const float PV[3][3], const float g[NPE][3],
-                                          float acc[3][NPE]) {
+template <int NPE, typename T>
+__device__ __forceinline__ void add_nodal(const T PV[3][3], const T g[NPE][3],
+                                          T acc[3][NPE]) {
 #pragma unroll
   for (int i = 0; i < 3; ++i)
 #pragma unroll
@@ -108,9 +114,9 @@ __device__ __forceinline__ void store3(float* __restrict__ buf, int k, size_t E,
     for (int j = 0; j < 3; ++j) buf[(size_t)(k * 9 + 3 * i + j) * E + e] = M[i][j];
 }
 
-template <int NPE>
-__device__ __forceinline__ void store_out(float* __restrict__ out, size_t E, int e,
-                                          const float acc[3][NPE]) {
+template <int NPE, typename T>
+__device__ __forceinline__ void store_out(T* __restrict__ out, size_t E, int e,
+                                          const T acc[3][NPE]) {
 #pragma unroll
   for (int i = 0; i < 3; ++i)
 #pragma unroll
@@ -256,6 +262,45 @@ force_kernel(const float* __restrict__ gN, const float* __restrict__ dV,
   store_out<NPE>(out, Es, e, acc);
 }
 
+// ---------------------------------------------------------------------------
+// B9 f64 residual: F = I + sum_a u_a (x) g_a, C = F^T F, S(C), and
+// out[i][a] = sum_q V (F S)_iJ g_a[J], in one pass with no state written.
+// Replaces pallas_residual.py::_resid_kernel_unstr.
+// ---------------------------------------------------------------------------
+template <int Q, int NPE>
+__global__ void __launch_bounds__(kMaxBlock)
+resid_kernel(const double* __restrict__ ue, const double* __restrict__ gN,
+             const double* __restrict__ dV, double* __restrict__ out, int E, int kind,
+             double lam, double mu) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= E) return;
+  const size_t Es = E;
+  double u[NPE][3], acc[3][NPE];
+  load_nodal<NPE>(ue, Es, e, u);
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int a = 0; a < NPE; ++a) acc[i][a] = 0.0;
+#pragma unroll 1
+  for (int k = 0; k < Q; ++k) {
+    double g[NPE][3], F[3][3], Cm[3][3], S[3][3], A[3][3], PV[3][3], alpha, beta;
+    load_grad<NPE>(gN, k, Es, e, g);
+    nodal_grad<NPE>(u, g, F);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) F[i][i] += 1.0;
+    right_cauchy_green(F, Cm);
+    material_point(kind, lam, mu, Cm, S, A, alpha, beta);
+    const double V = dV[(size_t)k * Es + e];
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int J = 0; J < 3; ++J)
+        PV[i][J] = (F[i][0] * S[0][J] + F[i][1] * S[1][J] + F[i][2] * S[2][J]) * V;
+    add_nodal<NPE>(PV, g, acc);
+  }
+  store_out<NPE>(out, Es, e, acc);
+}
+
 inline bool bad_launch(int E, int block) {
   return E <= 0 || block <= 0 || block > kMaxBlock || block % 32 != 0;
 }
@@ -312,6 +357,17 @@ int fea_elem_force_f32(const float* gN, const float* dV, const float* F, const f
   FEA_ELEM_DISPATCH(q, npe,
                     force_kernel<kQ, kNPE><<<grid_for(E, block), block, 0, s>>>(
                         gN, dV, F, S, out, E));
+  return (int)cudaGetLastError();
+}
+
+int fea_elem_resid_f64(const double* ue, const double* gN, const double* dV, double* out,
+                       int E, int q, int npe, int block, int kind, double lam, double mu,
+                       void* stream) {
+  if (bad_launch(E, block) || kind < 0 || kind > 2) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  FEA_ELEM_DISPATCH(q, npe,
+                    resid_kernel<kQ, kNPE><<<grid_for(E, block), block, 0, s>>>(
+                        ue, gN, dV, out, E, kind, lam, mu));
   return (int)cudaGetLastError();
 }
 

@@ -1,7 +1,10 @@
 """Build the port's objects from numpy arrays, so that the JAX reference and
 the port can compute on the same inputs (the tests convert the reference's
 objects to numpy and hand them here). Takes numpy only; never imports the
-reference."""
+reference.
+
+Every builder builds on the card unless the caller passes `device="cpu"`;
+without CUDA the default raises (no fallback), as the mesh generators do."""
 
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ def _tuples(x):
 
 
 def mesh_from_numpy(coords, conn, element_type: str, node_sets: dict | None = None,
-                    structure_fields: dict | None = None, device="cpu") -> Mesh:
+                    structure_fields: dict | None = None, device="cuda") -> Mesh:
     """Mesh from coords [N, 3], conn [E, npe], named node sets and, for a
     Kuhn lattice, the BoxStructure fields (None: an unstructured mesh) (cells, classes, class_dims,
     class_base, slot_class, slot_offset) as nested sequences of ints."""
@@ -38,7 +41,7 @@ def mesh_from_numpy(coords, conn, element_type: str, node_sets: dict | None = No
                        structure=structure, device=device)
 
 
-def dirichlet_from_numpy(free_mask, prescribed_values, device="cpu") -> DirichletBC:
+def dirichlet_from_numpy(free_mask, prescribed_values, device="cuda") -> DirichletBC:
     """DirichletBC from the [N, 3] free mask and total prescribed values."""
     dev = as_device(device)
     return DirichletBC(
@@ -54,7 +57,7 @@ def material_from_numpy(kind, lam, mu) -> Material:
     return cls(float(np.asarray(lam)), float(np.asarray(mu)))
 
 
-def soa_state_from_numpy(F, S, A, alpha, beta, dtype=torch.float32, device="cpu") -> SoAState:
+def soa_state_from_numpy(F, S, A, alpha, beta, dtype=torch.float32, device="cuda") -> SoAState:
     """SoAState from F, S, A [q, 3, 3, E] and alpha, beta [q, E]."""
     dev = as_device(device)
 
@@ -64,7 +67,7 @@ def soa_state_from_numpy(F, S, A, alpha, beta, dtype=torch.float32, device="cpu"
     return SoAState(F=t(F), S=t(S), A=t(A), alpha=t(alpha), beta=t(beta))
 
 
-def scatter_buckets_from_numpy(idx, mask, inv, device="cpu") -> ScatterBuckets:
+def scatter_buckets_from_numpy(idx, mask, inv, device="cuda") -> ScatterBuckets:
     """ScatterBuckets from per-bucket idx [nb, cap] and mask [nb, cap]
     sequences and inv [N]."""
     dev = as_device(device)
@@ -76,7 +79,7 @@ def scatter_buckets_from_numpy(idx, mask, inv, device="cpu") -> ScatterBuckets:
 
 
 def soa_problem_from_numpy(n_nodes, gradN, detJxW, conn_T, buckets,
-                           dtype=torch.float32, device="cpu") -> SoAProblem:
+                           dtype=torch.float32, device="cuda") -> SoAProblem:
     """Unstructured SoAProblem from gradN [q, npe, 3, E], detJxW [q, E],
     conn_T [npe, E] and a ScatterBuckets."""
     dev = as_device(device)

@@ -1,6 +1,7 @@
-"""Element-block passes on unstructured meshes: the three Hopper kernels and
+"""Element-block passes on unstructured meshes: the four Hopper kernels and
 their plain PyTorch versions (counterpart of
-`fea_large_tpu/ops/pallas_kernels.py`).
+`fea_large_tpu/ops/pallas_kernels.py` and of the unstructured part of
+`fea_large_tpu/ops/pallas_residual.py`).
 
 Layout, kept from the reference: every operand is [rows, E], element axis
 last, in the flattened SoA form
@@ -12,16 +13,21 @@ last, in the flattened SoA form
     alpha, beta [q, E]
     out        [3*npe, E]      per-element nodal result, rows i*npe + a
 
+The residual pass writes its nodal force in the same rows i*npe + a, so
+every output of this module is a free [3, npe, E] view for the nodal sum
+(the reference's residual kernel writes rows 3a + i instead).
+
 As on the TPU, the gather (v[conn]) and the nodal scatter stay outside the
 kernels (ops/soa.py), and the kernels do the dense element math.
 
-Each pass has a kernel (csrc/elem_kernels.cu, CUDA C++ for sm_90a, f32)
-and a plain version here (`*_plain`, any float dtype). A wrapper
-(`elem_apply`, `elem_freeze`, `elem_force`) runs the plain version when
-its tensors lie on the CPU; on a CUDA tensor it launches the kernel or
-raises. The unstructured f32 passes of ops/soa.py go through the wrappers,
-and its f64 passes (the residual, which has no ported kernel yet) through
-the plain versions. `LAUNCHES` counts kernel launches per pass.
+Each pass has a kernel (csrc/elem_kernels.cu, CUDA C++ for sm_90a: f32
+for the tangent passes, f64 for the residual) and a plain version here
+(`*_plain`, any float dtype). A wrapper (`elem_apply`, `elem_freeze`,
+`elem_force`, `elem_resid`) runs the plain version when its tensors lie on
+the CPU; on a CUDA tensor it launches the kernel or raises. The
+unstructured f32 passes of ops/soa.py go through the first three
+wrappers; the f64 residual of the mixed path goes through `elem_resid`
+(ops/residual.py). `LAUNCHES` counts kernel launches per pass.
 """
 
 from __future__ import annotations
@@ -35,7 +41,7 @@ from fea_large_tpu_torch.ops.smallmat import mm3
 
 #: kernel launches per pass since the last reset (the wrappers increment
 #: these where they launch their kernel, and nowhere else)
-LAUNCHES = {"apply": 0, "freeze": 0, "force": 0}
+LAUNCHES = {"apply": 0, "freeze": 0, "force": 0, "resid": 0}
 
 #: (q, npe) the kernels are instantiated for: TET10 with the 4-point rule
 #: and TET4 with the 1-point rule
@@ -116,6 +122,15 @@ def elem_force_plain(gradN, detJxW, F, S, *, npe: int, q: int):
     return _nodal(PV, _g(gradN, q, npe))
 
 
+def elem_resid_plain(ue, gradN, detJxW, material, *, npe: int, q: int):
+    """Internal force f_a = sum_q V (F S) g_a at u, kinematics and stress
+    included (the freeze followed by the force, keeping no state):
+    [3*npe, E] rows i*npe + a. The f64 residual pass of an unstructured
+    mesh."""
+    F, S = elem_freeze_plain(ue, gradN, material, npe=npe, q=q)[:2]
+    return elem_force_plain(gradN, detJxW, F, S, npe=npe, q=q)
+
+
 # ---------------------------------------------------------------------------
 # kernels
 # ---------------------------------------------------------------------------
@@ -127,11 +142,13 @@ def _library():
         "fea_elem_freeze_f32": [P] * 7 + [I] * 5 + [Fl, Fl, P],
         "fea_elem_apply_f32": [P] * 9 + [I] * 4 + [P],
         "fea_elem_force_f32": [P] * 5 + [I] * 4 + [P],
+        "fea_elem_resid_f64": [P] * 4 + [I] * 5 + [ctypes.c_double] * 2 + [P],
     })
 
 
-def _check(named: dict, shapes: dict, npe: int, q: int, block: int):
-    """Raise unless every tensor is a contiguous f32 tensor on one CUDA
+def _check(named: dict, shapes: dict, npe: int, q: int, block: int,
+           dtype: torch.dtype = torch.float32):
+    """Raise unless every tensor is a contiguous `dtype` tensor on one CUDA
     device with the expected shape, for a supported element and block."""
     if (q, npe) not in SUPPORTED:
         raise ValueError(f"no element kernel for (q, npe) = {(q, npe)}")
@@ -141,18 +158,18 @@ def _check(named: dict, shapes: dict, npe: int, q: int, block: int):
     for name, x in named.items():
         if x.device != dev or x.device.type != "cuda":
             raise ValueError(f"{name}: expected a CUDA tensor on {dev}, got {x.device}")
-        if x.dtype != torch.float32:
-            raise TypeError(f"{name}: the kernel takes float32, got {x.dtype}")
+        if x.dtype != dtype:
+            raise TypeError(f"{name}: the kernel takes {dtype}, got {x.dtype}")
         if not x.is_contiguous():
             raise ValueError(f"{name}: must be contiguous")
         if tuple(x.shape) != shapes[name]:
             raise ValueError(f"{name}: expected shape {shapes[name]}, got {tuple(x.shape)}")
 
 
-def _launch(fn: str, device, *args):
+def _launch(fn: str, device, *args, suffix: str = "f32"):
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(_library(), f"fea_elem_{fn}_f32")(*args, stream)
+        err = getattr(_library(), f"fea_elem_{fn}_{suffix}")(*args, stream)
     if err != 0:
         raise RuntimeError(f"element {fn} kernel launch failed: CUDA error {err}")
     LAUNCHES[fn] += 1
@@ -209,17 +226,34 @@ def elem_force(gradN, detJxW, F, S, *, npe: int, q: int, block: int = BLOCK):
     return out
 
 
+def elem_resid(ue, gradN, detJxW, material, *, npe: int, q: int, block: int = BLOCK):
+    """B9 (`pallas_residual.py::_resid_kernel_unstr`), in f64: see
+    `elem_resid_plain`."""
+    if ue.device.type == "cpu":
+        return elem_resid_plain(ue, gradN, detJxW, material, npe=npe, q=q)
+    kind = _material_kind(material)
+    E = ue.shape[-1]
+    named = {"ue": ue, "gradN": gradN, "detJxW": detJxW}
+    _check(named, {"ue": (3 * npe, E), "gradN": (q * npe * 3, E), "detJxW": (q, E)},
+           npe, q, block, torch.float64)
+    out = ue.new_empty((3 * npe, E))
+    _launch("resid", ue.device, *(_ptr(x) for x in named.values()), _ptr(out),
+            E, q, npe, block, kind, ctypes.c_double(material.lam),
+            ctypes.c_double(material.mu), suffix="f64")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # SoA helpers (the unstructured passes of ops/soa.py call the wrappers)
 # ---------------------------------------------------------------------------
 
 
 def _material_kind(material) -> int:
-    """Material code of the freeze kernel (0 SVK, 1 neo-Hookean Ciarlet,
-    2 neo-Hookean volumetric)."""
+    """Material code of the freeze and residual kernels (0 SVK, 1
+    neo-Hookean Ciarlet, 2 neo-Hookean volumetric)."""
     if material.kind not in (0, 1, 2):
         raise NotImplementedError(
-            f"the element freeze kernel takes the registered isotropic materials; "
+            f"the element kernels take the registered isotropic materials; "
             f"got {type(material).__name__}"
         )
     return material.kind

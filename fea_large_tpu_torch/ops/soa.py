@@ -92,10 +92,16 @@ class ScatterBuckets:
     @staticmethod
     def build(conn_T: np.ndarray, n_nodes: int, device) -> "ScatterBuckets":
         """Buckets of the flat (a-major) slots of conn_T [npe, E] on `device`."""
-        flat = np.asarray(conn_T).reshape(-1)
-        cmax = int(np.bincount(flat, minlength=n_nodes).max()) if n_nodes else 1
+        return ScatterBuckets.from_flat(np.asarray(conn_T).reshape(-1), n_nodes, device)
+
+    @staticmethod
+    def from_flat(flat: np.ndarray, n_out: int, device) -> "ScatterBuckets":
+        """Buckets of a flat map entry -> output row (any int array) on
+        `device`: entry j is summed into row flat[j], in the order of j."""
+        flat = np.asarray(flat)
+        cmax = int(np.bincount(flat, minlength=n_out).max()) if n_out else 1
         idx_t, mask_t, inv = ScatterBuckets.host_build(
-            flat, n_nodes, ScatterBuckets.caps_for(cmax))
+            flat, n_out, ScatterBuckets.caps_for(cmax))
         keep = [b for b in range(len(idx_t)) if idx_t[b].shape[0] > 0]
         return ScatterBuckets(
             idx=tuple(torch.as_tensor(idx_t[b], device=device) for b in keep),
@@ -107,6 +113,13 @@ class ScatterBuckets:
         """d [n, npe*E] flat per-slot values -> [n, N] nodal sums."""
         parts = [(d[:, idx] * mask.to(d.dtype)).sum(2) for idx, mask in zip(self.idx, self.mask)]
         return torch.cat(parts, 1)[:, self.inv]
+
+    def apply_rows(self, d: torch.Tensor) -> torch.Tensor:
+        """d [M, ...] per-entry values, entry axis first -> [N, ...] sums."""
+        tail = (1,) * (d.dim() - 1)
+        parts = [(d[idx] * mask.to(d.dtype).view(*mask.shape, *tail)).sum(1)
+                 for idx, mask in zip(self.idx, self.mask)]
+        return torch.cat(parts, 0)[self.inv]
 
 
 # ---------------------------------------------------------------------------
@@ -265,8 +278,8 @@ def soa_scatter(p: SoAProblem, fe: torch.Tensor) -> torch.Tensor:
 
 def _route(p: SoAProblem, x: torch.Tensor, kernel, plain):
     """The kernel wrapper (which runs the plain version on CPU tensors), or
-    the plain pass for f64: the Kuhn lattice's f64 kernel is the fused
-    residual (ops/residual.py); the unstructured one (B9) is not ported."""
+    the plain pass for f64: the f64 kernels are the fused residuals of
+    ops/residual.py (B5, B9), chosen by the solver's `resid_df`."""
     if x.dtype != p.dtype:
         raise TypeError(f"{x.dtype} tensor given to a {p.dtype} SoAProblem")
     return plain if x.dtype == torch.float64 else kernel

@@ -1,5 +1,5 @@
 """Preconditioned conjugate gradients and block-Jacobi (counterpart of
-`fea_large_tpu/solvers/linear.py`, mixed-path parts).
+`fea_large_tpu/solvers/linear.py`, less the dense Cholesky solve).
 
 PCG runs as a host loop over device tensors, resumable across chunks
 (`PCGState`). The vector arithmetic stays on the device; the loop fetches
@@ -32,8 +32,26 @@ def apply_block_jacobi(inv_blocks, free_mask, r):
     return (inv_blocks * (r * free_mask)[:, None, :]).sum(-1) * free_mask
 
 
+def block_jacobi_preconditioner(diag_blocks: torch.Tensor, free_mask: torch.Tensor):
+    """The block-Jacobi apply r -> z (see `jacobi_inverse_blocks`)."""
+    inv_blocks = jacobi_inverse_blocks(diag_blocks, free_mask)
+
+    def apply(r: torch.Tensor) -> torch.Tensor:
+        return apply_block_jacobi(inv_blocks, free_mask, r)
+
+    return apply
+
+
 def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.dot(a.reshape(-1), b.reshape(-1))
+
+
+@dataclasses.dataclass
+class PCGResult:
+    x: torch.Tensor  # solution [N, 3]
+    iterations: int
+    residual_norm: float  # final ||r|| of the recurrence
+    converged: bool
 
 
 @dataclasses.dataclass
@@ -96,6 +114,19 @@ def pcg_chunk(matvec, state: PCGState, preconditioner=None, dot=None,
     # with ok still set: report it as a breakdown
     s.ok = s.ok and math.isfinite(s.rr)
     return s
+
+
+def pcg(matvec, b, preconditioner=None, x0=None, tol=1e-10, atol=0.0, maxiter=1000,
+        dot=None) -> PCGResult:
+    """Preconditioned CG: `pcg_init`, then up to `maxiter` iterations.
+    `matvec` is the masked operator (identity on prescribed DOFs) and `b`
+    masked, so the iterates stay in the free subspace. Stops at ||r|| <=
+    max(tol ||b||, atol), or on the breakdown p.Kp <= 0."""
+    state = pcg_init(matvec, b, preconditioner, x0=x0, tol=tol, atol=atol, dot=dot)
+    state = pcg_chunk(matvec, state, preconditioner, dot=dot, maxiter=maxiter)
+    r_norm = math.sqrt(state.rr)
+    return PCGResult(x=state.x, iterations=state.k, residual_norm=r_norm,
+                     converged=state.ok and r_norm <= state.stop)
 
 
 def drive_chunked_pcg(prepare, chunk, *, tol, chunk_iters, maxiter):

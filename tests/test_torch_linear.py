@@ -168,3 +168,42 @@ def test_newton_lin_tol_matches_reference(forcing, eta_min):
         tol_r, eta_r = ref_newton_lin_tol(ref_opts, it, norms[: it + 1], norms[0], eta_r)
         tol_p, eta_p = newton_lin_tol(opts, it, norms[: it + 1], norms[0], eta_p)
         assert (tol_p, eta_p) == (tol_r, eta_r)
+
+
+@pytest.mark.parametrize("forcing,pcg_tol", [("ew", 1e-8), ("fixed", 1e-13)])
+def test_newton_lin_tol_f64_floor_matches_reference(forcing, pcg_tol):
+    """The f64 path floors the PCG tolerance at 100 eps64 ||R0|| / ||R||
+    (at most 0.1), not at the mixed path's 1.2e-6."""
+    kw = dict(forcing=forcing, ew_eta_min=1e-2, precision="f64", newton_rtol=1e-10,
+              pcg_tol=pcg_tol)
+    ref_opts, opts = RefOptions(**kw), SolverOptions(**kw)
+    norms = [1.4e-2, 3.1e-3, 2.2e-4, 1.9e-6, 4.0e-9, 3.0e-13]
+    eta_r = eta_p = 0.5
+    for it in range(len(norms)):
+        tol_r, eta_r = ref_newton_lin_tol(ref_opts, it, norms[: it + 1], norms[0], eta_r)
+        tol_p, eta_p = newton_lin_tol(opts, it, norms[: it + 1], norms[0], eta_p)
+        assert (tol_p, eta_p) == (float(tol_r), float(eta_r))
+    if forcing == "fixed":
+        assert newton_lin_tol(opts, 0, norms[:1], norms[0], 0.5)[0] == pcg_tol
+
+
+def test_pcg_and_block_jacobi_preconditioner_match_reference():
+    A, b, free = _system(seed=5)
+    N = free.shape[0]
+    Am = A * free.reshape(-1)[:, None] * free.reshape(-1)[None, :] + np.diag(1.0 - free.reshape(-1))
+    diag = np.stack([A[3 * i:3 * i + 3, 3 * i:3 * i + 3] for i in range(N)])
+    rA, pA = jnp.asarray(Am), torch.tensor(Am)
+    rpc = ref_linear.block_jacobi_preconditioner(jnp.asarray(diag), jnp.asarray(free))
+    ppc = linear.block_jacobi_preconditioner(torch.tensor(diag), torch.tensor(free))
+    ref = ref_linear.pcg(lambda v: (rA @ v.reshape(-1)).reshape(N, 3), jnp.asarray(b),
+                         preconditioner=rpc, tol=1e-11, maxiter=200)
+    port = linear.pcg(lambda v: (pA @ v.reshape(-1)).reshape(N, 3), torch.tensor(b),
+                      preconditioner=ppc, tol=1e-11, maxiter=200)
+    assert port.iterations == int(ref.iterations) and port.converged == bool(ref.converged)
+    assert port.converged and math.isclose(port.residual_norm, float(ref.residual_norm),
+                                           rel_tol=1e-6)
+    x_ref = np.asarray(ref.x)
+    np.testing.assert_allclose(port.x.numpy(), x_ref, rtol=RTOL, atol=RTOL * np.abs(x_ref).max())
+    short = linear.pcg(lambda v: (pA @ v.reshape(-1)).reshape(N, 3), torch.tensor(b),
+                       preconditioner=ppc, tol=1e-11, maxiter=3)
+    assert short.iterations == 3 and not short.converged

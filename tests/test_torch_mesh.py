@@ -162,11 +162,13 @@ def test_interop_builds_port_objects_from_reference_arrays():
         ref_mesh.coords_host, ref_mesh.conn_host, "tet10", ref_mesh.node_sets,
         {f: getattr(st, f) for f in ("cells", "classes", "class_dims", "class_base",
                                      "slot_class", "slot_offset")},
+        device="cpu",
     )
     assert mesh.structure == box_mesh_kuhn(3, 2, 2, element_type="tet10", device="cpu").structure
     np.testing.assert_array_equal(mesh.coords.numpy(), ref_mesh.coords_host)
     bc = RefDirichletBuilder(ref_mesh).fix("zmin").prescribe("zmax", "z", -0.05).build()
-    pbc = interop.dirichlet_from_numpy(np.asarray(bc.free_mask), np.asarray(bc.values))
+    pbc = interop.dirichlet_from_numpy(np.asarray(bc.free_mask), np.asarray(bc.values),
+                                       device="cpu")
     np.testing.assert_array_equal(pbc.free_mask.numpy(), np.asarray(bc.free_mask))
     for kind, cls in ((0, StVenantKirchhoff), (1, NeoHookean), (2, NeoHookeanVolumetric)):
         assert interop.material_from_numpy(kind, np.float32(1.0), 0.6) == cls(1.0, 0.6)
@@ -175,7 +177,7 @@ def test_interop_builds_port_objects_from_reference_arrays():
     arrs = [rng.standard_normal((q, 3, 3, E)) for _ in range(3)] + [
         rng.standard_normal((q, E)) for _ in range(2)
     ]
-    state = interop.soa_state_from_numpy(*arrs)
+    state = interop.soa_state_from_numpy(*arrs, device="cpu")
     for a, t in zip(arrs, (state.F, state.S, state.A, state.alpha, state.beta)):
         assert t.dtype == torch.float32 and t.is_contiguous()
         np.testing.assert_array_equal(t.numpy(), a.astype(np.float32))
@@ -208,3 +210,17 @@ def test_generators_default_to_the_card():
         else:
             with pytest.raises(RuntimeError, match="CUDA"):
                 build(2, 2, 2)
+
+
+def test_interop_builders_default_to_the_card():
+    """The interop builders, entry points for the reference's numpy state,
+    build on the card unless the caller asks for the CPU."""
+    import inspect
+
+    for fn in (interop.mesh_from_numpy, interop.dirichlet_from_numpy,
+               interop.soa_state_from_numpy, interop.scatter_buckets_from_numpy,
+               interop.soa_problem_from_numpy):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            interop.dirichlet_from_numpy(np.ones((2, 3)), np.zeros((2, 3)))

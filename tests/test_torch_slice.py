@@ -162,9 +162,23 @@ def test_pallas_option_changes_nothing():
 
 
 @pytest.mark.parametrize("bad", [
-    dict(device_loop=True), dict(precision="f64"), dict(linear="pcg_bcsr"),
+    dict(device_loop=True), dict(precision="f64"), dict(linear="direct", precision="f64"),
     dict(linear="direct"), dict(preconditioner="three_level"), dict(coarse_modes=12),
 ])
 def test_newton_solver_rejects_unported_options(case, bad):
     with pytest.raises(NotImplementedError):
         NewtonSolver(case.mesh, NeoHookean(1.0, 0.6), case.bc, options=SolverOptions(**{**BENCH, **bad}))
+
+
+@pytest.mark.parametrize("bad", [
+    dict(linear="pcg_bcsr"), dict(linear="gmres"), dict(linear="pcg_bcsr", precision="f64", pallas=True),
+])
+def test_newton_solver_rejects_what_the_reference_rejects(case, bad):
+    """ValueError where the reference raises one: the mixed path with the
+    assembled BCSR system, an unknown linear solver, and pallas=True on
+    the f64 path."""
+    with pytest.raises(ValueError):
+        NewtonSolver(case.mesh, NeoHookean(1.0, 0.6), case.bc, options=SolverOptions(**{**BENCH, **bad}))
+    with pytest.raises(ValueError):
+        RefNewtonSolver(case.ref_mesh, RefNH(jnp.asarray(1.0), jnp.asarray(0.6)), case.ref_bc,
+                        options=RefOptions(**{**BENCH, **bad}))

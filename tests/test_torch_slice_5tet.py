@@ -9,7 +9,10 @@ The port runs `pallas=True` as bench.py passes it (the option has no
 effect in the port: its unstructured passes are the element-block kernels'
 plain versions on the CPU), the reference `pallas=False` (the same math,
 and no interpret mode in the solve). The reference takes 5 Newton iterations with
-PCG [3, 4, 9, 13, 11]. The port must take the same Newton count, start from
+PCG [3, 4, 9, 13, 11]. With `resid_df=True` the port's f64 residual goes
+through the fused unstructured pass (B9's plain version on the CPU); the
+reference routes no fused residual on unstructured meshes and runs its
+plain f64 pass. The port must take the same Newton count, start from
 the same residual norm (1e-12 relative: both are the f64 pass), and each
 PCG count may move by one (the f32 PCG sums in another order). At
 newton_rtol 1e-9 both converge to the same u: measured 1.5e-11 max|u| on
@@ -78,6 +81,27 @@ def test_5tet_slice_matches_reference_newton_and_pcg(runs):
     _pcg_close(rec_p.pcg_iters, rec_r.pcg_iters)
     assert abs(rec_p.residual_norms[0] - rec_r.residual_norms[0]) <= 1e-12 * rec_r.residual_norms[0]
     assert rec_p.residual_norms[-1] / rec_p.residual_norms[0] <= 1e-6
+
+
+def test_5tet_slice_with_fused_residual_matches_reference(runs):
+    """resid_df=True (B9's plain version) reproduces the reference's run:
+    the same Newton count, PCG counts within one, the same first residual,
+    and the converged u within the bound of the plain run."""
+    (u_r, ok_r, rec_r), _ = runs[1e-9]
+    mesh = box_mesh(3, 3, 3, element_type="tet10", device="cpu")
+    bc = DirichletBuilder(mesh).fix("zmin").prescribe("zmax", "z", -0.05).build()
+    port = NewtonSolver(mesh, NeoHookean(1.0, 0.6), bc,
+                        options=SolverOptions(**{**BENCH, "resid_df": True, "newton_rtol": 1e-9},
+                                              pallas=True))
+    assert port._resid_df
+    u = torch.zeros((mesh.n_nodes, 3), dtype=torch.float64)
+    u[:, 2] = -0.05 * mesh.coords[:, 2]
+    u_p, ok_p, rec_p = port._newton(port.bc.impose(u, 1.0), 1.0)
+    assert ok_r and ok_p
+    assert rec_p.newton_iters == rec_r.newton_iters
+    _pcg_close(rec_p.pcg_iters, rec_r.pcg_iters)
+    assert abs(rec_p.residual_norms[0] - rec_r.residual_norms[0]) <= 1e-12 * rec_r.residual_norms[0]
+    assert np.abs(u_p.numpy() - u_r).max() <= 1e-8 * np.abs(u_r).max()
 
 
 def test_5tet_slice_converged_u_matches_reference(runs):

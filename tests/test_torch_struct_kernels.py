@@ -61,7 +61,7 @@ def lattice(ref):
     u, v = _fields(ref_mesh.coords_host)
     rmat = ref["nh"](jnp.asarray(1.0, jnp.float32), jnp.asarray(0.6, jnp.float32))
     rstate = ref_soa.soa_freeze(rp, rmat, jnp.asarray(u, jnp.float32))
-    pstate = interop.soa_state_from_numpy(*(np.asarray(x) for x in rstate))
+    pstate = interop.soa_state_from_numpy(*(np.asarray(x) for x in rstate), device="cpu")
     return rp, pp, rstate, pstate, u, v
 
 

@@ -114,11 +114,12 @@ def test_interop_carries_reference_tables():
     port = interop.soa_problem_from_numpy(
         ref.n_nodes, np.asarray(ref.gradN), np.asarray(ref.detJxW), np.asarray(ref.conn_T),
         interop.scatter_buckets_from_numpy([np.asarray(x) for x in b.idx],
-                                           [np.asarray(x) for x in b.mask], np.asarray(b.inv)),
-        dtype=torch.float64,
+                                           [np.asarray(x) for x in b.mask], np.asarray(b.inv),
+                                           device="cpu"),
+        dtype=torch.float64, device="cpu",
     )
     mesh = interop.mesh_from_numpy(ref_mesh.coords_host, ref_mesh.conn_host, "tet10",
-                                   ref_mesh.node_sets)
+                                   ref_mesh.node_sets, device="cpu")
     built = soa.SoAProblem.build(mesh, torch.float64)
     assert mesh.structure is None
     assert torch.equal(port.gradN, built.gradN) and torch.equal(port.conn_T, built.conn_T)
