@@ -31,8 +31,13 @@ Phases:
      9,261 = 72*128 + 45 cells), B6-B9 on TET10 and TET4 5-tet boxes n=13
      (E = 10,985 = 85*128 + 105 elements), every freeze and f64 residual
      for all three materials, and B10 in f64 and f32 on the stiffness
-     assembled on those boxes (rows of varying length). Bounds relative to
-     the largest entry: 2e-5 for the f32 kernels, 1e-12 for the f64 ones;
+     assembled on those boxes (rows of varying length) and on a (6, 4, 2)
+     box whose N is not a multiple of the block rows a CUDA block holds
+     (a B10 block of 128 threads holds 4 rows, a warp of 32 lanes a row; a
+     B1 block holds 32 cells times the 6 tet slots). Bounds relative to the
+     largest entry: 2e-5 for the f32 kernels, 1e-12 for the f64 ones. B1
+     and B10 (f64 and f32), whose sums cross threads, are launched twice
+     on the same inputs and must give bitwise-equal outputs;
   3. the Kuhn path: n=4 with resid_df=False and with resid_df=None against
      the JAX reference's counts (measured on CPU), then full width with
      resid_df=None;
@@ -50,9 +55,14 @@ Phases:
      counts, then full width: one warm-up and one timed solve (bitwise-equal
      u and equal PCG lists), B10 launched at least once per PCG iteration,
      peak memory, and the host CPU recheck of the converged residual;
-  6. timings at full width: each kernel and its plain version (CUDA
-     events, median of 10 calls) beside its bound, B10 beside cuSPARSE's
-     BSR product (`torch.sparse_bsr_tensor @ x`), the passes of one Newton
+  6. timings at full width: each kernel and its plain version with CUDA
+     events around each call (median of 10: `ms`, `plain_ms`; the host's
+     launch path is in it when the kernel is shorter than its wrapper's
+     host time) beside its bound, the same kernel queued behind a busy
+     card (20 launches between one pair of events: `device_ms`, without
+     the host's launch path) and the host's microseconds per launch; B10
+     beside cuSPARSE's BSR product
+     (`torch.sparse_bsr_tensor @ x`), the passes of one Newton
      and one PCG iteration on every path, and the Kuhn and the 5-tet solves
      with the plain and the fused f64 residual in turns;
   7. a JSON line of the kernels, then the result line.
@@ -229,6 +239,19 @@ def phase_card():
     return smi
 
 
+#: threads of a B1 block: 32 cells x 6 tet slots
+B1_THREADS = 192
+
+
+def resident_blocks(registers, smem, threads):
+    """Blocks one SM of the H100 holds at once: 65,536 registers (allocated
+    per warp in units of 256), 227 KB of shared memory (1 KB reserved per
+    block), 2,048 threads."""
+    warps = -(-threads // 32)
+    by_regs = 65536 // (-(-registers * 32 // 256) * 256 * warps)
+    return min(by_regs, 232448 // (smem + 1024), 2048 // threads)
+
+
 def phase_build():
     print("== phase 1: build (one nvcc per source, started together)")
     sources = (sk.SOURCE, ek.SOURCE, bk.SOURCE)
@@ -247,6 +270,10 @@ def phase_build():
                 name = f"{m.group(1)}<{', '.join(args)}>"
             elif name and ("spill" in line or "registers" in line):
                 print(f"  ptxas {name}: {line.split(':')[-1].strip()}")
+                m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+                if m and src == sk.SOURCE and name.startswith("apply_kernel"):
+                    print(f"    B1 blocks of {B1_THREADS} threads resident per SM: "
+                          f"{resident_blocks(int(m.group(1)), int(m.group(2)), B1_THREADS)}")
 
 
 MATERIALS = (StVenantKirchhoff(1.0, 0.6), NeoHookean(1.0, 0.6), NeoHookeanVolumetric(1.0, 0.6))
@@ -304,7 +331,7 @@ def bcsr_inputs(mesh):
 
 def bcsr_calls(b):
     """{name: (kernel call, plain call, inputs)} of B10 in f64 and f32; the
-    inputs are what the product reads once."""
+    inputs are what the kernel is given and reads once (int32 indices)."""
     st = b["structure"]
     calls = {}
     for tag in ("64", "32"):
@@ -312,7 +339,7 @@ def bcsr_calls(b):
         calls[f"bcsr_spmv/f{tag}"] = (
             lambda d=data, v=x: bk.bcsr_spmv(st, d, v),
             lambda d=data, v=x: bk.bcsr_spmv_plain(st, d, v),
-            (st.indptr, st.indices, data, x))
+            (st.indptr32, st.indices32, data, x))
     return calls
 
 
@@ -330,7 +357,8 @@ def lattice_calls(x, materials):
             lambda m=mat: sk.struct_resid_plain(tb64, uc64, m),
             (uc64, tb64.gN, tb64.dV, tb64.pair_of), mat.kind)
     calls["struct_apply"] = (lambda: sk.struct_apply(tb, vc, *rows),
-                             lambda: sk.struct_apply_plain(tb, vc, *rows), (vc, *rows, *geo), 1)
+                             lambda: sk.struct_apply_plain(tb, vc, *rows),
+                             (vc, *rows, *geo, tb.slot_table), 1)
     calls["struct_diag"] = (lambda: sk.struct_diag(tb, *rows),
                             lambda: sk.struct_diag_plain(tb, *rows), (*rows, *geo), 1)
     calls["struct_force"] = (lambda: sk.struct_force(tb, *rows[:2]),
@@ -369,6 +397,32 @@ def run_checks(calls):
     return out
 
 
+def check_repeats(label, calls):
+    """Two launches of a kernel on the same inputs give bitwise-equal
+    outputs (the kernels whose sums cross threads: B1, B10)."""
+    for name, c in calls.items():
+        a, b = c[0](), c[0]()
+        torch.cuda.synchronize()
+        check(torch.equal(a, b), f"{label} {name}: two launches bitwise equal")
+        print(f"  {label:10s} {name:28s} two launches bitwise equal")
+
+
+def check_bcsr(label, mesh):
+    """B10 against its plain version and against itself on one box."""
+    b = bcsr_inputs(mesh)
+    st = b["structure"]
+    lengths = (st.indptr[1:] - st.indptr[:-1]).tolist()
+    rows = bk.BLOCK // bk.LANES
+    print(f"BCSR {label}: N = {st.n_nodes} rows = {st.n_nodes // rows} x {rows} + "
+          f"{st.n_nodes % rows} ({bk.LANES} lanes a row, {rows} rows a block of {bk.BLOCK}), "
+          f"nnzb {st.nnzb}, blocks per row {min(lengths)}-{max(lengths)}")
+    check(min(lengths) < max(lengths), "the BCSR rows vary in length")
+    calls = bcsr_calls(b)
+    report_checks(f"bcsr {label.split()[0]}", run_checks(calls))
+    check_repeats(f"bcsr {label.split()[0]}", calls)
+    return st.n_nodes % rows
+
+
 def report_checks(label, errs):
     for name, (err, rel) in errs.items():
         bound = RESID_BOUND if name.startswith(F64_KERNELS) else KERNEL_BOUND
@@ -385,20 +439,19 @@ def phase_kernel_checks(device):
     for et in ("tet10", "tet4"):
         x = lattice_inputs(box_mesh_kuhn(nk, nk, nk, element_type=et, device=device))
         C = x["tb"].C
-        print(f"Kuhn {et} n={nk}: C = {C} cells = {C // 128} x 128 + {C % 128}")
-        report_checks(f"kuhn {et}", run_checks(lattice_calls(x, MATERIALS)))
+        print(f"Kuhn {et} n={nk}: C = {C} cells = {C // 128} x 128 + {C % 128} "
+              f"= {C // 32} x 32 + {C % 32} (B1: 32 cells x 6 tet slots a block)")
+        calls = lattice_calls(x, MATERIALS)
+        report_checks(f"kuhn {et}", run_checks(calls))
+        check_repeats(f"kuhn {et}", {"struct_apply": calls["struct_apply"]})
         mesh5 = box_mesh(n5, n5, n5, element_type=et, device=device)
         x = element_inputs(mesh5)
         E = x["E"]
         print(f"5-tet {et} n={n5}: E = {E} elements = {E // ek.BLOCK} x {ek.BLOCK} + {E % ek.BLOCK}")
         report_checks(f"5tet {et}", run_checks(element_calls(x, MATERIALS)))
-        b = bcsr_inputs(mesh5)
-        st = b["structure"]
-        lengths = (st.indptr[1:] - st.indptr[:-1]).tolist()
-        print(f"BCSR {et} n={n5}: N = {st.n_nodes} rows = {st.n_nodes // bk.BLOCK} x {bk.BLOCK} "
-              f"+ {st.n_nodes % bk.BLOCK}, nnzb {st.nnzb}, blocks per row {min(lengths)}-{max(lengths)}")
-        check(min(lengths) < max(lengths), "the BCSR rows vary in length")
-        report_checks(f"bcsr {et}", run_checks(bcsr_calls(b)))
+        check_bcsr(f"{et} n={n5}", mesh5)
+        ragged = check_bcsr(f"{et} (6, 4, 2)", box_mesh(6, 4, 2, element_type=et, device=device))
+        check(ragged != 0, "the (6, 4, 2) box (an odd N) leaves a CUDA block of B10 partly filled")
     print(f"phase 2: {time.perf_counter() - t0:.1f} s")
 
 
@@ -624,6 +677,34 @@ def cuda_ms(fn, n=10):
     return statistics.median(s.elapsed_time(e) for s, e in evs)
 
 
+def queued_ms(fn, n=20):
+    """Device time per call of n launches queued behind a busy card (one
+    pair of events around them all), so that the host's launch path is not
+    in it: what a kernel shorter than its wrapper's host time costs."""
+    fn()
+    torch.cuda.synchronize()
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(10_000_000)  # cycles: the card is busy while the host enqueues
+    s.record()
+    for _ in range(n):
+        fn()
+    e.record()
+    torch.cuda.synchronize()
+    return s.elapsed_time(e) / n
+
+
+def host_us(fn, n=20):
+    """Host microseconds to enqueue one call (no synchronisation inside)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * dt / n
+
+
 def bound(name, inputs, out, points, npe, kind):
     """(bound ms, "bytes" or "operations"): each input read once, each
     output written once, over HBM's rate; the counted arithmetic over the
@@ -639,10 +720,12 @@ def time_calls(calls, points, npe, table):
         out = kern()
         key = name.split("/")[0]
         b_ms, b_by = bound(key, inputs, out, points, npe, kind)
-        ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
-        table[key] = dict(bound_ms=b_ms, bound_by=b_by, ms=ms, plain_ms=plain_ms)
-        print(f"  {name:24s} kernel {ms:9.4f} ms   plain {plain_ms:9.4f} ms   bound {b_ms:8.4f} ms "
-              f"({b_by}, {100 * b_ms / ms:5.1f}% of it)")
+        ms, device_ms, plain_ms = cuda_ms(kern), queued_ms(kern), cuda_ms(plain)
+        table[key] = dict(bound_ms=b_ms, bound_by=b_by, ms=ms, device_ms=device_ms,
+                          plain_ms=plain_ms)
+        print(f"  {name:24s} kernel {ms:9.4f} ms   queued {device_ms:9.4f} ms   bound "
+              f"{b_ms:8.4f} ms ({b_by}, {100 * b_ms / ms:5.1f}% / {100 * b_ms / device_ms:5.1f}% "
+              f"of it)   plain {plain_ms:9.4f} ms   host {host_us(kern):6.1f} us/launch")
 
 
 def time_passes(passes):
@@ -705,7 +788,7 @@ def bcsr_timings(solver, u0, mat, table):
     t_bytes = (nbytes(*inputs) + nbytes(y)) / HBM_BYTES_S
     t_ops = 18 * st.nnzb / PEAK_FLOPS[torch.float64]
     b_ms, b_by = max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
-    ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
+    ms, device_ms, plain_ms = cuda_ms(kern), queued_ms(kern), cuda_ms(plain)
     N = st.n_nodes
     try:
         with warnings.catch_warnings():  # torch marks BSR tensors as beta
@@ -717,10 +800,13 @@ def bcsr_timings(solver, u0, mat, table):
         lib = f"{lib_ms:9.4f} ms (rel diff to the kernel {lib_err:.2e})"
     except (RuntimeError, NotImplementedError) as exc:  # a yardstick, not a path of the port
         lib_ms, lib = None, f"refused by torch on this card: {str(exc).splitlines()[0]}"
-    table["bcsr_spmv"] = dict(bound_ms=b_ms, bound_by=b_by, ms=ms, plain_ms=plain_ms,
-                              max_abs_err=errs["bcsr_spmv/f64"][0], library_ms=lib_ms)
-    print(f"  {'bcsr_spmv/f64':24s} kernel {ms:9.4f} ms   plain {plain_ms:9.4f} ms   bound "
-          f"{b_ms:8.4f} ms ({b_by}, {100 * b_ms / ms:5.1f}% of it)")
+    table["bcsr_spmv"] = dict(bound_ms=b_ms, bound_by=b_by, ms=ms, device_ms=device_ms,
+                              plain_ms=plain_ms, max_abs_err=errs["bcsr_spmv/f64"][0],
+                              library_ms=lib_ms)
+    print(f"  {'bcsr_spmv/f64':24s} kernel {ms:9.4f} ms   queued {device_ms:9.4f} ms   bound "
+          f"{b_ms:8.4f} ms ({nbytes(*inputs, y)} B, {b_by}, {100 * b_ms / ms:5.1f}% / "
+          f"{100 * b_ms / device_ms:5.1f}% of it)   plain {plain_ms:9.4f} ms   host "
+          f"{host_us(kern):6.1f} us/launch")
     print(f"  {'bcsr_spmv/f32':24s} kernel {cuda_ms(calls['bcsr_spmv/f32'][0]):9.4f} ms")
     print(f"  cuSPARSE BSR product (torch.sparse_bsr_tensor @ x, f64): {lib}")
     ue = u0[solver.mesh.conn]
@@ -740,10 +826,18 @@ def bcsr_timings(solver, u0, mat, table):
         "block-Jacobi preconditioner": lambda: precond(x),
         "one PCG iteration": lambda: pcg_chunk(matvec, pcg_state, precond, maxiter=1),
     })
+    # the same iteration inside a run of 50, as a solve takes them (host clock)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = pcg_chunk(matvec, pcg_state, precond, maxiter=50).k - pcg_state.k
+    torch.cuda.synchronize()
+    print(f"  one PCG iteration within a chunk of {done}: "
+          f"{1e3 * (time.perf_counter() - t0) / max(done, 1):.4f} ms")
 
 
 def phase_timings(kuhn, five_tet, bcsr, card):
-    print(f"== phase 6: full-width timings (CUDA events, median of 10; {card})")
+    print(f"== phase 6: full-width timings (CUDA events; kernels, plain versions and passes "
+          f"median of 10 calls; queued: 20 launches between one pair of events; {card})")
     t0 = time.perf_counter()
     mat = NeoHookean(1.0, 0.6)
     table = {}
@@ -795,7 +889,7 @@ def main():
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t.get("library_ms"),
+            "library_ms": t.get("library_ms"), "device_ms": t["device_ms"],
         })
     print(f"total: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))

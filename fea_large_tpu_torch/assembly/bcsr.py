@@ -6,6 +6,8 @@ Storage (block rows = nodes, 3x3 blocks):
     indices  int64 [nnzb]        block column (node) of each stored block
     row_ids  int64 [nnzb]        block row of each stored block
     data     f64 [nnzb, 3, 3]    block values
+The kernel B10 reads int32 copies of indptr and indices (half the index
+bytes of every product); the int64 arrays serve everything else.
 
 The sparsity and the assembly map are built once per mesh on the host
 (`BCSRStructure.build`, the reference's numpy build). Assembly sums the
@@ -26,12 +28,24 @@ from fea_large_tpu_torch.elements.kernels import ElementGeometry, element_stiffn
 from fea_large_tpu_torch.ops import bcsr_kernels
 from fea_large_tpu_torch.ops.soa import ScatterBuckets
 
+INT32_LIMIT = 2**31
+
+
+def check_int32_sizes(n_nodes: int, nnzb: int) -> None:
+    """Raise unless block rows and stored blocks can be indexed in int32,
+    as the kernel B10 indexes them."""
+    if n_nodes >= INT32_LIMIT or nnzb >= INT32_LIMIT:
+        raise ValueError(f"the BCSR product indexes in int32: n_nodes {n_nodes} and nnzb "
+                         f"{nnzb} must both be below 2**31")
+
 
 @dataclasses.dataclass(frozen=True)
 class BCSRStructure:
     """Sparsity and assembly maps of one mesh, on one device.
 
     indptr, indices, row_ids   the BCSR index arrays (device tensors)
+    indptr32, indices32        int32 copies of indptr and indices, which the
+                               kernel B10 reads
     perm, segment_ids          the reference's sorted assembly map (host
                                numpy): entries (e, a, b) sorted by slot,
                                and the slot of each sorted entry
@@ -43,6 +57,8 @@ class BCSRStructure:
     indptr: torch.Tensor
     indices: torch.Tensor
     row_ids: torch.Tensor
+    indptr32: torch.Tensor
+    indices32: torch.Tensor
     perm: np.ndarray
     segment_ids: np.ndarray
     slot_buckets: ScatterBuckets
@@ -63,6 +79,7 @@ class BCSRStructure:
         uniq, slot_of_entry = np.unique(keys, return_inverse=True)
         slot_of_entry = slot_of_entry.reshape(-1)
         nnzb = uniq.shape[0]
+        check_int32_sizes(int(n_nodes), int(nnzb))
         u_rows = (uniq // n_nodes).astype(np.int64)
         u_cols = (uniq % n_nodes).astype(np.int64)
         indptr = np.zeros(n_nodes + 1, dtype=np.int64)
@@ -73,11 +90,12 @@ class BCSRStructure:
         if diag.shape[0] != n_nodes:
             raise ValueError("every node needs a diagonal block (a node of no element?)")
 
-        def dev(x):
-            return torch.as_tensor(x, dtype=torch.int64, device=device)
+        def dev(x, dtype=torch.int64):
+            return torch.as_tensor(x, dtype=dtype, device=device)
 
         return BCSRStructure(
             indptr=dev(indptr), indices=dev(u_cols), row_ids=dev(u_rows),
+            indptr32=dev(indptr, torch.int32), indices32=dev(u_cols, torch.int32),
             perm=perm, segment_ids=slot_of_entry[perm],
             slot_buckets=ScatterBuckets.from_flat(slot_of_entry, nnzb, device),
             row_buckets=ScatterBuckets.from_flat(u_rows, int(n_nodes), device),

@@ -14,15 +14,18 @@
 //
 // Layout (kept from the reference): every operand is [rows, C], C cells.
 // State rows are r = (k*9 + 3i + j)*T + t, per-point scalars k*T + t, the
-// (class, offset) pair cache and pair outputs n_comp*pair + comp. ONE
-// THREAD PER CELL c, blocks of 128 threads: a warp's 32 threads read 32
-// neighbouring addresses of every row, so every row load and store is
-// coalesced. The grid is ceil(C/128) blocks and the kernel masks the
-// ragged last block itself; nothing is padded.
+// (class, offset) pair cache and pair outputs n_comp*pair + comp. A warp's
+// 32 lanes always run along the cell axis, so every row load and store is
+// coalesced; the kernels mask the ragged last block themselves and nothing
+// is padded.
 //
-// Accumulation: each thread owns column c of every output row, zeroes it
-// and adds into it in a fixed (t, k, a) order. No atomics, no reduction
-// across threads: the result is bitwise deterministic.
+// Threads and accumulation. B2-B5: ONE THREAD PER CELL c, blocks of 128
+// threads; each thread owns column c of every output row, zeroes it and
+// adds into it in a fixed (t, k, a) order. B1, the one kernel every PCG
+// iteration runs: ONE THREAD PER (TET SLOT t, CELL c), blocks of 32 cells x
+// T slots, register sums over the q points and one fixed-order combine of
+// the slots through shared memory (see apply_kernel). No atomics anywhere:
+// the results are bitwise deterministic.
 //
 // Geometry: gN [q, npe, 3, T], dV [q, T] and pair_of [T, npe] are the same
 // for every cell (744 values for TET10). They arrive as small device
@@ -34,12 +37,15 @@
 // writes 81 rows: about 858 rows x 4 B, so ~147 MB per call at C = 42,875
 // (the 1,073,733-DOF TET10 lattice), against ~0.5 kFLOP of arithmetic per
 // tet-point. B2 reads 81 and writes 696 rows, B3 reads 696 and
-// read-modify-writes 243, B4 reads 432 and read-modify-writes 81. The
-// design reads each operand once and keeps all per-point temporaries in
-// registers; accumulating straight into the output column (instead of 81
-// or 243 register accumulators) trades repeated L1/L2 traffic on the
-// output rows for register pressure. Folding the pair gather and scatter
-// into the kernel, and register accumulation, are later work.
+// read-modify-writes 243, B4 reads 432 and read-modify-writes 81. Every
+// design reads each operand once and keeps the per-point temporaries in
+// registers. B2-B5 accumulate straight into the output column (instead of
+// 81 or 243 register accumulators), which trades repeated L1/L2 traffic on
+// the output rows for register pressure, and their grid of one thread per
+// cell (~325 threads an SM at C = 42,875) keeps too few loads in flight to
+// reach the memory rate; B1's design removes both and is the one to carry
+// over to them. Folding the pair gather and scatter into the kernels is
+// later work.
 //
 // Scalar type is a template parameter: B1-B4 are instantiated for float,
 // B5 for double. The TPU runs B5 in double-word f32 arithmetic because
@@ -197,25 +203,55 @@ freeze_kernel(const scalar_t* __restrict__ cache, const scalar_t* __restrict__ g
 // B1 tangent action: dF = sum_a v_a (x) g_a, dE = sym(F^T dF),
 // dS = alpha (A:dE) A + beta A dE A, dP = dF S + F dS; V dP g_a into pairs.
 // Replaces pallas_structured.py::_apply_kernel. Bound by reading the frozen
-// state (696 rows per cell) once per PCG iteration; the 81 output rows are
-// re-read and re-written per (t, k) from L1/L2.
+// state (696 rows per cell) once per PCG iteration.
+//
+// ONE THREAD PER (TET SLOT t, CELL c). A block is a tile of kCellTile = 32
+// cells times the T slots, a warp's lanes along c (thread = t * 32 + cell),
+// so every state and cache row load stays coalesced and T times as many
+// loads are in flight as with a thread per cell. The thread loads its
+// npe x 3 nodal values once, loops over the q points with one point's
+// state in registers, and keeps its npe x 3 nodal contributions in
+// registers: no output row is touched inside the loop. Then the block
+// combines: every thread stores its contributions to a shared
+// [T * npe * 3][32] tile (23 KB for TET10), and after one __syncthreads()
+// the block sums every pair row over the slots that feed it, in the t-major
+// order of the slot table (StructTables.slot_table, staged in shared memory
+// beside gN, dV and pair_of), and writes each of the 3P output rows once,
+// coalesced. Fixed order, no atomics: bitwise deterministic. The ragged
+// last tile is masked; its idle threads still reach the barrier.
 // ---------------------------------------------------------------------------
+constexpr int kCellTile = 32;
+
 template <typename scalar_t, int Q, int NPE, int T>
-__global__ void __launch_bounds__(kBlock)
+struct ApplyShared {
+  Tables<scalar_t, Q, NPE, T> tb;
+  int slot_table[T * NPE * T];  // [P, T] slots of each pair, padded with T * NPE
+  scalar_t tile[T * NPE * 3][kCellTile];
+};
+
+template <typename scalar_t, int Q, int NPE, int T>
+__global__ void __launch_bounds__(kCellTile * T)
 apply_kernel(const scalar_t* __restrict__ cache, const scalar_t* __restrict__ Fb,
              const scalar_t* __restrict__ Sb, const scalar_t* __restrict__ Ab,
              const scalar_t* __restrict__ alb, const scalar_t* __restrict__ beb,
              const scalar_t* __restrict__ gN, const scalar_t* __restrict__ dV,
-             const int* __restrict__ pair_of, scalar_t* __restrict__ out, int C,
-             int n_out) {
-  __shared__ Tables<scalar_t, Q, NPE, T> tb;
-  stage(tb, gN, dV, pair_of);
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
+             const int* __restrict__ pair_of, const int* __restrict__ slot_table,
+             scalar_t* __restrict__ out, int C, int P) {
+  __shared__ ApplyShared<scalar_t, Q, NPE, T> sh;
+  for (int i = threadIdx.x; i < P * T; i += blockDim.x) sh.slot_table[i] = slot_table[i];
+  stage(sh.tb, gN, dV, pair_of);
+  const Tables<scalar_t, Q, NPE, T>& tb = sh.tb;
+  const int lane = threadIdx.x % kCellTile;
+  const int t = threadIdx.x / kCellTile;
+  const int c0 = blockIdx.x * kCellTile;
+  const int c = c0 + lane;
   const size_t Cs = C;
-  for (int r = 0; r < n_out; ++r) out[(size_t)r * Cs + c] = scalar_t(0);
-#pragma unroll 1
-  for (int t = 0; t < T; ++t) {
+  scalar_t acc[NPE][3];
+#pragma unroll
+  for (int a = 0; a < NPE; ++a)
+#pragma unroll
+    for (int i = 0; i < 3; ++i) acc[a][i] = scalar_t(0);
+  if (c < C) {
     scalar_t ve[NPE][3];
     load_slot(tb, cache, t, Cs, c, ve);
 #pragma unroll 1
@@ -263,8 +299,33 @@ apply_kernel(const scalar_t* __restrict__ cache, const scalar_t* __restrict__ Fb
         for (int J = 0; J < 3; ++J)
           dPV[i][J] = (dF[i][0] * S[0][J] + dF[i][1] * S[1][J] + dF[i][2] * S[2][J] +
                        F[i][0] * dS[0][J] + F[i][1] * dS[1][J] + F[i][2] * dS[2][J]) * V;
-      add_nodal(tb, dPV, k, t, Cs, c, out);
+#pragma unroll
+      for (int a = 0; a < NPE; ++a) {
+        const scalar_t g0 = g_at(tb, k, a, 0, t), g1 = g_at(tb, k, a, 1, t),
+                       g2 = g_at(tb, k, a, 2, t);
+#pragma unroll
+        for (int i = 0; i < 3; ++i) acc[a][i] += dPV[i][0] * g0 + dPV[i][1] * g1 + dPV[i][2] * g2;
+      }
     }
+  }
+#pragma unroll
+  for (int a = 0; a < NPE; ++a)
+#pragma unroll
+    for (int i = 0; i < 3; ++i) sh.tile[(t * NPE + a) * 3 + i][lane] = acc[a][i];
+  __syncthreads();
+  for (int o = threadIdx.x; o < 3 * P * kCellTile; o += blockDim.x) {
+    const int row = o / kCellTile, cell = o % kCellTile;
+    const int* slots = sh.slot_table + (row / 3) * T;
+    scalar_t part[T];
+#pragma unroll
+    for (int m = 0; m < T; ++m) {
+      const int s = slots[m];
+      part[m] = s < T * NPE ? sh.tile[s * 3 + row % 3][cell] : scalar_t(0);
+    }
+    scalar_t sum = scalar_t(0);
+#pragma unroll
+    for (int m = 0; m < T; ++m) sum += part[m];
+    if (c0 + cell < C) out[(size_t)row * Cs + c0 + cell] = sum;
   }
 }
 
@@ -458,15 +519,20 @@ int fea_struct_freeze_f32(const float* cache, const float* gN, const int* pair_o
   return (int)cudaGetLastError();
 }
 
+// slot_table int32 [P, T]: the (t * npe + a) slots of each pair in t-major
+// order, padded with T * npe (a pair is a node of a tet at most once, so
+// it has at most T slots); P <= T * npe pairs.
 int fea_struct_apply_f32(const float* cache, const float* F, const float* S,
                          const float* A, const float* alpha, const float* beta,
-                         const float* gN, const float* dV, const int* pair_of, float* out,
-                         int C, int q, int npe, int T, int P, void* stream) {
-  if (C <= 0 || P <= 0) return (int)cudaErrorInvalidValue;
+                         const float* gN, const float* dV, const int* pair_of,
+                         const int* slot_table, float* out, int C, int q, int npe, int T,
+                         int P, void* stream) {
+  if (C <= 0 || P <= 0 || P > T * npe) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned grid = (unsigned)((C + kCellTile - 1) / kCellTile);
   FEA_DISPATCH(q, npe, T,
-               apply_kernel<float, kQ, kNPE, kT><<<grid_for(C), kBlock, 0, s>>>(
-                   cache, F, S, A, alpha, beta, gN, dV, pair_of, out, C, 3 * P));
+               apply_kernel<float, kQ, kNPE, kT><<<grid, kCellTile * kT, 0, s>>>(
+                   cache, F, S, A, alpha, beta, gN, dV, pair_of, slot_table, out, C, P));
   return (int)cudaGetLastError();
 }
 

@@ -21,6 +21,15 @@ its tensors lie on the CPU; on a CUDA tensor it launches the kernel or
 raises. There is no fallback from a failed build or launch. `LAUNCHES`
 counts kernel launches per pass.
 
+The kernels keep a warp's lanes along the cell axis, so every row access
+is coalesced, and are bound by memory traffic. B2-B5 run one thread per
+cell and add into their output rows per (tet slot, point). B1, which every
+PCG iteration runs, runs one thread per (tet slot, cell): it sums its
+npe x 3 nodal contributions over the points in registers, and each block
+of 32 cells then sums the slots of every pair through shared memory in the
+t-major order of `StructTables.slot_table` (the order of `_pair_rows`) and
+writes each output row once. No atomics; repeats are bitwise equal.
+
 The kernels are built with nvcc at first use (ops/cuda_build.py) and
 loaded with ctypes.
 """
@@ -117,9 +126,12 @@ class StructTables:
     gN        [q, npe, 3, T] shape-function gradients (same for every cell)
     dV        [q, T] quadrature weight x det J
     pair_of   int32 [T, npe] pair index of each (tet slot, node slot)
-    slot_rows int64 [P, M] the (t*npe + a) slots of each pair in t-major
-              order, padded with T*npe (a zero row) — the plain versions'
+    slot_rows int64 [P, T] the (t*npe + a) slots of each pair in t-major
+              order (at most T: a pair is a node of a tet at most once),
+              padded with T*npe (a zero row) — the plain versions'
               fixed-order pair sums
+    slot_table int32 copy of slot_rows for the kernel B1, whose blocks sum
+              each pair row over these slots in this order
     """
 
     q: int
@@ -131,6 +143,7 @@ class StructTables:
     dV: torch.Tensor
     pair_of: torch.Tensor
     slot_rows: torch.Tensor
+    slot_table: torch.Tensor
 
     @property
     def P(self) -> int:
@@ -144,8 +157,7 @@ class StructTables:
         for t in range(T):
             for a in range(npe):
                 slots[pair_of[t][a]].append(t * npe + a)
-        M = max(len(s) for s in slots)
-        slot_rows = np.full((len(pairs), M), T * npe, np.int64)
+        slot_rows = np.full((len(pairs), T), T * npe, np.int64)
         for pi, s in enumerate(slots):
             slot_rows[pi, : len(s)] = s
         return StructTables(
@@ -155,6 +167,7 @@ class StructTables:
             pair_of=torch.as_tensor(np.asarray(pair_of), dtype=torch.int32,
                                     device=device),
             slot_rows=torch.as_tensor(slot_rows, device=device),
+            slot_table=torch.as_tensor(slot_rows, dtype=torch.int32, device=device),
         )
 
 
@@ -281,7 +294,7 @@ def _library():
     P, I, Fl, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
     return cuda_build.load(SOURCE, {
         "fea_struct_freeze_f32": [P] * 8 + [I] * 5 + [Fl, Fl, P],
-        "fea_struct_apply_f32": [P] * 10 + [I] * 5 + [P],
+        "fea_struct_apply_f32": [P] * 11 + [I] * 5 + [P],
         "fea_struct_diag_f32": [P] * 9 + [I] * 5 + [P],
         "fea_struct_force_f32": [P] * 6 + [I] * 5 + [P],
         "fea_struct_resid_f64": [P] * 5 + [I] * 6 + [D, D, P],
@@ -358,8 +371,8 @@ def struct_apply(tb: StructTables, cache, F, S, A, alpha, beta):
     with torch.cuda.device(cache.device):
         _launch(
             "apply", _ptr(cache), _ptr(F), _ptr(S), _ptr(A), _ptr(alpha),
-            _ptr(beta), _ptr(tb.gN), _ptr(tb.dV), _ptr(tb.pair_of), _ptr(out),
-            *_dims(tb, tb.P),
+            _ptr(beta), _ptr(tb.gN), _ptr(tb.dV), _ptr(tb.pair_of),
+            _ptr(tb.slot_table), _ptr(out), *_dims(tb, tb.P),
         )
     return out
 

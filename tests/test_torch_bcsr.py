@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from fea_large_tpu_torch.assembly import bcsr as port_bcsr
 from fea_large_tpu_torch.assembly.bcsr import BCSRMatrix, BCSRStructure, assemble_bcsr
 from fea_large_tpu_torch.assembly.scatter import NodeScatter
 from fea_large_tpu_torch.elements import kernels as ek
@@ -118,6 +119,30 @@ def test_bcsr_structure_equals_reference(ref, case):
     assert torch.equal(rows, torch.arange(ps.n_nodes)) and torch.equal(cols, rows)
 
 
+def test_int32_index_copies_equal_the_int64_arrays(case):
+    """The kernel's int32 indptr and indices are the int64 arrays the
+    structure is held against the reference with."""
+    ps = BCSRStructure.build(case.mesh.conn_host, case.mesh.n_nodes, "cpu")
+    assert ps.indptr32.dtype == torch.int32 and ps.indices32.dtype == torch.int32
+    assert ps.indptr32.is_contiguous() and ps.indices32.is_contiguous()
+    assert torch.equal(ps.indptr32.long(), ps.indptr)
+    assert torch.equal(ps.indices32.long(), ps.indices)
+
+
+@pytest.mark.parametrize("n_nodes,nnzb,ok", [
+    (2**31 - 1, 2**31 - 1, True), (342_361, 9_184_321, True),
+    (2**31, 10, False), (10, 2**31, False),
+], ids=["at-limit", "full-width", "rows-over", "blocks-over"])
+def test_int32_size_limit(n_nodes, nnzb, ok):
+    """`BCSRStructure.build` calls this on its sizes before it makes the
+    int32 copies; checked on the sizes, not by building such a mesh."""
+    if ok:
+        port_bcsr.check_int32_sizes(n_nodes, nnzb)
+    else:
+        with pytest.raises(ValueError, match="int32"):
+            port_bcsr.check_int32_sizes(n_nodes, nnzb)
+
+
 @pytest.mark.parametrize("kind,port_cls", MATERIALS, ids=[m[0] for m in MATERIALS])
 def test_assemble_bcsr_matches_reference(ref, case, kind, port_cls):
     rmat, mat = _materials(ref, kind, port_cls)
@@ -183,4 +208,58 @@ def test_spmv_kernel_matches_plain_on_card(dtype, bound):
     torch.cuda.synchronize()
     assert bk.LAUNCHES["spmv"] == n0 + 1
     plain = bk.bcsr_spmv_plain(ps, data, x)
+    assert float((y - plain).abs().max()) <= bound * float(plain.abs().max())
+
+
+def _rows_structure(lengths, device):
+    """A BCSR structure with the given row lengths (columns r, r+1, ...
+    wrapped) and only the fields the product reads."""
+    import types
+
+    from fea_large_tpu_torch.ops.soa import ScatterBuckets
+
+    n = len(lengths)
+    indptr = np.concatenate([[0], np.cumsum(lengths)])
+    cols = np.concatenate([(r + np.arange(k)) % n for r, k in enumerate(lengths)])
+    rows = np.repeat(np.arange(n), lengths)
+    t = lambda a, dt: torch.as_tensor(a, dtype=dt, device=device)
+    return types.SimpleNamespace(
+        n_nodes=n, nnzb=int(indptr[-1]), indptr=t(indptr, torch.int64),
+        indices=t(cols, torch.int64), indptr32=t(indptr, torch.int32),
+        indices32=t(cols, torch.int32), row_buckets=ScatterBuckets.from_flat(rows, n, device))
+
+
+def test_rows_structure_plain_product_matches_dense():
+    """The synthetic rows the card test uses give the dense product on CPU."""
+    st = _rows_structure([1, 3, 8, 16, 33, 70, 2], "cpu")
+    rng = np.random.default_rng(2)
+    data = torch.tensor(rng.standard_normal((st.nnzb, 3, 3)))
+    x = torch.tensor(rng.standard_normal((st.n_nodes, 3)))
+    K = torch.zeros(st.n_nodes, 3, st.n_nodes, 3, dtype=torch.float64)
+    rows = torch.repeat_interleave(torch.arange(st.n_nodes), st.indptr[1:] - st.indptr[:-1])
+    # a row longer than n wraps onto columns it already has: those blocks add
+    K.index_put_((rows[:, None, None], torch.arange(3)[None, :, None], st.indices[:, None, None],
+                  torch.arange(3)[None, None, :]), data, accumulate=True)
+    dense = (K.reshape(3 * st.n_nodes, -1) @ x.reshape(-1)).reshape(-1, 3)
+    _close(bk.bcsr_spmv(st, data, x), dense)
+
+
+@pytest.mark.parametrize("dtype,bound", [(torch.float64, 1e-12), (torch.float32, 2e-5)],
+                         ids=["f64", "f32"])
+def test_spmv_kernel_row_lengths_on_card(dtype, bound):
+    """Rows shorter than L, equal to L and longer than 4L, a row count that
+    fills no CUDA block, and two launches bitwise equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel is CUDA C++ for sm_90a")
+    lanes = bk.LANES
+    lengths = [1, lanes - 1, lanes, lanes + 1, 2 * lanes, 4 * lanes + 3, 7 * lanes, 2] * 5 + [3]
+    st = _rows_structure(lengths, "cuda")
+    rng = np.random.default_rng(11)
+    data = torch.tensor(rng.standard_normal((st.nnzb, 3, 3)), dtype=dtype, device="cuda")
+    x = torch.tensor(rng.standard_normal((st.n_nodes, 3)), dtype=dtype, device="cuda")
+    y = bk.bcsr_spmv(st, data, x)
+    again = bk.bcsr_spmv(st, data, x)
+    torch.cuda.synchronize()
+    assert torch.equal(y, again)
+    plain = bk.bcsr_spmv_plain(st, data, x)
     assert float((y - plain).abs().max()) <= bound * float(plain.abs().max())

@@ -134,6 +134,35 @@ def test_wrappers_run_the_plain_version_on_cpu():
     assert sk.LAUNCHES == before
 
 
+@pytest.mark.parametrize("et", ["tet10", "tet4"])
+def test_slot_table_combine_reproduces_pair_rows(et):
+    """The kernel B1 sums each pair row over `slot_table`'s slots in order,
+    skipping the padding; on random per-slot contributions that is
+    `_pair_rows`, the plain versions' pair sum."""
+    mesh = box_mesh_kuhn(3, 2, 2, element_type=et, device="cpu")
+    tb = soa.SoAProblem.build(mesh, torch.float64).tables
+    T, npe, P = tb.T, tb.npe, tb.P
+    table = tb.slot_table
+    assert table.dtype == torch.int32 and tuple(table.shape) == (P, T)
+    assert torch.equal(table.long(), tb.slot_rows)
+    # every (tet slot, node slot) feeds exactly one pair, the one of pair_of
+    live = table[table < T * npe].long()
+    assert sorted(live.tolist()) == list(range(T * npe))
+    for p in range(P):
+        for s in table[p][table[p] < T * npe].tolist():
+            assert int(tb.pair_of[s // npe, s % npe]) == p
+    rng = np.random.default_rng(4)
+    contrib = torch.tensor(rng.standard_normal((T, npe, 3, tb.C)))
+    flat = contrib.reshape(T * npe, 3, tb.C)
+    out = torch.zeros(P, 3, tb.C, dtype=torch.float64)
+    for p in range(P):
+        for s in table[p].tolist():  # the kernel's order: t-major, padding skipped
+            if s < T * npe:
+                out[p] += flat[s]
+    np.testing.assert_allclose(out.reshape(3 * P, tb.C).numpy(),
+                               sk._pair_rows(tb, contrib).numpy(), rtol=0, atol=1e-14)
+
+
 # ---------------------------------------------------------------------------
 # kernel vs plain version on the card
 # ---------------------------------------------------------------------------
@@ -195,3 +224,27 @@ def test_force_kernel_matches_plain_on_card():
     out = sk.struct_force(tb, *rows[:2])
     torch.cuda.synchronize()
     assert _rel(out, sk.struct_force_plain(tb, *rows[:2])) <= 2e-5
+
+
+@pytest.mark.parametrize("et,cells", [("tet10", (5, 3, 3)), ("tet4", (7, 3, 2)), ("tet10", (4, 4, 4))],
+                         ids=["tet10-45", "tet4-42", "tet10-64"])
+def test_apply_kernel_ragged_cell_tile_on_card(et, cells):
+    """B1 on lattices whose C is not (45, 42) and is (64) a multiple of the
+    32-cell tile of a block; two launches bitwise equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels are CUDA C++ for sm_90a")
+    mesh = box_mesh_kuhn(*cells, element_type=et, device="cuda")
+    p = soa.SoAProblem.build(mesh, torch.float32)
+    u, v = _fields(mesh.coords_host)
+    u = torch.tensor(u, dtype=torch.float32, device="cuda")
+    v = torch.tensor(v, dtype=torch.float32, device="cuda")
+    tb = p.tables
+    rows = soa.soa_freeze(p, NeoHookean(1.0, 0.6), u).rows(tb)
+    cache = sk.gather_cache(p.structure, tb.pairs, v)
+    n0 = sk.LAUNCHES["apply"]
+    out = sk.struct_apply(tb, cache, *rows)
+    again = sk.struct_apply(tb, cache, *rows)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES["apply"] == n0 + 2
+    assert torch.equal(out, again)
+    assert _rel(out, sk.struct_apply_plain(tb, cache, *rows)) <= 2e-5
