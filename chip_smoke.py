@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch + CUDA port (fea_large_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--against CHECKOUT]
 
 Drives the port's three paths through a Newton solve of bench.py's problem
 (neo-Hookean (1.0, 0.6), zmin fixed, zmax pushed -0.05 in z, 5% affine
@@ -28,16 +28,18 @@ Phases:
      registers and spills per kernel;
   2. kernel checks, each kernel against its plain PyTorch version on the
      same inputs: B1-B4 and B5 on TET10 and TET4 Kuhn lattices n=21 (C =
-     9,261 = 72*128 + 45 cells), B6-B9 on TET10 and TET4 5-tet boxes n=13
+     9,261 = 72*128 + 45 cells; B2 also on n=22, whose C is a multiple of 8,
+     where its blocks do not overlap), B6-B9 on TET10 and TET4 5-tet boxes n=13
      (E = 10,985 = 85*128 + 105 elements), every freeze and f64 residual
      for all three materials, and B10 in f64 and f32 on the stiffness
      assembled on those boxes (rows of varying length) and on a (6, 4, 2)
      box whose N is not a multiple of the block rows a CUDA block holds
      (a B10 block of 128 threads holds 4 rows, a warp of 32 lanes a row; a
-     B1 block holds 32 cells times the 6 tet slots). Bounds relative to the
-     largest entry: 2e-5 for the f32 kernels, 1e-12 for the f64 ones. B1
-     and B10 (f64 and f32), whose sums cross threads, are launched twice
-     on the same inputs and must give bitwise-equal outputs;
+     block of B1, B2 or B3 holds 32 cells times the 6 tet slots). Bounds
+     relative to the largest entry: 2e-5 for the f32 kernels, 1e-12 for the
+     f64 ones. B1, B3 and B10 (f64 and f32), whose sums cross threads, and
+     B2 (all three materials) are launched twice on the same inputs and
+     must give bitwise-equal outputs;
   3. the Kuhn path: n=4 with resid_df=False and with resid_df=None against
      the JAX reference's counts (measured on CPU), then full width with
      resid_df=None;
@@ -60,17 +62,23 @@ Phases:
      launch path is in it when the kernel is shorter than its wrapper's
      host time) beside its bound, the same kernel queued behind a busy
      card (20 launches between one pair of events: `device_ms`, without
-     the host's launch path) and the host's microseconds per launch; B10
+     the host's launch path) and the host's microseconds per launch; B2
+     also on the n=36 lattice, whose C is a multiple of 8; B10
      beside cuSPARSE's BSR product
      (`torch.sparse_bsr_tensor @ x`), the passes of one Newton
      and one PCG iteration on every path, and the Kuhn and the 5-tet solves
-     with the plain and the fused f64 residual in turns;
+     with the plain and the fused f64 residual in turns; with `--against
+     CHECKOUT` (another checkout of this repository: an earlier commit, or
+     a variant of a kernel source, e.g. unpacked by `git archive` into
+     build/), the lattice kernels as that checkout builds them, queued, in
+     turns with this one's (there, here, here, there);
   7. a JSON line of the kernels, then the result line.
 
 Any failed check raises, so the exit code is non-zero and no result line
 is printed. Without a CUDA device it stops in phase 0.
 """
 
+import argparse
 import json
 import re
 import statistics
@@ -172,7 +180,7 @@ POINT_FLOPS = {
     "freeze": lambda npe, kind: 18 * npe + 48 + MATERIAL_FLOPS[kind],
     "force": lambda npe, kind: 54 + 18 * npe,
     "apply": lambda npe, kind: 36 * npe + 360,
-    "diag": lambda npe, kind: 94 + 106 * npe,
+    "diag": lambda npe, kind: 86 + 86 * npe,
     "resid": lambda npe, kind: 36 * npe + 102 + MATERIAL_FLOPS[kind],
 }
 
@@ -239,8 +247,9 @@ def phase_card():
     return smi
 
 
-#: threads of a B1 block: 32 cells x 6 tet slots
-B1_THREADS = 192
+#: threads of a block of B1, B2 or B3: 32 cells x 6 tet slots
+TILE_THREADS = 192
+TILE_KERNELS = {"apply_kernel": "B1", "freeze_kernel": "B2", "diag_kernel": "B3"}
 
 
 def resident_blocks(registers, smem, threads):
@@ -271,9 +280,10 @@ def phase_build():
             elif name and ("spill" in line or "registers" in line):
                 print(f"  ptxas {name}: {line.split(':')[-1].strip()}")
                 m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
-                if m and src == sk.SOURCE and name.startswith("apply_kernel"):
-                    print(f"    B1 blocks of {B1_THREADS} threads resident per SM: "
-                          f"{resident_blocks(int(m.group(1)), int(m.group(2)), B1_THREADS)}")
+                tag = TILE_KERNELS.get(name.split("<")[0])
+                if m and src == sk.SOURCE and tag:
+                    print(f"    {tag} blocks of {TILE_THREADS} threads resident per SM: "
+                          f"{resident_blocks(int(m.group(1)), int(m.group(2)), TILE_THREADS)}")
 
 
 MATERIALS = (StVenantKirchhoff(1.0, 0.6), NeoHookean(1.0, 0.6), NeoHookeanVolumetric(1.0, 0.6))
@@ -360,7 +370,8 @@ def lattice_calls(x, materials):
                              lambda: sk.struct_apply_plain(tb, vc, *rows),
                              (vc, *rows, *geo, tb.slot_table), 1)
     calls["struct_diag"] = (lambda: sk.struct_diag(tb, *rows),
-                            lambda: sk.struct_diag_plain(tb, *rows), (*rows, *geo), 1)
+                            lambda: sk.struct_diag_plain(tb, *rows),
+                            (*rows, *geo, tb.slot_table), 1)
     calls["struct_force"] = (lambda: sk.struct_force(tb, *rows[:2]),
                              lambda: sk.struct_force_plain(tb, *rows[:2]), (*rows[:2], *geo), 1)
     return calls
@@ -399,12 +410,21 @@ def run_checks(calls):
 
 def check_repeats(label, calls):
     """Two launches of a kernel on the same inputs give bitwise-equal
-    outputs (the kernels whose sums cross threads: B1, B10)."""
+    outputs (the kernels whose sums cross threads, B1, B3 and B10, and B2)."""
     for name, c in calls.items():
         a, b = c[0](), c[0]()
         torch.cuda.synchronize()
-        check(torch.equal(a, b), f"{label} {name}: two launches bitwise equal")
+        if isinstance(a, torch.Tensor):
+            a, b = (a,), (b,)
+        check(all(torch.equal(x, y) for x, y in zip(a, b)),
+              f"{label} {name}: two launches bitwise equal")
         print(f"  {label:10s} {name:28s} two launches bitwise equal")
+
+
+def tile_kernels(calls):
+    """The calls of B1, B2 and B3 among a lattice's."""
+    return {k: c for k, c in calls.items()
+            if k.startswith(("struct_apply", "struct_diag", "struct_freeze"))}
 
 
 def check_bcsr(label, mesh):
@@ -440,10 +460,15 @@ def phase_kernel_checks(device):
         x = lattice_inputs(box_mesh_kuhn(nk, nk, nk, element_type=et, device=device))
         C = x["tb"].C
         print(f"Kuhn {et} n={nk}: C = {C} cells = {C // 128} x 128 + {C % 128} "
-              f"= {C // 32} x 32 + {C % 32} (B1: 32 cells x 6 tet slots a block)")
+              f"= {C // 32} x 32 + {C % 32} (B1, B2, B3: 32 cells x 6 tet slots a block)")
         calls = lattice_calls(x, MATERIALS)
         report_checks(f"kuhn {et}", run_checks(calls))
-        check_repeats(f"kuhn {et}", {"struct_apply": calls["struct_apply"]})
+        check_repeats(f"kuhn {et}", tile_kernels(calls))
+        # B2's blocks overlap unless C is a multiple of 8: the other case
+        x = lattice_inputs(box_mesh_kuhn(nk + 1, nk + 1, nk + 1, element_type=et, device=device))
+        check(C % 8 != 0 and x["tb"].C % 8 == 0, "B2 is checked with and without overlapping blocks")
+        even = {k: c for k, c in lattice_calls(x, MATERIALS).items() if k.startswith("struct_freeze")}
+        report_checks(f"kuhn {et}", {f"{k} C={x['tb'].C}": v for k, v in run_checks(even).items()})
         mesh5 = box_mesh(n5, n5, n5, element_type=et, device=device)
         x = element_inputs(mesh5)
         E = x["E"]
@@ -835,7 +860,29 @@ def bcsr_timings(solver, u0, mat, table):
           f"{1e3 * (time.perf_counter() - t0) / max(done, 1):.4f} ms")
 
 
-def phase_timings(kuhn, five_tet, bcsr, card):
+#: run from the root of another checkout: its lattice kernels, queued, at
+#: full width on its own inputs
+AGAINST = """
+import json, torch
+import chip_smoke as cs
+n = cs.FULL["kuhn"][0]
+mesh = cs.box_mesh_kuhn(n, n, n, element_type="tet10", device=torch.device("cuda", 0))
+calls = cs.lattice_calls(cs.lattice_inputs(mesh), (cs.NeoHookean(1.0, 0.6),))
+print(json.dumps({name.split("/")[0]: cs.queued_ms(c[0]) for name, c in calls.items()}))
+"""
+
+
+def queued_there(checkout):
+    """{kernel: queued ms} of the lattice kernels B1-B5 at full width as
+    another checkout of this repository builds and launches them, in a
+    process of its own on the same card."""
+    proc = subprocess.run([sys.executable, "-c", AGAINST], cwd=checkout, capture_output=True,
+                          text=True, timeout=600)
+    check(proc.returncode == 0, f"the lattice kernels of {checkout} ran:\n{proc.stderr[-2000:]}")
+    return json.loads(proc.stdout.splitlines()[-1])
+
+
+def phase_timings(kuhn, five_tet, bcsr, card, against=None):
     print(f"== phase 6: full-width timings (CUDA events; kernels, plain versions and passes "
           f"median of 10 calls; queued: 20 launches between one pair of events; {card})")
     t0 = time.perf_counter()
@@ -847,7 +894,23 @@ def phase_timings(kuhn, five_tet, bcsr, card):
     errs = run_checks(calls)
     report_checks("kuhn full", errs)
     tb = x["tb"]
+    there = [queued_there(against)] if against else []
     time_calls(calls, tb.q * tb.T * tb.C, tb.npe, table)
+    # B2 on the next lattice, whose C is a multiple of 8: its blocks do not overlap there
+    even = lattice_inputs(box_mesh_kuhn(*3 * (FULL["kuhn"][0] + 1,), element_type="tet10",
+                                        device=solver.mesh.device))
+    te = even["tb"]
+    check(tb.C % 8 != 0 and te.C % 8 == 0, "B2 is timed with and without overlapping blocks")
+    print(f"  B2 at C = {te.C} (a multiple of 8):")
+    time_calls({k: c for k, c in lattice_calls(even, (mat,)).items()
+                if k.startswith("struct_freeze")}, te.q * te.T * te.C, te.npe, {})
+    del even
+    if against:
+        again = {name.split("/")[0]: queued_ms(c[0]) for name, c in calls.items()}
+        there.append(queued_there(against))
+        for name, ms in again.items():
+            print(f"  {name:24s} queued, in turns: {there[0][name]:.4f} ms in {against}, "
+                  f"{table[name]['device_ms']:.4f} and {ms:.4f} here, {there[1][name]:.4f} there")
     time_passes(newton_pcg_passes(solver, u0, mat, soa.soa_freeze, _residual_df_fn))
     time_passes({"f64 residual (_residual_soa_fn)": lambda: _residual_soa_fn(
         u0, 1.0, solver._soa64, mat, solver.bc, solver.f_ext)})
@@ -871,6 +934,11 @@ def phase_timings(kuhn, five_tet, bcsr, card):
 
 
 def main():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--against", metavar="CHECKOUT",
+                        help="another checkout of this repository whose lattice kernels phase 6 "
+                             "times, queued, in turns with this one's")
+    args = parser.parse_args()
     t0 = time.perf_counter()
     card = phase_card()
     device = torch.device("cuda", 0)
@@ -880,7 +948,7 @@ def main():
     kuhn = phase_kuhn(device, card)
     five_tet = phase_5tet(device, card)
     bcsr = phase_bcsr(device, card)
-    table = phase_timings(kuhn, five_tet, bcsr, card)
+    table = phase_timings(kuhn, five_tet, bcsr, card, args.against)
     launches = {**kuhn[2], **five_tet[2], **bcsr[2]}
     kernels = []
     for name, (_, _, source, replaces) in KERNELS.items():

@@ -19,13 +19,18 @@
 // coalesced; the kernels mask the ragged last block themselves and nothing
 // is padded.
 //
-// Threads and accumulation. B2-B5: ONE THREAD PER CELL c, blocks of 128
-// threads; each thread owns column c of every output row, zeroes it and
-// adds into it in a fixed (t, k, a) order. B1, the one kernel every PCG
-// iteration runs: ONE THREAD PER (TET SLOT t, CELL c), blocks of 32 cells x
-// T slots, register sums over the q points and one fixed-order combine of
-// the slots through shared memory (see apply_kernel). No atomics anywhere:
-// the results are bitwise deterministic.
+// Threads and accumulation. B1, B2 and B3: ONE THREAD PER (TET SLOT t,
+// CELL c), blocks of kCellTile = 32 cells x T slots (thread = t * 32 +
+// cell), so T times as many loads are in flight as with a thread per cell
+// and every row access stays coalesced. B2 stores its own state rows
+// straight from registers (every row belongs to one (k, t)). B1 and B3 sum
+// their nodal contributions over the q points in registers, touch no output
+// row inside the point loop, and end in a fixed-order combine of the slots
+// through shared memory that writes each output row once (combine_slots).
+// B4 and B5, which run a few times per solve: ONE THREAD PER CELL c, blocks
+// of 128 threads; each thread owns column c of every output row, zeroes it
+// and adds into it in a fixed (t, k, a) order. No atomics anywhere: the
+// results are bitwise deterministic.
 //
 // Geometry: gN [q, npe, 3, T], dV [q, T] and pair_of [T, npe] are the same
 // for every cell (744 values for TET10). They arrive as small device
@@ -36,16 +41,15 @@
 // 81-row pair cache, F, S, A (3 x 216 rows) and alpha, beta (2 x 24) and
 // writes 81 rows: about 858 rows x 4 B, so ~147 MB per call at C = 42,875
 // (the 1,073,733-DOF TET10 lattice), against ~0.5 kFLOP of arithmetic per
-// tet-point. B2 reads 81 and writes 696 rows, B3 reads 696 and
-// read-modify-writes 243, B4 reads 432 and read-modify-writes 81. Every
-// design reads each operand once and keeps the per-point temporaries in
-// registers. B2-B5 accumulate straight into the output column (instead of
-// 81 or 243 register accumulators), which trades repeated L1/L2 traffic on
-// the output rows for register pressure, and their grid of one thread per
-// cell (~325 threads an SM at C = 42,875) keeps too few loads in flight to
-// reach the memory rate; B1's design removes both and is the one to carry
-// over to them. Folding the pair gather and scatter into the kernels is
-// later work.
+// tet-point. B2 reads 81 and writes 696 rows, B3 reads 696 and writes 243,
+// B4 reads 432 and read-modify-writes 81. Every design reads each operand
+// once and keeps the per-point temporaries in registers. B4 and B5
+// accumulate straight into the output column (instead of 81 register
+// accumulators), which trades repeated L1/L2 traffic on the output rows for
+// register pressure, and their grid of one thread per cell (~325 threads an
+// SM at C = 42,875) keeps too few loads in flight to reach the memory rate;
+// the design of B1 and B3 removes both and is the one to carry over to
+// them. Folding the pair gather and scatter into the kernels is later work.
 //
 // Scalar type is a template parameter: B1-B4 are instantiated for float,
 // B5 for double. The TPU runs B5 in double-word f32 arithmetic because
@@ -101,15 +105,6 @@ __device__ __forceinline__ void load3(const scalar_t* __restrict__ buf, int k, i
     for (int j = 0; j < 3; ++j) M[i][j] = buf[(size_t)((k * 9 + 3 * i + j) * T + t) * C + c];
 }
 
-template <typename scalar_t, int T>
-__device__ __forceinline__ void store3(scalar_t* __restrict__ buf, int k, int t,
-                                       size_t C, int c, const scalar_t M[3][3]) {
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int j = 0; j < 3; ++j) buf[(size_t)((k * 9 + 3 * i + j) * T + t) * C + c] = M[i][j];
-}
-
 // The nodal values of tet slot t of cell c: ve[a][i] from the pair cache.
 template <typename scalar_t, int Q, int NPE, int T>
 __device__ __forceinline__ void load_slot(const Tables<scalar_t, Q, NPE, T>& tb,
@@ -159,42 +154,184 @@ __device__ __forceinline__ void add_nodal(const Tables<scalar_t, Q, NPE, T>& tb,
 }
 
 // ---------------------------------------------------------------------------
+// Blocks of one thread per (tet slot t, cell c) (B1, B2, B3): a tile of
+// kCellTile cells times the T slots, a warp's lanes along c
+// (thread = t * kCellTile + cell).
+// ---------------------------------------------------------------------------
+constexpr int kCellTile = 32;
+
+inline unsigned tile_grid(int C) { return (unsigned)((C + kCellTile - 1) / kCellTile); }
+
+// ---------------------------------------------------------------------------
 // B2 freeze: F = I + sum_a u_a (x) g_a, C = F^T F, material state.
 // Replaces pallas_structured.py::_freeze_kernel. Bound by its writes (696
-// state rows per cell, ~119 MB at C = 42,875): each is stored once,
-// coalesced, straight from registers.
+// state rows per cell, ~119 MB at C = 42,875).
+//
+// ONE THREAD PER (TET SLOT t, CELL c). The thread loads its npe x 3 nodal
+// values once and, for each of the q points, stores the 29 state rows of
+// (k, t) coalesced, straight from registers. Every output row belongs to
+// one (k, t): there is nothing to combine and no barrier after the tables
+// are staged.
+//
+// Whole 32-byte sectors. A row starts at element r * C, so unless C is a
+// multiple of 8 the rows start anywhere within a sector, a warp's 32 cells
+// begin and end inside one, and two blocks each write a part of it: the
+// H100 then runs the kernel at about half the rate it reaches with C a
+// multiple of 8 (partial sector writes). So with such a C the
+// blocks overlap: block b computes the 32 cells from 24 b on, and of every
+// row it stores the sectors 3b + 1 .. 3b + 3 of that row (and block 0 also
+// sector 0, the one the row shares with the row before), counted from the
+// sector that holds the row's first element. Their 24 cells lie within the
+// block's 32 wherever the row starts, so every store instruction writes
+// whole sectors, at the price of computing a third more cells (the kernel
+// is bound by its writes). With C a multiple of 8 the blocks do not
+// overlap (own_cells = kCellTile) and store all they compute.
 // ---------------------------------------------------------------------------
+constexpr int kOwnSectors = 3;
+constexpr int kOwnTile = 8 * kOwnSectors;
+
+// Blocks of the freeze grid and the cells each owns.
+inline int freeze_own(int C) { return C % 8 == 0 ? kCellTile : kOwnTile; }
+inline unsigned freeze_grid(int C) {
+  if (C % 8 == 0) return tile_grid(C);
+  const int last = (C + 6) >> 3;  // sector of the last cell of a row that starts at 7 of 8
+  return (unsigned)((last + kOwnSectors - 1) / kOwnSectors);
+}
+
+// The sectors of a row that one block stores, and whether column c of row r
+// is in them.
+struct OwnedSectors {
+  int lo, hi;
+  __device__ __forceinline__ bool holds(int r, int C, int c) const {
+    const int sector = (int)((((unsigned)r * (unsigned)C) & 7u) + (unsigned)c) >> 3;
+    return sector >= lo && sector <= hi;
+  }
+};
+
+// Store the block's share of the 3x3 state matrix of point (k, t) of cell c.
+template <typename scalar_t, int T>
+__device__ __forceinline__ void store3(scalar_t* __restrict__ buf, int k, int t, int C, int c,
+                                       OwnedSectors own, const scalar_t M[3][3]) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const int r = (k * 9 + 3 * i + j) * T + t;
+      if (own.holds(r, C, c)) buf[(size_t)r * C + c] = M[i][j];
+    }
+}
+
 template <typename scalar_t, int Q, int NPE, int T>
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kCellTile * T)
 freeze_kernel(const scalar_t* __restrict__ cache, const scalar_t* __restrict__ gN,
               const int* __restrict__ pair_of, scalar_t* __restrict__ Fo,
               scalar_t* __restrict__ So, scalar_t* __restrict__ Ao,
-              scalar_t* __restrict__ alo, scalar_t* __restrict__ beo, int C, int kind,
-              scalar_t lam, scalar_t mu) {
+              scalar_t* __restrict__ alo, scalar_t* __restrict__ beo, int C, int own_cells,
+              int kind, scalar_t lam, scalar_t mu) {
   __shared__ Tables<scalar_t, Q, NPE, T> tb;
   stage(tb, gN, static_cast<const scalar_t*>(nullptr), pair_of);
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  const int t = threadIdx.x / kCellTile;
+  const int b = blockIdx.x;
+  const int c = b * own_cells + threadIdx.x % kCellTile;
   if (c >= C) return;
+  const OwnedSectors own = own_cells == kCellTile
+                               ? OwnedSectors{0, 0x7fffffff}
+                               : OwnedSectors{kOwnSectors * b + (b > 0), kOwnSectors * b + kOwnSectors};
   const size_t Cs = C;
+  scalar_t ue[NPE][3];
+  load_slot(tb, cache, t, Cs, c, ue);
 #pragma unroll 1
-  for (int t = 0; t < T; ++t) {
-    scalar_t ue[NPE][3];
-    load_slot(tb, cache, t, Cs, c, ue);
-#pragma unroll 1
-    for (int k = 0; k < Q; ++k) {
-      scalar_t F[3][3];
-      slot_grad(tb, ue, k, t, F);
+  for (int k = 0; k < Q; ++k) {
+    scalar_t F[3][3];
+    slot_grad(tb, ue, k, t, F);
 #pragma unroll
-      for (int i = 0; i < 3; ++i) F[i][i] += scalar_t(1);
-      scalar_t Cm[3][3];
-      right_cauchy_green(F, Cm);
-      scalar_t S[3][3], A[3][3], alpha, beta;
-      material_point(kind, lam, mu, Cm, S, A, alpha, beta);
-      store3<scalar_t, T>(Fo, k, t, Cs, c, F);
-      store3<scalar_t, T>(So, k, t, Cs, c, S);
-      store3<scalar_t, T>(Ao, k, t, Cs, c, A);
+    for (int i = 0; i < 3; ++i) F[i][i] += scalar_t(1);
+    scalar_t Cm[3][3];
+    right_cauchy_green(F, Cm);
+    scalar_t S[3][3], A[3][3], alpha, beta;
+    material_point(kind, lam, mu, Cm, S, A, alpha, beta);
+    store3<scalar_t, T>(Fo, k, t, C, c, own, F);
+    store3<scalar_t, T>(So, k, t, C, c, own, S);
+    store3<scalar_t, T>(Ao, k, t, C, c, own, A);
+    if (own.holds(k * T + t, C, c)) {
       alo[(size_t)(k * T + t) * Cs + c] = alpha;
       beo[(size_t)(k * T + t) * Cs + c] = beta;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The combine of B1 and B3. Each thread has summed NCOMP components for each
+// of its npe node slots over the q points: B1 the 3 components of a nodal
+// vector, B3 the 6 entries (00, 01, 02, 11, 12, 22) of a symmetric nodal 3x3
+// block. After the point loop the threads store them to a shared tile, row
+// (t * npe + a) * NCOMP + comp, which overlays the per-slot tables that the
+// loop is done with (a barrier before the stores, one after). Then one
+// thread per (pair, cell) sums the pair's slots in the t-major order of the
+// slot table (StructTables.slot_table) and writes the pair's output rows
+// once, coalesced along the cells: rows 3*pair + comp for B1, rows
+// 9*pair + 3i + kk for B3, whose lower triangle mirrors the upper. Fixed
+// order, no atomics: bitwise deterministic. The ragged last tile is masked.
+// ---------------------------------------------------------------------------
+template <typename scalar_t, int Q, int NPE, int T, int NCOMP>
+struct SlotShared {
+  int slot_table[T * NPE * T];  // [P, T] slots of each pair, padded with T * NPE
+  union {
+    Tables<scalar_t, Q, NPE, T> tb;             // during the point loop
+    scalar_t tile[T * NPE * NCOMP][kCellTile];  // after it: 23 KB (B1), 46 KB (B3) for TET10
+  };
+};
+
+// Stage the slot table and the per-slot tables; ends in a barrier.
+template <typename scalar_t, int Q, int NPE, int T, int NCOMP>
+__device__ __forceinline__ void stage_slots(SlotShared<scalar_t, Q, NPE, T, NCOMP>& sh,
+                                            const scalar_t* __restrict__ gN,
+                                            const scalar_t* __restrict__ dV,
+                                            const int* __restrict__ pair_of,
+                                            const int* __restrict__ slot_table, int P) {
+  for (int i = threadIdx.x; i < P * T; i += blockDim.x) sh.slot_table[i] = slot_table[i];
+  stage(sh.tb, gN, dV, pair_of);
+}
+
+__host__ __device__ constexpr int sym_index(int i, int k) {  // of the row-major upper triangle
+  return i <= k ? 3 * i - i * (i - 1) / 2 + k - i : 3 * k - k * (k - 1) / 2 + i - k;
+}
+
+// Store the thread's sums to the tile and combine them into the output rows.
+template <typename scalar_t, int Q, int NPE, int T, int NCOMP>
+__device__ __forceinline__ void combine_slots(SlotShared<scalar_t, Q, NPE, T, NCOMP>& sh,
+                                              const scalar_t acc[NPE][NCOMP],
+                                              scalar_t* __restrict__ out, int P, int C) {
+  static_assert(NCOMP == 3 || NCOMP == 6, "a nodal vector or a symmetric nodal block");
+  constexpr int NOUT = NCOMP == 3 ? 3 : 9;
+  const int lane = threadIdx.x % kCellTile;
+  const int t = threadIdx.x / kCellTile;
+  const int c0 = blockIdx.x * kCellTile;
+  __syncthreads();  // every thread is done with the tables under the tile
+#pragma unroll
+  for (int a = 0; a < NPE; ++a)
+#pragma unroll
+    for (int e = 0; e < NCOMP; ++e) sh.tile[(t * NPE + a) * NCOMP + e][lane] = acc[a][e];
+  __syncthreads();
+  for (int o = threadIdx.x; o < P * kCellTile; o += blockDim.x) {
+    const int pair = o / kCellTile, cell = o % kCellTile;
+    const int* slots = sh.slot_table + pair * T;
+    scalar_t sum[NCOMP];
+#pragma unroll
+    for (int e = 0; e < NCOMP; ++e) sum[e] = scalar_t(0);
+#pragma unroll
+    for (int m = 0; m < T; ++m) {
+      const int s = slots[m];
+      if (s < T * NPE) {
+#pragma unroll
+        for (int e = 0; e < NCOMP; ++e) sum[e] += sh.tile[s * NCOMP + e][cell];
+      }
+    }
+    if (c0 + cell < C) {
+#pragma unroll
+      for (int j = 0; j < NOUT; ++j)
+        out[(size_t)(NOUT * pair + j) * C + c0 + cell] =
+            sum[NCOMP == 3 ? j : sym_index(j / 3, j % 3)];
     }
   }
 }
@@ -205,30 +342,15 @@ freeze_kernel(const scalar_t* __restrict__ cache, const scalar_t* __restrict__ g
 // Replaces pallas_structured.py::_apply_kernel. Bound by reading the frozen
 // state (696 rows per cell) once per PCG iteration.
 //
-// ONE THREAD PER (TET SLOT t, CELL c). A block is a tile of kCellTile = 32
-// cells times the T slots, a warp's lanes along c (thread = t * 32 + cell),
-// so every state and cache row load stays coalesced and T times as many
-// loads are in flight as with a thread per cell. The thread loads its
-// npe x 3 nodal values once, loops over the q points with one point's
-// state in registers, and keeps its npe x 3 nodal contributions in
-// registers: no output row is touched inside the loop. Then the block
-// combines: every thread stores its contributions to a shared
-// [T * npe * 3][32] tile (23 KB for TET10), and after one __syncthreads()
-// the block sums every pair row over the slots that feed it, in the t-major
-// order of the slot table (StructTables.slot_table, staged in shared memory
-// beside gN, dV and pair_of), and writes each of the 3P output rows once,
-// coalesced. Fixed order, no atomics: bitwise deterministic. The ragged
-// last tile is masked; its idle threads still reach the barrier.
+// ONE THREAD PER (TET SLOT t, CELL c), so every state and cache row load
+// stays coalesced and T times as many loads are in flight as with a thread
+// per cell. The thread loads its npe x 3 nodal values once, loops over the
+// q points with one point's state in registers, and keeps its npe x 3
+// nodal contributions in registers: no output row is touched inside the
+// loop. Then the block combines them into the 3P output rows through the
+// shared tile (combine_slots). The ragged last tile is masked; its idle
+// threads still reach the barriers.
 // ---------------------------------------------------------------------------
-constexpr int kCellTile = 32;
-
-template <typename scalar_t, int Q, int NPE, int T>
-struct ApplyShared {
-  Tables<scalar_t, Q, NPE, T> tb;
-  int slot_table[T * NPE * T];  // [P, T] slots of each pair, padded with T * NPE
-  scalar_t tile[T * NPE * 3][kCellTile];
-};
-
 template <typename scalar_t, int Q, int NPE, int T>
 __global__ void __launch_bounds__(kCellTile * T)
 apply_kernel(const scalar_t* __restrict__ cache, const scalar_t* __restrict__ Fb,
@@ -237,14 +359,11 @@ apply_kernel(const scalar_t* __restrict__ cache, const scalar_t* __restrict__ Fb
              const scalar_t* __restrict__ gN, const scalar_t* __restrict__ dV,
              const int* __restrict__ pair_of, const int* __restrict__ slot_table,
              scalar_t* __restrict__ out, int C, int P) {
-  __shared__ ApplyShared<scalar_t, Q, NPE, T> sh;
-  for (int i = threadIdx.x; i < P * T; i += blockDim.x) sh.slot_table[i] = slot_table[i];
-  stage(sh.tb, gN, dV, pair_of);
+  __shared__ SlotShared<scalar_t, Q, NPE, T, 3> sh;
+  stage_slots(sh, gN, dV, pair_of, slot_table, P);
   const Tables<scalar_t, Q, NPE, T>& tb = sh.tb;
-  const int lane = threadIdx.x % kCellTile;
   const int t = threadIdx.x / kCellTile;
-  const int c0 = blockIdx.x * kCellTile;
-  const int c = c0 + lane;
+  const int c = blockIdx.x * kCellTile + threadIdx.x % kCellTile;
   const size_t Cs = C;
   scalar_t acc[NPE][3];
 #pragma unroll
@@ -308,51 +427,48 @@ apply_kernel(const scalar_t* __restrict__ cache, const scalar_t* __restrict__ Fb
       }
     }
   }
-#pragma unroll
-  for (int a = 0; a < NPE; ++a)
-#pragma unroll
-    for (int i = 0; i < 3; ++i) sh.tile[(t * NPE + a) * 3 + i][lane] = acc[a][i];
-  __syncthreads();
-  for (int o = threadIdx.x; o < 3 * P * kCellTile; o += blockDim.x) {
-    const int row = o / kCellTile, cell = o % kCellTile;
-    const int* slots = sh.slot_table + (row / 3) * T;
-    scalar_t part[T];
-#pragma unroll
-    for (int m = 0; m < T; ++m) {
-      const int s = slots[m];
-      part[m] = s < T * NPE ? sh.tile[s * 3 + row % 3][cell] : scalar_t(0);
-    }
-    scalar_t sum = scalar_t(0);
-#pragma unroll
-    for (int m = 0; m < T; ++m) sum += part[m];
-    if (c0 + cell < C) out[(size_t)row * Cs + c0 + cell] = sum;
-  }
+  combine_slots(sh, acc, out, P, C);
 }
 
 // ---------------------------------------------------------------------------
 // B3 block-Jacobi diagonal: sum_q V [(alpha + beta/2) s_a s_a^T
 // + (beta/2) B G_aa + (g_a.S.g_a) I], FA = F A, B = FA F^T, s_a = FA g_a,
 // G_aa = g_a.A.g_a; rows 9*pair + 3i + kk.
-// Replaces pallas_structured.py::_diag_kernel. Bound by the 243 output rows
-// it read-modify-writes 240 times per cell (9 per node slot); they stay in
-// L1/L2 between updates. Once per Newton step.
+// Replaces pallas_structured.py::_diag_kernel. Bound by reading the frozen
+// state (696 rows per cell) and writing the 243 output rows once. Once per
+// Newton step.
+//
+// ONE THREAD PER (TET SLOT t, CELL c), as B1. Every nodal block is
+// symmetric (s s^T, B = F A F^T with A symmetric, the multiple of I), so
+// the thread sums only its upper triangle over the q points: npe x 6
+// register sums, and no output row is touched inside the loop. The point
+// loop is unrolled, so that the loads of the next point's state are in
+// flight while this point's npe blocks are summed; the launch bounds hold
+// that to the 168 registers at which two blocks fit an SM. Then the block
+// combines the sums into the 9P output rows through the shared tile, which
+// mirrors the lower triangle (combine_slots). The ragged last tile is
+// masked; its idle threads still reach the barriers.
 // ---------------------------------------------------------------------------
 template <typename scalar_t, int Q, int NPE, int T>
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kCellTile * T, 2)
 diag_kernel(const scalar_t* __restrict__ Fb, const scalar_t* __restrict__ Sb,
             const scalar_t* __restrict__ Ab, const scalar_t* __restrict__ alb,
             const scalar_t* __restrict__ beb, const scalar_t* __restrict__ gN,
             const scalar_t* __restrict__ dV, const int* __restrict__ pair_of,
-            scalar_t* __restrict__ out, int C, int n_out) {
-  __shared__ Tables<scalar_t, Q, NPE, T> tb;
-  stage(tb, gN, dV, pair_of);
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
+            const int* __restrict__ slot_table, scalar_t* __restrict__ out, int C, int P) {
+  __shared__ SlotShared<scalar_t, Q, NPE, T, 6> sh;
+  stage_slots(sh, gN, dV, pair_of, slot_table, P);
+  const Tables<scalar_t, Q, NPE, T>& tb = sh.tb;
+  const int t = threadIdx.x / kCellTile;
+  const int c = blockIdx.x * kCellTile + threadIdx.x % kCellTile;
   const size_t Cs = C;
-  for (int r = 0; r < n_out; ++r) out[(size_t)r * Cs + c] = scalar_t(0);
-#pragma unroll 1
-  for (int t = 0; t < T; ++t) {
-#pragma unroll 1
+  scalar_t acc[NPE][6];
+#pragma unroll
+  for (int a = 0; a < NPE; ++a)
+#pragma unroll
+    for (int e = 0; e < 6; ++e) acc[a][e] = scalar_t(0);
+  if (c < C) {
+#pragma unroll
     for (int k = 0; k < Q; ++k) {
       scalar_t F[3][3], S[3][3], A[3][3];
       load3<scalar_t, T>(Fb, k, t, Cs, c, F);
@@ -361,7 +477,9 @@ diag_kernel(const scalar_t* __restrict__ Fb, const scalar_t* __restrict__ Sb,
       const scalar_t al = alb[(size_t)(k * T + t) * Cs + c];
       const scalar_t be = beb[(size_t)(k * T + t) * Cs + c];
       const scalar_t V = tb.dV[k * T + t];
-      scalar_t FA[3][3], B[3][3];
+      const scalar_t w1 = (al + scalar_t(0.5) * be) * V;
+      const scalar_t w2 = scalar_t(0.5) * be * V;
+      scalar_t FA[3][3], w2B[6];
 #pragma unroll
       for (int i = 0; i < 3; ++i)
 #pragma unroll
@@ -370,10 +488,9 @@ diag_kernel(const scalar_t* __restrict__ Fb, const scalar_t* __restrict__ Sb,
 #pragma unroll
       for (int i = 0; i < 3; ++i)
 #pragma unroll
-        for (int j = 0; j < 3; ++j)
-          B[i][j] = FA[i][0] * F[j][0] + FA[i][1] * F[j][1] + FA[i][2] * F[j][2];
-      const scalar_t w1 = (al + scalar_t(0.5) * be) * V;
-      const scalar_t w2 = scalar_t(0.5) * be * V;
+        for (int j = i; j < 3; ++j)
+          w2B[sym_index(i, j)] =
+              w2 * (FA[i][0] * F[j][0] + FA[i][1] * F[j][1] + FA[i][2] * F[j][2]);
 #pragma unroll
       for (int a = 0; a < NPE; ++a) {
         const scalar_t g[3] = {g_at(tb, k, a, 0, t), g_at(tb, k, a, 1, t),
@@ -387,18 +504,20 @@ diag_kernel(const scalar_t* __restrict__ Fb, const scalar_t* __restrict__ Sb,
         }
         const scalar_t Gaa = g[0] * Ag[0] + g[1] * Ag[1] + g[2] * Ag[2];
         const scalar_t geo = V * (g[0] * Sg[0] + g[1] * Sg[1] + g[2] * Sg[2]);
-        const int base = 9 * tb.pair_of[t * NPE + a];
 #pragma unroll
-        for (int i = 0; i < 3; ++i)
+        for (int i = 0; i < 3; ++i) {
+          const scalar_t w1s = w1 * s[i];
 #pragma unroll
-          for (int kk = 0; kk < 3; ++kk) {
-            scalar_t term = w1 * s[i] * s[kk] + w2 * B[i][kk] * Gaa;
+          for (int kk = i; kk < 3; ++kk) {
+            scalar_t term = w1s * s[kk] + w2B[sym_index(i, kk)] * Gaa;
             if (i == kk) term += geo;
-            out[(size_t)(base + 3 * i + kk) * Cs + c] += term;
+            acc[a][sym_index(i, kk)] += term;
           }
+        }
       }
     }
   }
+  combine_slots(sh, acc, out, P, C);
 }
 
 // ---------------------------------------------------------------------------
@@ -514,14 +633,14 @@ int fea_struct_freeze_f32(const float* cache, const float* gN, const int* pair_o
   if (C <= 0 || kind < 0 || kind > 2) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   FEA_DISPATCH(q, npe, T,
-               freeze_kernel<float, kQ, kNPE, kT><<<grid_for(C), kBlock, 0, s>>>(
-                   cache, gN, pair_of, F, S, A, alpha, beta, C, kind, lam, mu));
+               freeze_kernel<float, kQ, kNPE, kT><<<freeze_grid(C), kCellTile * kT, 0, s>>>(
+                   cache, gN, pair_of, F, S, A, alpha, beta, C, freeze_own(C), kind, lam, mu));
   return (int)cudaGetLastError();
 }
 
-// slot_table int32 [P, T]: the (t * npe + a) slots of each pair in t-major
-// order, padded with T * npe (a pair is a node of a tet at most once, so
-// it has at most T slots); P <= T * npe pairs.
+// slot_table (B1 and B3) int32 [P, T]: the (t * npe + a) slots of each pair
+// in t-major order, padded with T * npe (a pair is a node of a tet at most
+// once, so it has at most T slots); P <= T * npe pairs.
 int fea_struct_apply_f32(const float* cache, const float* F, const float* S,
                          const float* A, const float* alpha, const float* beta,
                          const float* gN, const float* dV, const int* pair_of,
@@ -529,22 +648,21 @@ int fea_struct_apply_f32(const float* cache, const float* F, const float* S,
                          int P, void* stream) {
   if (C <= 0 || P <= 0 || P > T * npe) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned grid = (unsigned)((C + kCellTile - 1) / kCellTile);
   FEA_DISPATCH(q, npe, T,
-               apply_kernel<float, kQ, kNPE, kT><<<grid, kCellTile * kT, 0, s>>>(
+               apply_kernel<float, kQ, kNPE, kT><<<tile_grid(C), kCellTile * kT, 0, s>>>(
                    cache, F, S, A, alpha, beta, gN, dV, pair_of, slot_table, out, C, P));
   return (int)cudaGetLastError();
 }
 
 int fea_struct_diag_f32(const float* F, const float* S, const float* A, const float* alpha,
                         const float* beta, const float* gN, const float* dV,
-                        const int* pair_of, float* out, int C, int q, int npe, int T, int P,
-                        void* stream) {
-  if (C <= 0 || P <= 0) return (int)cudaErrorInvalidValue;
+                        const int* pair_of, const int* slot_table, float* out, int C, int q,
+                        int npe, int T, int P, void* stream) {
+  if (C <= 0 || P <= 0 || P > T * npe) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   FEA_DISPATCH(q, npe, T,
-               diag_kernel<float, kQ, kNPE, kT><<<grid_for(C), kBlock, 0, s>>>(
-                   F, S, A, alpha, beta, gN, dV, pair_of, out, C, 9 * P));
+               diag_kernel<float, kQ, kNPE, kT><<<tile_grid(C), kCellTile * kT, 0, s>>>(
+                   F, S, A, alpha, beta, gN, dV, pair_of, slot_table, out, C, P));
   return (int)cudaGetLastError();
 }
 

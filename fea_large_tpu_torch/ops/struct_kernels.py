@@ -22,13 +22,16 @@ raises. There is no fallback from a failed build or launch. `LAUNCHES`
 counts kernel launches per pass.
 
 The kernels keep a warp's lanes along the cell axis, so every row access
-is coalesced, and are bound by memory traffic. B2-B5 run one thread per
-cell and add into their output rows per (tet slot, point). B1, which every
-PCG iteration runs, runs one thread per (tet slot, cell): it sums its
-npe x 3 nodal contributions over the points in registers, and each block
-of 32 cells then sums the slots of every pair through shared memory in the
-t-major order of `StructTables.slot_table` (the order of `_pair_rows`) and
-writes each output row once. No atomics; repeats are bitwise equal.
+is coalesced, and are bound by memory traffic. B1, B2 and B3 run one thread
+per (tet slot, cell) in blocks of 32 cells. B2 stores the state rows of its
+slot straight from registers. B1 (every PCG iteration) and B3 sum their
+nodal contributions over the points in registers (B1 npe x 3; B3 the upper
+triangle of its symmetric 3x3 blocks, npe x 6), and each block then sums
+the slots of every pair through shared memory in the t-major order of
+`StructTables.slot_table` (the order of `_pair_rows`) and writes each
+output row once, B3 in three rounds over the block row. B4 and B5 run one
+thread per cell and add into their output rows per (tet slot, point). No
+atomics; repeats are bitwise equal.
 
 The kernels are built with nvcc at first use (ops/cuda_build.py) and
 loaded with ctypes.
@@ -130,8 +133,8 @@ class StructTables:
               order (at most T: a pair is a node of a tet at most once),
               padded with T*npe (a zero row) — the plain versions'
               fixed-order pair sums
-    slot_table int32 copy of slot_rows for the kernel B1, whose blocks sum
-              each pair row over these slots in this order
+    slot_table int32 copy of slot_rows for the kernels B1 and B3, whose
+              blocks sum each pair row over these slots in this order
     """
 
     q: int
@@ -295,7 +298,7 @@ def _library():
     return cuda_build.load(SOURCE, {
         "fea_struct_freeze_f32": [P] * 8 + [I] * 5 + [Fl, Fl, P],
         "fea_struct_apply_f32": [P] * 11 + [I] * 5 + [P],
-        "fea_struct_diag_f32": [P] * 9 + [I] * 5 + [P],
+        "fea_struct_diag_f32": [P] * 10 + [I] * 5 + [P],
         "fea_struct_force_f32": [P] * 6 + [I] * 5 + [P],
         "fea_struct_resid_f64": [P] * 5 + [I] * 6 + [D, D, P],
     })
@@ -388,8 +391,8 @@ def struct_diag(tb: StructTables, F, S, A, alpha, beta):
     with torch.cuda.device(F.device):
         _launch(
             "diag", _ptr(F), _ptr(S), _ptr(A), _ptr(alpha), _ptr(beta),
-            _ptr(tb.gN), _ptr(tb.dV), _ptr(tb.pair_of), _ptr(out),
-            *_dims(tb, tb.P),
+            _ptr(tb.gN), _ptr(tb.dV), _ptr(tb.pair_of), _ptr(tb.slot_table),
+            _ptr(out), *_dims(tb, tb.P),
         )
     return out
 

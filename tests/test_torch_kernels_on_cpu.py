@@ -1,8 +1,11 @@
-"""PyTorch port: the CUDA sources of the two kernels whose threads
-cooperate, run on the CPU against their plain versions.
+"""PyTorch port: the CUDA sources of the kernels whose threads share a
+block's work, run on the CPU against their plain versions.
 
-B10 (`csrc/bcsr_kernels.cu`: a warp per block row, a shuffle tree) and B1 (`csrc/struct_kernels.cu` `apply_kernel`: one thread per (tet
-slot, cell), a shared-memory combine behind `__syncthreads()`) are compiled
+B10 (`csrc/bcsr_kernels.cu`: a warp per block row, a shuffle tree) and, of
+`csrc/struct_kernels.cu`, B1 (`apply_kernel`) and B3 (`diag_kernel`: one
+thread per (tet slot, cell), a shared-memory combine behind
+`__syncthreads()`, B3's in three rounds) and B2 (`freeze_kernel`: one thread
+per (tet slot, cell), each storing its own rows) are compiled
 with g++ against `tests/cuda_on_cpu/cuda_runtime.h`, which runs every CUDA
 block as real host threads with barriers for `__syncthreads()` and for the
 warp shuffles. The C interface is then called on CPU tensors exactly as the
@@ -26,13 +29,14 @@ import pytest
 import torch
 
 from fea_large_tpu_torch.assembly.bcsr import BCSRStructure
-from fea_large_tpu_torch.materials import NeoHookean
+from fea_large_tpu_torch.materials import NeoHookean, NeoHookeanVolumetric, StVenantKirchhoff
 from fea_large_tpu_torch.mesh.generators import box_mesh, box_mesh_kuhn
 from fea_large_tpu_torch.ops import bcsr_kernels as bk, cuda_build, soa, struct_kernels as sk
 
 torch.set_num_threads(2)
 
 STUB = Path(__file__).parent / "cuda_on_cpu"
+MATERIALS = (StVenantKirchhoff(1.0, 0.6), NeoHookean(1.0, 0.6), NeoHookeanVolumetric(1.0, 0.6))
 LAUNCH = re.compile(r"(\w+(?:<[^<>;]*?>)?)\s*<<<(.*?)>>>\s*\(", re.S)
 
 
@@ -90,8 +94,12 @@ def bcsr_lib(tmp_path_factory):
 def struct_lib(tmp_path_factory):
     lib = _build(sk.SOURCE, tmp_path_factory.mktemp("struct"))
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.fea_struct_apply_f32.argtypes = [P] * 11 + [I] * 5 + [P]
-    lib.fea_struct_apply_f32.restype = I
+    F = ctypes.c_float
+    for fn, argtypes in {"fea_struct_apply_f32": [P] * 11 + [I] * 5 + [P],
+                         "fea_struct_diag_f32": [P] * 10 + [I] * 5 + [P],
+                         "fea_struct_freeze_f32": [P] * 8 + [I] * 5 + [F, F, P]}.items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = I
     return lib
 
 
@@ -132,21 +140,41 @@ def test_spmv_source_refuses_other_block_sizes(bcsr_lib):
                                           None) != 0
 
 
-@pytest.mark.parametrize("et,cells", [("tet10", (5, 3, 3)), ("tet4", (7, 3, 2))],
-                         ids=["tet10-45", "tet4-42"])
-def test_apply_source_matches_plain_on_cpu_threads(struct_lib, et, cells):
-    """B1 on lattices whose C (45, 42) is not a multiple of the 32-cell tile
-    of a block; two launches bitwise equal."""
+RAGGED = pytest.mark.parametrize(
+    "et,cells", [("tet10", (5, 3, 3)), ("tet4", (7, 3, 2)), ("tet10", (4, 3, 2))],
+    ids=["tet10-45", "tet4-42", "tet10-24"])
+
+
+def _lattice(et, cells, material=NeoHookean(1.0, 0.6)):
+    """A Kuhn lattice whose C is not a multiple of the 32-cell tile of a
+    block (45 and 42: rows that start anywhere within a 32-byte sector, so
+    B2's blocks overlap; 24: a multiple of 8, so they do not): its f32
+    problem, the pair caches of a displacement u and a direction v, and the
+    state rows frozen at u."""
     mesh = box_mesh_kuhn(*cells, element_type=et, device="cpu")
     p = soa.SoAProblem.build(mesh, torch.float32)
     tb = p.tables
+    assert tb.C % 32 != 0
     c = mesh.coords_host.T
     u = np.stack([0.01 * np.sin(np.pi * c[0]) * c[2], np.zeros_like(c[0]), -0.05 * c[2]])
     v = np.cos(np.pi * c) * (1.0 + c[::-1])
-    rows = [r.contiguous() for r in soa.soa_freeze(
-        p, NeoHookean(1.0, 0.6), torch.tensor(u, dtype=torch.float32)).rows(tb)]
-    cache = sk.gather_cache(p.structure, tb.pairs, torch.tensor(v, dtype=torch.float32)).contiguous()
-    plain = sk.struct_apply_plain(tb, cache, *rows)
+    uc, vc = (sk.gather_cache(p.structure, tb.pairs, torch.tensor(x, dtype=torch.float32)).contiguous()
+              for x in (u, v))
+    rows = [r.contiguous() for r in sk.struct_freeze_plain(tb, uc, material)]
+    return tb, uc, vc, rows
+
+
+def _assert_matches(outs, plain):
+    """Two launches bitwise equal, and within 2e-5 of the plain version's
+    largest entry."""
+    assert torch.equal(*outs)
+    assert float((outs[0] - plain).abs().max()) <= 2e-5 * float(plain.abs().max())
+
+
+@RAGGED
+def test_apply_source_matches_plain_on_cpu_threads(struct_lib, et, cells):
+    """B1 on ragged lattices; two launches bitwise equal."""
+    tb, _, cache, rows = _lattice(et, cells)
     outs = []
     for _ in range(2):
         out = torch.full((3 * tb.P, tb.C), float("nan"), dtype=torch.float32)
@@ -155,5 +183,43 @@ def test_apply_source_matches_plain_on_cpu_threads(struct_lib, et, cells):
             _ptr(tb.slot_table), _ptr(out), tb.C, tb.q, tb.npe, tb.T, tb.P, None)
         assert err == 0
         outs.append(out)
-    assert torch.equal(*outs)
-    assert float((outs[0] - plain).abs().max()) <= 2e-5 * float(plain.abs().max())
+    _assert_matches(outs, sk.struct_apply_plain(tb, cache, *rows))
+
+
+@RAGGED
+def test_diag_source_matches_plain_on_cpu_threads(struct_lib, et, cells):
+    """B3 on ragged lattices: every one of the 9P rows written (none left
+    NaN) by the three rounds of the combine, the mirrored lower triangle
+    within the f32 bound of the plain version's; two launches bitwise
+    equal."""
+    tb, _, _, rows = _lattice(et, cells)
+    outs = []
+    for _ in range(2):
+        out = torch.full((9 * tb.P, tb.C), float("nan"), dtype=torch.float32)
+        err = struct_lib.fea_struct_diag_f32(
+            *(_ptr(r) for r in rows), _ptr(tb.gN), _ptr(tb.dV), _ptr(tb.pair_of),
+            _ptr(tb.slot_table), _ptr(out), tb.C, tb.q, tb.npe, tb.T, tb.P, None)
+        assert err == 0
+        outs.append(out)
+    _assert_matches(outs, sk.struct_diag_plain(tb, *rows))
+    blocks = outs[0].view(tb.P, 3, 3, tb.C)
+    assert torch.equal(blocks, blocks.transpose(1, 2))
+
+
+@RAGGED
+@pytest.mark.parametrize("material", MATERIALS, ids=lambda m: m.name)
+def test_freeze_source_matches_plain_on_cpu_threads(struct_lib, et, cells, material):
+    """B2 on ragged lattices, for the three material kinds: each of the five
+    outputs (F, S, A, alpha, beta) against the plain version's; two
+    launches bitwise equal."""
+    tb, cache, _, plain = _lattice(et, cells, material)
+    runs = []
+    for _ in range(2):
+        outs = [torch.full_like(r, float("nan")) for r in plain]
+        err = struct_lib.fea_struct_freeze_f32(
+            _ptr(cache), _ptr(tb.gN), _ptr(tb.pair_of), *(_ptr(o) for o in outs), tb.C, tb.q,
+            tb.npe, tb.T, material.kind, material.lam, material.mu, None)
+        assert err == 0
+        runs.append(outs)
+    for a, b, ref in zip(*runs, plain):
+        _assert_matches((a, b), ref)
