@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch + CUDA port (fea_large_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py [--against CHECKOUT]
+    python3 chip_smoke.py [--against CHECKOUT ...] [--lattice-only]
 
 Drives the port's three paths through a Newton solve of bench.py's problem
 (neo-Hookean (1.0, 0.6), zmin fixed, zmax pushed -0.05 in z, 5% affine
@@ -25,21 +25,24 @@ Phases:
 
   0. card: nvidia-smi name and power limit, torch and CUDA versions;
   1. build: every kernel source with nvcc, all at once, and ptxas's
-     registers and spills per kernel;
+     registers, spills and static shared memory per kernel (for the
+     lattice kernels also the blocks an SM holds);
   2. kernel checks, each kernel against its plain PyTorch version on the
-     same inputs: B1-B4 and B5 on TET10 and TET4 Kuhn lattices n=21 (C =
-     9,261 = 72*128 + 45 cells; B2 also on n=22, whose C is a multiple of 8,
-     where its blocks do not overlap), B6-B9 on TET10 and TET4 5-tet boxes n=13
+     same inputs: B1-B5 on TET10 and TET4 Kuhn lattices n=21 (C = 9,261 =
+     289*32 + 13 cells; B2 also on n=22, whose C is a multiple of 8, where
+     its blocks do not overlap), B6-B9 on TET10 and TET4 5-tet boxes n=13
      (E = 10,985 = 85*128 + 105 elements), every freeze and f64 residual
-     for all three materials, and B10 in f64 and f32 on the stiffness
-     assembled on those boxes (rows of varying length) and on a (6, 4, 2)
-     box whose N is not a multiple of the block rows a CUDA block holds
-     (a B10 block of 128 threads holds 4 rows, a warp of 32 lanes a row; a
-     block of B1, B2 or B3 holds 32 cells times the 6 tet slots). Bounds
-     relative to the largest entry: 2e-5 for the f32 kernels, 1e-12 for the
-     f64 ones. B1, B3 and B10 (f64 and f32), whose sums cross threads, and
-     B2 (all three materials) are launched twice on the same inputs and
-     must give bitwise-equal outputs;
+     for all three materials, B1-B9 also on the TET10 meshes with the
+     5-point rule (`n_quad=5`, the (5, 10) instances), and B10 in f64 and
+     f32 on the stiffness assembled on those boxes (rows of varying length)
+     and on a (6, 4, 2) box whose N is not a multiple of the block rows a
+     CUDA block holds (a B10 block of 128 threads holds 4 rows, a warp of
+     32 lanes a row; a block of B1-B5 holds 32 cells times the 6 tet
+     slots). Bounds relative to the largest entry: 2e-5 for the f32
+     kernels, 1e-12 for the f64 ones. B1, B3, B4, B5 (all three materials)
+     and B10 (f64 and f32), whose sums cross threads, and B2 (all three
+     materials) are launched twice on the same inputs and must give
+     bitwise-equal outputs;
   3. the Kuhn path: n=4 with resid_df=False and with resid_df=None against
      the JAX reference's counts (measured on CPU), then full width with
      resid_df=None;
@@ -62,23 +65,30 @@ Phases:
      launch path is in it when the kernel is shorter than its wrapper's
      host time) beside its bound, the same kernel queued behind a busy
      card (20 launches between one pair of events: `device_ms`, without
-     the host's launch path) and the host's microseconds per launch; B2
-     also on the n=36 lattice, whose C is a multiple of 8; B10
-     beside cuSPARSE's BSR product
-     (`torch.sparse_bsr_tensor @ x`), the passes of one Newton
-     and one PCG iteration on every path, and the Kuhn and the 5-tet solves
-     with the plain and the fused f64 residual in turns; with `--against
-     CHECKOUT` (another checkout of this repository: an earlier commit, or
-     a variant of a kernel source, e.g. unpacked by `git archive` into
-     build/), the lattice kernels as that checkout builds them, queued, in
-     turns with this one's (there, here, here, there);
+     the host's launch path) and the host's microseconds per launch; B2,
+     B4 and B5 also on the n=36 lattice, whose C is a multiple of 8 (rows
+     that start on a 32-byte sector); the card's measured f64 multiply-add
+     rate (csrc/probe_kernels.cu, a yardstick outside the port) beside the
+     data sheet's, which the bounds use; B10 beside cuSPARSE's BSR product
+     (`torch.sparse_bsr_tensor @ x`), the passes of one Newton and one PCG
+     iteration on every path, and the Kuhn and the 5-tet solves with the
+     plain and the fused f64 residual in turns; with `--against CHECKOUT
+     ...` (other checkouts of this repository: an earlier commit, or a
+     variant of a kernel source, e.g. unpacked by `git archive` into
+     build/), the lattice kernels as each checkout builds them, queued, at
+     n=35 and n=36, in turns with this one's (there, here, here, there);
   7. a JSON line of the kernels, then the result line.
+
+`--lattice-only` runs phases 0-2 and the lattice kernels' part of phase 6
+(with `--against`) and stops: a short call that checks and times a change
+to csrc/struct_kernels.cu. It prints no result line.
 
 Any failed check raises, so the exit code is non-zero and no result line
 is printed. Without a CUDA device it stops in phase 0.
 """
 
 import argparse
+import ctypes
 import json
 import re
 import statistics
@@ -159,6 +169,8 @@ FULL = {"kuhn": (35, 1_073_733), "5tet": (36, 1_027_083), "bcsr": (36, 1_027_083
 STRUCT_SRC = "fea_large_tpu_torch/csrc/struct_kernels.cu"
 ELEM_SRC = "fea_large_tpu_torch/csrc/elem_kernels.cu"
 BCSR_SRC = "fea_large_tpu_torch/csrc/bcsr_kernels.cu"
+#: a yardstick outside the port: the card's measured f64 multiply-add rate
+PROBE_SOURCE = cuda_build.CSRC / "probe_kernels.cu"
 KERNELS = {  # name -> (LAUNCHES dict, key, source, TPU kernel it replaces)
     "struct_freeze": (sk.LAUNCHES, "freeze", STRUCT_SRC, "fea_large_tpu/ops/pallas_structured.py:538"),
     "struct_apply": (sk.LAUNCHES, "apply", STRUCT_SRC, "fea_large_tpu/ops/pallas_structured.py:120"),
@@ -176,12 +188,15 @@ KERNELS = {  # name -> (LAUNCHES dict, key, source, TPU kernel it replaces)
 #: (a multiply-add is 2): the nodal gradient and the nodal contraction are
 #: 18*npe each; the material law per kind (0 SVK, 1 NH, 2 NH volumetric)
 MATERIAL_FLOPS = {0: 30, 1: 85, 2: 90}
+#: the stress alone on the symmetric half of C (B5, `material_stress`)
+STRESS_FLOPS = {0: 17, 1: 57, 2: 57}
 POINT_FLOPS = {
     "freeze": lambda npe, kind: 18 * npe + 48 + MATERIAL_FLOPS[kind],
     "force": lambda npe, kind: 54 + 18 * npe,
     "apply": lambda npe, kind: 36 * npe + 360,
     "diag": lambda npe, kind: 86 + 86 * npe,
-    "resid": lambda npe, kind: 36 * npe + 102 + MATERIAL_FLOPS[kind],
+    "resid": lambda npe, kind: 36 * npe + 84 + STRESS_FLOPS[kind],
+    "elem_resid": lambda npe, kind: 36 * npe + 102 + MATERIAL_FLOPS[kind],
 }
 
 
@@ -247,9 +262,10 @@ def phase_card():
     return smi
 
 
-#: threads of a block of B1, B2 or B3: 32 cells x 6 tet slots
+#: threads of a block of the lattice kernels: 32 cells x 6 tet slots
 TILE_THREADS = 192
-TILE_KERNELS = {"apply_kernel": "B1", "freeze_kernel": "B2", "diag_kernel": "B3"}
+TILE_KERNELS = {"apply_kernel": "B1", "freeze_kernel": "B2", "diag_kernel": "B3",
+                "force_kernel": "B4", "resid_kernel": "B5"}
 
 
 def resident_blocks(registers, smem, threads):
@@ -263,7 +279,7 @@ def resident_blocks(registers, smem, threads):
 
 def phase_build():
     print("== phase 1: build (one nvcc per source, started together)")
-    sources = (sk.SOURCE, ek.SOURCE, bk.SOURCE)
+    sources = (sk.SOURCE, ek.SOURCE, bk.SOURCE, PROBE_SOURCE)
     with ThreadPoolExecutor(len(sources)) as pool:
         builds = list(pool.map(cuda_build.build_library, sources))
     sk._library()
@@ -365,7 +381,7 @@ def lattice_calls(x, materials):
         calls[f"struct_resid/{mat.name}"] = (
             lambda m=mat: sk.struct_resid(tb64, uc64, m),
             lambda m=mat: sk.struct_resid_plain(tb64, uc64, m),
-            (uc64, tb64.gN, tb64.dV, tb64.pair_of), mat.kind)
+            (uc64, tb64.gN, tb64.dV, tb64.pair_of, tb64.slot_table), mat.kind)
     calls["struct_apply"] = (lambda: sk.struct_apply(tb, vc, *rows),
                              lambda: sk.struct_apply_plain(tb, vc, *rows),
                              (vc, *rows, *geo, tb.slot_table), 1)
@@ -373,7 +389,8 @@ def lattice_calls(x, materials):
                             lambda: sk.struct_diag_plain(tb, *rows),
                             (*rows, *geo, tb.slot_table), 1)
     calls["struct_force"] = (lambda: sk.struct_force(tb, *rows[:2]),
-                             lambda: sk.struct_force_plain(tb, *rows[:2]), (*rows[:2], *geo), 1)
+                             lambda: sk.struct_force_plain(tb, *rows[:2]),
+                             (*rows[:2], *geo, tb.slot_table), 1)
     return calls
 
 
@@ -410,7 +427,8 @@ def run_checks(calls):
 
 def check_repeats(label, calls):
     """Two launches of a kernel on the same inputs give bitwise-equal
-    outputs (the kernels whose sums cross threads, B1, B3 and B10, and B2)."""
+    outputs (the kernels whose sums cross threads, B1, B3, B4, B5 and B10,
+    and B2)."""
     for name, c in calls.items():
         a, b = c[0](), c[0]()
         torch.cuda.synchronize()
@@ -419,12 +437,6 @@ def check_repeats(label, calls):
         check(all(torch.equal(x, y) for x, y in zip(a, b)),
               f"{label} {name}: two launches bitwise equal")
         print(f"  {label:10s} {name:28s} two launches bitwise equal")
-
-
-def tile_kernels(calls):
-    """The calls of B1, B2 and B3 among a lattice's."""
-    return {k: c for k, c in calls.items()
-            if k.startswith(("struct_apply", "struct_diag", "struct_freeze"))}
 
 
 def check_bcsr(label, mesh):
@@ -459,11 +471,11 @@ def phase_kernel_checks(device):
     for et in ("tet10", "tet4"):
         x = lattice_inputs(box_mesh_kuhn(nk, nk, nk, element_type=et, device=device))
         C = x["tb"].C
-        print(f"Kuhn {et} n={nk}: C = {C} cells = {C // 128} x 128 + {C % 128} "
-              f"= {C // 32} x 32 + {C % 32} (B1, B2, B3: 32 cells x 6 tet slots a block)")
+        print(f"Kuhn {et} n={nk}: C = {C} cells = {C // 32} x 32 + {C % 32} "
+              f"(B1-B5: 32 cells x 6 tet slots a block)")
         calls = lattice_calls(x, MATERIALS)
         report_checks(f"kuhn {et}", run_checks(calls))
-        check_repeats(f"kuhn {et}", tile_kernels(calls))
+        check_repeats(f"kuhn {et}", calls)
         # B2's blocks overlap unless C is a multiple of 8: the other case
         x = lattice_inputs(box_mesh_kuhn(nk + 1, nk + 1, nk + 1, element_type=et, device=device))
         check(C % 8 != 0 and x["tb"].C % 8 == 0, "B2 is checked with and without overlapping blocks")
@@ -477,6 +489,16 @@ def phase_kernel_checks(device):
         check_bcsr(f"{et} n={n5}", mesh5)
         ragged = check_bcsr(f"{et} (6, 4, 2)", box_mesh(6, 4, 2, element_type=et, device=device))
         check(ragged != 0, "the (6, 4, 2) box (an odd N) leaves a CUDA block of B10 partly filled")
+    # the (5, 10) instances: TET10 with the 5-point rule
+    x = lattice_inputs(box_mesh_kuhn(nk, nk, nk, element_type="tet10", device=device, n_quad=5))
+    check((x["tb"].q, x["tb"].npe) == (5, 10), "the lattice's rule is the 5-point one")
+    calls = lattice_calls(x, MATERIALS)
+    report_checks("kuhn 5pt", run_checks(calls))
+    check_repeats("kuhn 5pt", {k: c for k, c in calls.items()
+                               if k.startswith(("struct_force", "struct_resid"))})
+    x = element_inputs(box_mesh(n5, n5, n5, element_type="tet10", device=device, n_quad=5))
+    check((x["q"], x["npe"]) == (5, 10), "the box's rule is the 5-point one")
+    report_checks("5tet 5pt", run_checks(element_calls(x, MATERIALS)))
     print(f"phase 2: {time.perf_counter() - t0:.1f} s")
 
 
@@ -736,7 +758,8 @@ def bound(name, inputs, out, points, npe, kind):
     peak rate of the working type."""
     outs = out if isinstance(out, tuple) else (out,)
     t_bytes = nbytes(*inputs, *outs) / HBM_BYTES_S
-    t_ops = points * POINT_FLOPS[name.split("_", 1)[1]](npe, kind) / PEAK_FLOPS[outs[0].dtype]
+    flops = POINT_FLOPS.get(name, POINT_FLOPS[name.split("_", 1)[1]])
+    t_ops = points * flops(npe, kind) / PEAK_FLOPS[outs[0].dtype]
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -860,57 +883,119 @@ def bcsr_timings(solver, u0, mat, table):
           f"{1e3 * (time.perf_counter() - t0) / max(done, 1):.4f} ms")
 
 
-#: run from the root of another checkout: its lattice kernels, queued, at
-#: full width on its own inputs
+#: run from the root of another checkout: its lattice kernels, queued, on
+#: its own inputs at full width and on the next lattice (C a multiple of 8)
 AGAINST = """
 import json, torch
 import chip_smoke as cs
-n = cs.FULL["kuhn"][0]
-mesh = cs.box_mesh_kuhn(n, n, n, element_type="tet10", device=torch.device("cuda", 0))
-calls = cs.lattice_calls(cs.lattice_inputs(mesh), (cs.NeoHookean(1.0, 0.6),))
-print(json.dumps({name.split("/")[0]: cs.queued_ms(c[0]) for name, c in calls.items()}))
+out = {}
+for n in (cs.FULL["kuhn"][0], cs.FULL["kuhn"][0] + 1):
+    mesh = cs.box_mesh_kuhn(n, n, n, element_type="tet10", device=torch.device("cuda", 0))
+    calls = cs.lattice_calls(cs.lattice_inputs(mesh), (cs.NeoHookean(1.0, 0.6),))
+    out[str(n)] = {name.split("/")[0]: cs.queued_ms(c[0]) for name, c in calls.items()}
+name = None
+for line in cs.cuda_build.build_library(cs.sk.SOURCE)[2].splitlines():  # full-width TET10 instances
+    if "Compiling entry function" in line:
+        m = cs.re.search(r"([a-z]+_kernel)I[fd]?Li4ELi10ELi6E", line)
+        name = m.group(1) if m else None
+    elif name and ("spill" in line or "registers" in line):
+        out.setdefault("ptxas", {}).setdefault(name, []).append(line.split(":")[-1].strip())
+print(json.dumps(out))
 """
 
 
 def queued_there(checkout):
-    """{kernel: queued ms} of the lattice kernels B1-B5 at full width as
-    another checkout of this repository builds and launches them, in a
-    process of its own on the same card."""
+    """{n: {kernel: queued ms}} of the lattice kernels B1-B5 at full width
+    (n=35) and on the next lattice (n=36) as another checkout of this
+    repository builds and launches them, in a process of its own on the
+    same card."""
     proc = subprocess.run([sys.executable, "-c", AGAINST], cwd=checkout, capture_output=True,
                           text=True, timeout=600)
     check(proc.returncode == 0, f"the lattice kernels of {checkout} ran:\n{proc.stderr[-2000:]}")
     return json.loads(proc.stdout.splitlines()[-1])
 
 
-def phase_timings(kuhn, five_tet, bcsr, card, against=None):
+def f64_rate(device, register_operands, blocks_per_sm=8, iters=4096):
+    """The card's f64 multiply-add rate outside the tensor cores, in FLOP/s,
+    measured by csrc/probe_kernels.cu (independent chains of dependent
+    multiply-adds at full occupancy), with both factors constant or, as in
+    the kernels, all three operands in registers: what the f64 kernels'
+    arithmetic could reach at best, beside the data sheet's PEAK_FLOPS."""
+    P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    lib = cuda_build.load(PROBE_SOURCE, {"fea_probe_dfma": [P, I, I, I, D, D, P]})
+    blocks = blocks_per_sm * torch.cuda.get_device_properties(device).multi_processor_count
+    out = torch.empty(blocks * 256, dtype=torch.float64, device=device)
+
+    def launch():
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.fea_probe_dfma(out.data_ptr(), blocks, iters, int(register_operands),
+                                 0.999999, 1e-9, stream)
+        check(err == 0, f"the f64 probe launched (CUDA error {err})")
+
+    ms = cuda_ms(launch)
+    check(bool(torch.isfinite(out).all()), "the f64 probe wrote finite sums")
+    return 2.0 * blocks * 256 * iters * 8 / (ms * 1e-3)
+
+
+def lattice_timings(mesh, table, against=()):
+    """B1-B5 at full width on `mesh` (n=35) against their plain versions
+    and timed; B2, B4 and B5 also on the next lattice, whose C is a
+    multiple of 8 (every row starts on a 32-byte sector: B2's blocks do not
+    overlap there, and the combine of B4 and B5 stores whole sectors); with
+    `against`, the lattice kernels of those checkouts, queued, in turns
+    with this one's. Returns the checks' errors."""
+    mat = NeoHookean(1.0, 0.6)
+    n = FULL["kuhn"][0]
+    x = lattice_inputs(mesh)
+    calls = lattice_calls(x, (mat,))
+    errs = run_checks(calls)
+    report_checks("kuhn full", errs)
+    check_repeats("kuhn full", calls)
+    tb = x["tb"]
+    there = {path: [queued_there(path)] for path in against}
+    const_rate, reg_rate = f64_rate(mesh.device, False), f64_rate(mesh.device, True)
+    print(f"  f64 multiply-add rate of this card, measured (csrc/probe_kernels.cu): "
+          f"{const_rate / 1e12:.2f} TFLOP/s with constant factors, {reg_rate / 1e12:.2f} with "
+          f"three register operands, as the kernels' (data sheet, used for the bounds: "
+          f"{PEAK_FLOPS[torch.float64] / 1e12:.0f}); B5's counted arithmetic at the latter: "
+          f"{1e3 * tb.q * tb.T * tb.C * POINT_FLOPS['resid'](tb.npe, 1) / reg_rate:.4f} ms")
+    time_calls(calls, tb.q * tb.T * tb.C, tb.npe, table)
+    even = lattice_inputs(box_mesh_kuhn(n + 1, n + 1, n + 1, element_type="tet10",
+                                        device=mesh.device))
+    te = even["tb"]
+    check(tb.C % 8 != 0 and te.C % 8 == 0, "timed with rows that start within and on a sector")
+    print(f"  B2, B4 and B5 at C = {te.C} (a multiple of 8):")
+    calls_even = lattice_calls(even, (mat,))
+    table_even = {}
+    time_calls({k: c for k, c in calls_even.items()
+                if k.startswith(("struct_freeze", "struct_force", "struct_resid"))},
+               te.q * te.T * te.C, te.npe, table_even)
+    if against:
+        here = {str(n): ({k: table[k]["device_ms"] for k in table},
+                         {name.split("/")[0]: queued_ms(c[0]) for name, c in calls.items()}),
+                str(n + 1): tuple({name.split("/")[0]: queued_ms(c[0])
+                                   for name, c in calls_even.items()} for _ in range(2))}
+        for path in against:
+            there[path].append(queued_there(path))
+            for name, lines in there[path][0].get("ptxas", {}).items():
+                print(f"  ptxas in {path}: {name}<4, 10, 6>: {'; '.join(lines)}")
+        for size, (first, second) in here.items():
+            for name in first:
+                for path, (before, after) in there.items():
+                    print(f"  n={size} {name:14s} queued, in turns: {before[size][name]:.4f} ms in "
+                          f"{path}, {first[name]:.4f} and {second[name]:.4f} here, "
+                          f"{after[size][name]:.4f} there")
+    return errs
+
+
+def phase_timings(kuhn, five_tet, bcsr, card, against=()):
     print(f"== phase 6: full-width timings (CUDA events; kernels, plain versions and passes "
           f"median of 10 calls; queued: 20 launches between one pair of events; {card})")
     t0 = time.perf_counter()
     mat = NeoHookean(1.0, 0.6)
     table = {}
     solver, u0, _ = kuhn
-    x = lattice_inputs(solver.mesh)
-    calls = lattice_calls(x, (mat,))
-    errs = run_checks(calls)
-    report_checks("kuhn full", errs)
-    tb = x["tb"]
-    there = [queued_there(against)] if against else []
-    time_calls(calls, tb.q * tb.T * tb.C, tb.npe, table)
-    # B2 on the next lattice, whose C is a multiple of 8: its blocks do not overlap there
-    even = lattice_inputs(box_mesh_kuhn(*3 * (FULL["kuhn"][0] + 1,), element_type="tet10",
-                                        device=solver.mesh.device))
-    te = even["tb"]
-    check(tb.C % 8 != 0 and te.C % 8 == 0, "B2 is timed with and without overlapping blocks")
-    print(f"  B2 at C = {te.C} (a multiple of 8):")
-    time_calls({k: c for k, c in lattice_calls(even, (mat,)).items()
-                if k.startswith("struct_freeze")}, te.q * te.T * te.C, te.npe, {})
-    del even
-    if against:
-        again = {name.split("/")[0]: queued_ms(c[0]) for name, c in calls.items()}
-        there.append(queued_there(against))
-        for name, ms in again.items():
-            print(f"  {name:24s} queued, in turns: {there[0][name]:.4f} ms in {against}, "
-                  f"{table[name]['device_ms']:.4f} and {ms:.4f} here, {there[1][name]:.4f} there")
+    errs = lattice_timings(solver.mesh, table, against)
     time_passes(newton_pcg_passes(solver, u0, mat, soa.soa_freeze, _residual_df_fn))
     time_passes({"f64 residual (_residual_soa_fn)": lambda: _residual_soa_fn(
         u0, 1.0, solver._soa64, mat, solver.bc, solver.f_ext)})
@@ -935,9 +1020,11 @@ def phase_timings(kuhn, five_tet, bcsr, card, against=None):
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--against", metavar="CHECKOUT",
-                        help="another checkout of this repository whose lattice kernels phase 6 "
+    parser.add_argument("--against", metavar="CHECKOUT", nargs="+", default=(),
+                        help="other checkouts of this repository whose lattice kernels phase 6 "
                              "times, queued, in turns with this one's")
+    parser.add_argument("--lattice-only", action="store_true",
+                        help="phases 0-2 and the lattice kernels' timings only; no result line")
     args = parser.parse_args()
     t0 = time.perf_counter()
     card = phase_card()
@@ -945,6 +1032,13 @@ def main():
     phase_build()
     print(f"phase 1 done at {time.perf_counter() - t0:.1f} s")
     phase_kernel_checks(device)
+    if args.lattice_only:
+        n = FULL["kuhn"][0]
+        print(f"== lattice kernels at full width ({card})")
+        lattice_timings(box_mesh_kuhn(n, n, n, element_type="tet10", device=device), {},
+                        args.against)
+        print(f"total: {time.perf_counter() - t0:.1f} s (lattice only: no result line)")
+        return
     kuhn = phase_kuhn(device, card)
     five_tet = phase_5tet(device, card)
     bcsr = phase_bcsr(device, card)

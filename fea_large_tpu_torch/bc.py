@@ -1,5 +1,5 @@
-"""Dirichlet boundary conditions by free-DOF masking (counterpart of
-`fea_large_tpu/bc.py`).
+"""Dirichlet boundary conditions by free-DOF masking, and external loads
+(counterpart of `fea_large_tpu/bc.py`).
 
 Every array keeps its full shape [N, 3] and prescribed DOFs are projected
 out by an elementwise mask. The linear system of a Newton iteration is
@@ -8,6 +8,10 @@ out by an elementwise mask. The linear system of a Newton iteration is
 
 which is SPD whenever K restricted to the free DOFs is, and gives du = 0
 on prescribed DOFs by construction.
+
+The loads (`nodal_forces`, `body_forces`) are dead loads: integrated over
+the undeformed mesh once at setup, on the host, and scaled by the load
+factor during stepping. They return f64 [N, 3] on the mesh's device.
 """
 
 from __future__ import annotations
@@ -78,3 +82,32 @@ class DirichletBuilder:
             free_mask=torch.as_tensor(self._free, dtype=DTYPE, device=dev),
             values=torch.as_tensor(self._vals, dtype=DTYPE, device=dev),
         )
+
+
+def body_forces(mesh, vector) -> torch.Tensor:
+    """Consistent nodal forces f64 [N, 3] of a dead body force b per unit
+    reference volume (rho0 * g for self-weight):
+
+        f[a] = sum_e sum_q w_q det(J)_q N_a(xi_q) b
+
+    with the mesh's quadrature rule (`mesh.n_quad`). Host-side numpy, once
+    at setup; the result lies on the mesh's device."""
+    et = mesh.element
+    conn = mesh.conn_host
+    Xe = mesh.coords_host[conn]  # [E, npe, 3]
+    J = np.einsum("eai,qad->eqid", Xe, et.shape_grad)  # [E, q, 3, 3]
+    wdet = np.linalg.det(J) * et.quad_weights[None, :]  # [E, q]
+    fa = np.einsum("eq,qa->ea", wdet, et.shape)[..., None] * np.asarray(vector, float)
+    f = np.zeros((mesh.n_nodes, 3))
+    np.add.at(f, conn.reshape(-1), fa.reshape(-1, 3))
+    return torch.as_tensor(f, dtype=DTYPE, device=mesh.device)
+
+
+def nodal_forces(mesh, specs: dict) -> torch.Tensor:
+    """Total external nodal forces f64 [N, 3] from {node set name: force
+    vector}: the vector is applied to EACH node of the set. On the mesh's
+    device."""
+    f = np.zeros((mesh.n_nodes, 3))
+    for name, vec in specs.items():
+        f[np.asarray(mesh.node_sets[name])] += np.asarray(vec)
+    return torch.as_tensor(f, dtype=DTYPE, device=mesh.device)

@@ -309,12 +309,15 @@ inline unsigned grid_for(int E, int block) { return (unsigned)((E + block - 1) /
 
 }  // namespace
 
-// Instantiated elements: (Q, NPE) = (4, 10) TET10 with the 4-point rule and
-// (1, 4) TET4 with the 1-point rule.
+// Instantiated elements: (Q, NPE) = (4, 10) TET10 with the 4-point rule,
+// (5, 10) TET10 with the 5-point rule and (1, 4) TET4 with the 1-point rule.
 #define FEA_ELEM_DISPATCH(q, npe, ...)                 \
   do {                                                 \
     if ((q) == 4 && (npe) == 10) {                     \
       constexpr int kQ = 4, kNPE = 10;                 \
+      __VA_ARGS__;                                     \
+    } else if ((q) == 5 && (npe) == 10) {              \
+      constexpr int kQ = 5, kNPE = 10;                 \
       __VA_ARGS__;                                     \
     } else if ((q) == 1 && (npe) == 4) {               \
       constexpr int kQ = 1, kNPE = 4;                  \

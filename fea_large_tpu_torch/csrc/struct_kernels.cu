@@ -19,18 +19,16 @@
 // coalesced; the kernels mask the ragged last block themselves and nothing
 // is padded.
 //
-// Threads and accumulation. B1, B2 and B3: ONE THREAD PER (TET SLOT t,
+// Threads and accumulation. All five kernels run ONE THREAD PER (TET SLOT t,
 // CELL c), blocks of kCellTile = 32 cells x T slots (thread = t * 32 +
 // cell), so T times as many loads are in flight as with a thread per cell
 // and every row access stays coalesced. B2 stores its own state rows
-// straight from registers (every row belongs to one (k, t)). B1 and B3 sum
-// their nodal contributions over the q points in registers, touch no output
-// row inside the point loop, and end in a fixed-order combine of the slots
-// through shared memory that writes each output row once (combine_slots).
-// B4 and B5, which run a few times per solve: ONE THREAD PER CELL c, blocks
-// of 128 threads; each thread owns column c of every output row, zeroes it
-// and adds into it in a fixed (t, k, a) order. No atomics anywhere: the
-// results are bitwise deterministic.
+// straight from registers (every row belongs to one (k, t)). B1, B3, B4 and
+// B5 sum their nodal contributions over the q points in registers, touch no
+// output row inside the point loop, and end in a fixed-order combine of the
+// slots through shared memory that writes each output row once
+// (combine_slots). No atomics anywhere: the results are bitwise
+// deterministic.
 //
 // Geometry: gN [q, npe, 3, T], dV [q, T] and pair_of [T, npe] are the same
 // for every cell (744 values for TET10). They arrive as small device
@@ -42,19 +40,17 @@
 // writes 81 rows: about 858 rows x 4 B, so ~147 MB per call at C = 42,875
 // (the 1,073,733-DOF TET10 lattice), against ~0.5 kFLOP of arithmetic per
 // tet-point. B2 reads 81 and writes 696 rows, B3 reads 696 and writes 243,
-// B4 reads 432 and read-modify-writes 81. Every design reads each operand
-// once and keeps the per-point temporaries in registers. B4 and B5
-// accumulate straight into the output column (instead of 81 register
-// accumulators), which trades repeated L1/L2 traffic on the output rows for
-// register pressure, and their grid of one thread per cell (~325 threads an
-// SM at C = 42,875) keeps too few loads in flight to reach the memory rate;
-// the design of B1 and B3 removes both and is the one to carry over to
-// them. Folding the pair gather and scatter into the kernels is later work.
+// B4 reads 432 and writes 81. Every design reads each operand from device
+// memory once and keeps the per-point temporaries in registers. B5 reads 81
+// f64 rows and writes 81, and its f64 arithmetic takes the card as long as
+// its bytes: it is held by its 60 registers of sums (two blocks an SM) and
+// by the f64 pipe, not by memory. Folding the pair gather and scatter into
+// the kernels is later work.
 //
 // Scalar type is a template parameter: B1-B4 are instantiated for float,
-// B5 for double. The TPU runs B5 in double-word f32 arithmetic because
-// Pallas there is f32-only; Hopper has native f64, so B5 is the same
-// freeze-then-force math as B2 + B4 in double, fused into one pass that
+// B5 is written for double. The TPU runs B5 in double-word f32 arithmetic
+// because Pallas there is f32-only; Hopper has native f64, so B5 is the
+// freeze-then-force math of B2 + B4 in double, fused into one pass that
 // writes only the 81 f64 pair rows (no state leaves the registers).
 
 #include <cuda_runtime.h>
@@ -65,8 +61,6 @@ namespace {
 
 using fea::material_point;
 using fea::right_cauchy_green;
-
-constexpr int kBlock = 128;
 
 template <typename scalar_t, int Q, int NPE, int T>
 struct Tables {
@@ -134,27 +128,23 @@ __device__ __forceinline__ void slot_grad(const Tables<scalar_t, Q, NPE, T>& tb,
     }
 }
 
-// out[n_comp*pair + i] += sum_J PV[i][J] g_a[J] for every node slot a of
-// tet slot t (the nodal contribution of a weighted stress-like PV).
+// acc[a][i] += sum_J PV[i][J] g_a[J] for every node slot a of tet slot t
+// (the nodal contribution of a weighted stress-like PV at point k).
 template <typename scalar_t, int Q, int NPE, int T>
 __device__ __forceinline__ void add_nodal(const Tables<scalar_t, Q, NPE, T>& tb,
                                           const scalar_t PV[3][3], int k, int t,
-                                          size_t C, int c, scalar_t* __restrict__ out) {
+                                          scalar_t acc[NPE][3]) {
 #pragma unroll
   for (int a = 0; a < NPE; ++a) {
-    const int p = tb.pair_of[t * NPE + a];
     const scalar_t g0 = g_at(tb, k, a, 0, t), g1 = g_at(tb, k, a, 1, t),
                    g2 = g_at(tb, k, a, 2, t);
 #pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      const size_t o = (size_t)(3 * p + i) * C + c;
-      out[o] += PV[i][0] * g0 + PV[i][1] * g1 + PV[i][2] * g2;
-    }
+    for (int i = 0; i < 3; ++i) acc[a][i] += PV[i][0] * g0 + PV[i][1] * g1 + PV[i][2] * g2;
   }
 }
 
 // ---------------------------------------------------------------------------
-// Blocks of one thread per (tet slot t, cell c) (B1, B2, B3): a tile of
+// Blocks of one thread per (tet slot t, cell c): a tile of
 // kCellTile cells times the T slots, a warp's lanes along c
 // (thread = t * kCellTile + cell).
 // ---------------------------------------------------------------------------
@@ -261,16 +251,16 @@ freeze_kernel(const scalar_t* __restrict__ cache, const scalar_t* __restrict__ g
 }
 
 // ---------------------------------------------------------------------------
-// The combine of B1 and B3. Each thread has summed NCOMP components for each
-// of its npe node slots over the q points: B1 the 3 components of a nodal
-// vector, B3 the 6 entries (00, 01, 02, 11, 12, 22) of a symmetric nodal 3x3
+// The combine of B1, B3, B4 and B5. Each thread has summed NCOMP components
+// for each of its npe node slots over the q points: B1, B4 and B5 the 3
+// components of a nodal vector, B3 the 6 entries (00, 01, 02, 11, 12, 22) of a symmetric nodal 3x3
 // block. After the point loop the threads store them to a shared tile, row
 // (t * npe + a) * NCOMP + comp, which overlays the per-slot tables that the
 // loop is done with (a barrier before the stores, one after). Then one
 // thread per (pair, cell) sums the pair's slots in the t-major order of the
 // slot table (StructTables.slot_table) and writes the pair's output rows
-// once, coalesced along the cells: rows 3*pair + comp for B1, rows
-// 9*pair + 3i + kk for B3, whose lower triangle mirrors the upper. Fixed
+// once, coalesced along the cells: rows 3*pair + comp for a nodal vector,
+// rows 9*pair + 3i + kk for B3, whose lower triangle mirrors the upper. Fixed
 // order, no atomics: bitwise deterministic. The ragged last tile is masked.
 // ---------------------------------------------------------------------------
 template <typename scalar_t, int Q, int NPE, int T, int NCOMP>
@@ -278,7 +268,7 @@ struct SlotShared {
   int slot_table[T * NPE * T];  // [P, T] slots of each pair, padded with T * NPE
   union {
     Tables<scalar_t, Q, NPE, T> tb;             // during the point loop
-    scalar_t tile[T * NPE * NCOMP][kCellTile];  // after it: 23 KB (B1), 46 KB (B3) for TET10
+    scalar_t tile[T * NPE * NCOMP][kCellTile];  // after it: 23 KB (B1, B4), 46 KB (B3, B5) for TET10
   };
 };
 
@@ -418,13 +408,7 @@ apply_kernel(const scalar_t* __restrict__ cache, const scalar_t* __restrict__ Fb
         for (int J = 0; J < 3; ++J)
           dPV[i][J] = (dF[i][0] * S[0][J] + dF[i][1] * S[1][J] + dF[i][2] * S[2][J] +
                        F[i][0] * dS[0][J] + F[i][1] * dS[1][J] + F[i][2] * dS[2][J]) * V;
-#pragma unroll
-      for (int a = 0; a < NPE; ++a) {
-        const scalar_t g0 = g_at(tb, k, a, 0, t), g1 = g_at(tb, k, a, 1, t),
-                       g2 = g_at(tb, k, a, 2, t);
-#pragma unroll
-        for (int i = 0; i < 3; ++i) acc[a][i] += dPV[i][0] * g0 + dPV[i][1] * g1 + dPV[i][2] * g2;
-      }
+      add_nodal(tb, dPV, k, t, acc);
     }
   }
   combine_slots(sh, acc, out, P, C);
@@ -523,23 +507,36 @@ diag_kernel(const scalar_t* __restrict__ Fb, const scalar_t* __restrict__ Sb,
 // ---------------------------------------------------------------------------
 // B4 internal force from the frozen state: f_a = sum_q V (F S) g_a.
 // Replaces pallas_structured.py::_force_kernel. Bound by reading F and S
-// (432 rows per cell) once.
+// (432 rows per cell) once; a few times per solve (the resid32 gate).
+//
+// ONE THREAD PER (TET SLOT t, CELL c), as B1: per point 18 coalesced loads
+// (F, S), one 3x3 product and npe x 3 x 3 multiply-adds into the thread's
+// npe x 3 register sums; no output row is touched inside the loop. The
+// point loop is unrolled so that the loads of all q points are in flight
+// together, and the launch bounds hold that to the registers at which three
+// blocks fit an SM (96 for TET10, no spill). Then the block combines the sums into the 3P output rows through the
+// shared tile (combine_slots). The ragged last tile is masked; its idle
+// threads still reach the barriers.
 // ---------------------------------------------------------------------------
 template <typename scalar_t, int Q, int NPE, int T>
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kCellTile * T, 3)
 force_kernel(const scalar_t* __restrict__ Fb, const scalar_t* __restrict__ Sb,
              const scalar_t* __restrict__ gN, const scalar_t* __restrict__ dV,
-             const int* __restrict__ pair_of, scalar_t* __restrict__ out, int C,
-             int n_out) {
-  __shared__ Tables<scalar_t, Q, NPE, T> tb;
-  stage(tb, gN, dV, pair_of);
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
+             const int* __restrict__ pair_of, const int* __restrict__ slot_table,
+             scalar_t* __restrict__ out, int C, int P) {
+  __shared__ SlotShared<scalar_t, Q, NPE, T, 3> sh;
+  stage_slots(sh, gN, dV, pair_of, slot_table, P);
+  const Tables<scalar_t, Q, NPE, T>& tb = sh.tb;
+  const int t = threadIdx.x / kCellTile;
+  const int c = blockIdx.x * kCellTile + threadIdx.x % kCellTile;
   const size_t Cs = C;
-  for (int r = 0; r < n_out; ++r) out[(size_t)r * Cs + c] = scalar_t(0);
-#pragma unroll 1
-  for (int t = 0; t < T; ++t) {
-#pragma unroll 1
+  scalar_t acc[NPE][3];
+#pragma unroll
+  for (int a = 0; a < NPE; ++a)
+#pragma unroll
+    for (int i = 0; i < 3; ++i) acc[a][i] = scalar_t(0);
+  if (c < C) {
+#pragma unroll
     for (int k = 0; k < Q; ++k) {
       scalar_t F[3][3], S[3][3], PV[3][3];
       load3<scalar_t, T>(Fb, k, t, Cs, c, F);
@@ -550,69 +547,111 @@ force_kernel(const scalar_t* __restrict__ Fb, const scalar_t* __restrict__ Sb,
 #pragma unroll
         for (int J = 0; J < 3; ++J)
           PV[i][J] = (F[i][0] * S[0][J] + F[i][1] * S[1][J] + F[i][2] * S[2][J]) * V;
-      add_nodal(tb, PV, k, t, Cs, c, out);
+      add_nodal(tb, PV, k, t, acc);
     }
   }
+  combine_slots(sh, acc, out, P, C);
 }
 
 // ---------------------------------------------------------------------------
 // B5 f64 residual: f_a = sum_q V (F S(C)) g_a with F = I + sum_a u_a (x) g_a,
-// C = F^T F, straight from the f64 pair cache: B2's kinematics and
-// material law followed by B4's contraction, in double, with the state
-// kept in registers. Replaces pallas_residual.py::_resid_kernel (whose
-// double-word (hi, lo) f32 arithmetic and tet-slot groups exist only for
-// the TPU). Bound by its memory traffic, 81 f64 rows read and 81 written
-// per cell (55.6 MB at C = 42,875), against ~0.55 GFLOP of f64 arithmetic
-// per call: close to the card's f64 balance point, so the registers (F,
-// C, S, the cofactors and 30 nodal values in double) matter as much as
-// the bytes.
+// C = F^T F, straight from the f64 pair cache: B2's kinematics and the
+// material's stress followed by B4's contraction, in double, with nothing
+// but the 81 pair rows written. Replaces pallas_residual.py::_resid_kernel
+// (whose double-word (hi, lo) f32 arithmetic and tet-slot groups exist only
+// for the TPU). Its memory traffic, 81 f64 rows read and 81 written per
+// cell (55.6 MB at C = 42,875), and its f64 arithmetic (~0.5 GFLOP a call)
+// take the card about the same time, so it must overlap the two and do no
+// f64 operation it does not need.
+//
+// ONE THREAD PER (TET SLOT t, CELL c), as B1, with npe x 3 register sums in
+// double and the fixed-order combine through a double tile ([T npe 3][32],
+// 46 KB, over the per-slot tables: 47.5 KB static in all). Registers are
+// what is scarce: the sums alone take 60, and two blocks fit an SM only
+// at 168 a thread. So the point loop stays rolled, the stress comes from
+// material_stress (the six entries of the symmetric C, C^-1 and S; no
+// tangent factors), each sum takes its three multiply-adds as one chain,
+// and the thread's npe x 3 nodal values are not kept over the loop but read
+// again at every point from the 81 cache rows, which stay in L1: 168
+// registers for TET10, no spill.
 // ---------------------------------------------------------------------------
 template <int Q, int NPE, int T>
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kCellTile * T, 2)
 resid_kernel(const double* __restrict__ cache, const double* __restrict__ gN,
              const double* __restrict__ dV, const int* __restrict__ pair_of,
-             double* __restrict__ out, int C, int n_out, int kind, double lam,
-             double mu) {
-  __shared__ Tables<double, Q, NPE, T> tb;
-  stage(tb, gN, dV, pair_of);
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
-  const size_t Cs = C;
-  for (int r = 0; r < n_out; ++r) out[(size_t)r * Cs + c] = 0.0;
-#pragma unroll 1
-  for (int t = 0; t < T; ++t) {
-    double ue[NPE][3];
-    load_slot(tb, cache, t, Cs, c, ue);
+             const int* __restrict__ slot_table, double* __restrict__ out, int C, int P,
+             int kind, double lam, double mu) {
+  __shared__ SlotShared<double, Q, NPE, T, 3> sh;
+  stage_slots(sh, gN, dV, pair_of, slot_table, P);
+  const Tables<double, Q, NPE, T>& tb = sh.tb;
+  const int t = threadIdx.x / kCellTile;
+  const int c = blockIdx.x * kCellTile + threadIdx.x % kCellTile;
+  double acc[NPE][3];
+#pragma unroll
+  for (int a = 0; a < NPE; ++a)
+#pragma unroll
+    for (int i = 0; i < 3; ++i) acc[a][i] = 0.0;
+  if (c < C) {
+    const double* __restrict__ col = cache + c;  // column c of every cache row
 #pragma unroll 1
     for (int k = 0; k < Q; ++k) {
+      // The pair indices are read from shared memory anew at every point:
+      // else the compiler keeps the npe x 3 row addresses over the loop and
+      // spills them.
+      asm volatile("" ::: "memory");
       double F[3][3];
-      slot_grad(tb, ue, k, t, F);
 #pragma unroll
-      for (int i = 0; i < 3; ++i) F[i][i] += 1.0;
-      double Cm[3][3], S[3][3], A[3][3], alpha, beta;
-      right_cauchy_green(F, Cm);
-      material_point(kind, lam, mu, Cm, S, A, alpha, beta);
+      for (int i = 0; i < 3; ++i)
+#pragma unroll
+        for (int J = 0; J < 3; ++J) F[i][J] = (i == J) ? 1.0 : 0.0;
+#pragma unroll
+      for (int a = 0; a < NPE; ++a) {
+        const int row = 3 * tb.pair_of[t * NPE + a];
+        const double g0 = g_at(tb, k, a, 0, t), g1 = g_at(tb, k, a, 1, t),
+                     g2 = g_at(tb, k, a, 2, t);
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+          const double u = col[(row + i) * C];  // 3 P C < 2^31 (checked at the launch)
+          F[i][0] += u * g0;
+          F[i][1] += u * g1;
+          F[i][2] += u * g2;
+        }
+      }
+      double Cm[6], S[6];
+      fea::right_cauchy_green_sym(F, Cm);
+      fea::material_stress(kind, lam, mu, Cm, S);
       const double V = tb.dV[k * T + t];
       double PV[3][3];
 #pragma unroll
       for (int i = 0; i < 3; ++i)
 #pragma unroll
         for (int J = 0; J < 3; ++J)
-          PV[i][J] = (F[i][0] * S[0][J] + F[i][1] * S[1][J] + F[i][2] * S[2][J]) * V;
-      add_nodal(tb, PV, k, t, Cs, c, out);
+          PV[i][J] = (F[i][0] * S[sym_index(0, J)] + F[i][1] * S[sym_index(1, J)] +
+                      F[i][2] * S[sym_index(2, J)]) * V;
+#pragma unroll
+      for (int a = 0; a < NPE; ++a) {
+        const double g0 = g_at(tb, k, a, 0, t), g1 = g_at(tb, k, a, 1, t),
+                     g2 = g_at(tb, k, a, 2, t);
+#pragma unroll
+        for (int i = 0; i < 3; ++i)  // three multiply-adds in a chain, no separate add
+          acc[a][i] = fma(PV[i][2], g2, fma(PV[i][1], g1, fma(PV[i][0], g0, acc[a][i])));
+      }
     }
   }
+  combine_slots(sh, acc, out, P, C);
 }
-
-inline unsigned grid_for(int C) { return (unsigned)((C + kBlock - 1) / kBlock); }
 
 }  // namespace
 
-// Instantiated lattices: (Q, NPE, T) = (4, 10, 6) TET10 and (1, 4, 6) TET4.
+// Instantiated lattices: (Q, NPE, T) = (4, 10, 6) TET10, (5, 10, 6) TET10
+// with the 5-point rule and (1, 4, 6) TET4.
 #define FEA_DISPATCH(q, npe, T, ...)                               \
   do {                                                             \
     if ((q) == 4 && (npe) == 10 && (T) == 6) {                     \
       constexpr int kQ = 4, kNPE = 10, kT = 6;                     \
+      __VA_ARGS__;                                                 \
+    } else if ((q) == 5 && (npe) == 10 && (T) == 6) {              \
+      constexpr int kQ = 5, kNPE = 10, kT = 6;                     \
       __VA_ARGS__;                                                 \
     } else if ((q) == 1 && (npe) == 4 && (T) == 6) {               \
       constexpr int kQ = 1, kNPE = 4, kT = 6;                      \
@@ -638,7 +677,7 @@ int fea_struct_freeze_f32(const float* cache, const float* gN, const int* pair_o
   return (int)cudaGetLastError();
 }
 
-// slot_table (B1 and B3) int32 [P, T]: the (t * npe + a) slots of each pair
+// slot_table (B1, B3, B4 and B5) int32 [P, T]: the (t * npe + a) slots of each pair
 // in t-major order, padded with T * npe (a pair is a node of a tet at most
 // once, so it has at most T slots); P <= T * npe pairs.
 int fea_struct_apply_f32(const float* cache, const float* F, const float* S,
@@ -667,24 +706,27 @@ int fea_struct_diag_f32(const float* F, const float* S, const float* A, const fl
 }
 
 int fea_struct_force_f32(const float* F, const float* S, const float* gN, const float* dV,
-                         const int* pair_of, float* out, int C, int q, int npe, int T, int P,
-                         void* stream) {
-  if (C <= 0 || P <= 0) return (int)cudaErrorInvalidValue;
+                         const int* pair_of, const int* slot_table, float* out, int C, int q,
+                         int npe, int T, int P, void* stream) {
+  if (C <= 0 || P <= 0 || P > T * npe) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   FEA_DISPATCH(q, npe, T,
-               force_kernel<float, kQ, kNPE, kT><<<grid_for(C), kBlock, 0, s>>>(
-                   F, S, gN, dV, pair_of, out, C, 3 * P));
+               force_kernel<float, kQ, kNPE, kT><<<tile_grid(C), kCellTile * kT, 0, s>>>(
+                   F, S, gN, dV, pair_of, slot_table, out, C, P));
   return (int)cudaGetLastError();
 }
 
 int fea_struct_resid_f64(const double* cache, const double* gN, const double* dV,
-                         const int* pair_of, double* out, int C, int q, int npe, int T,
-                         int P, int kind, double lam, double mu, void* stream) {
-  if (C <= 0 || P <= 0 || kind < 0 || kind > 2) return (int)cudaErrorInvalidValue;
+                         const int* pair_of, const int* slot_table, double* out, int C, int q,
+                         int npe, int T, int P, int kind, double lam, double mu,
+                         void* stream) {
+  if (C <= 0 || P <= 0 || P > T * npe || kind < 0 || kind > 2 ||
+      3LL * P * C > 0x7fffffffLL)  // the kernel indexes the cache rows with an int
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   FEA_DISPATCH(q, npe, T,
-               resid_kernel<kQ, kNPE, kT><<<grid_for(C), kBlock, 0, s>>>(
-                   cache, gN, dV, pair_of, out, C, 3 * P, kind, lam, mu));
+               resid_kernel<kQ, kNPE, kT><<<tile_grid(C), kCellTile * kT, 0, s>>>(
+                   cache, gN, dV, pair_of, slot_table, out, C, P, kind, lam, mu));
   return (int)cudaGetLastError();
 }
 

@@ -24,10 +24,12 @@ def _tuples(x):
 
 
 def mesh_from_numpy(coords, conn, element_type: str, node_sets: dict | None = None,
-                    structure_fields: dict | None = None, device="cuda") -> Mesh:
-    """Mesh from coords [N, 3], conn [E, npe], named node sets and, for a
-    Kuhn lattice, the BoxStructure fields (None: an unstructured mesh) (cells, classes, class_dims,
-    class_base, slot_class, slot_offset) as nested sequences of ints."""
+                    structure_fields: dict | None = None, device="cuda",
+                    n_quad: int | None = None) -> Mesh:
+    """Mesh from coords [N, 3], conn [E, npe], named node sets, for a Kuhn
+    lattice the BoxStructure fields (None: an unstructured mesh) (cells,
+    classes, class_dims, class_base, slot_class, slot_offset) as nested
+    sequences of ints, and the reference mesh's quadrature override."""
     structure = None
     if structure_fields is not None:
         structure = BoxStructure(
@@ -38,7 +40,7 @@ def mesh_from_numpy(coords, conn, element_type: str, node_sets: dict | None = No
         )
     return Mesh.create(coords, conn, element_type,
                        {k: np.asarray(v) for k, v in (node_sets or {}).items()},
-                       structure=structure, device=device)
+                       structure=structure, device=device, n_quad=n_quad)
 
 
 def dirichlet_from_numpy(free_mask, prescribed_values, device="cuda") -> DirichletBC:

@@ -2,8 +2,9 @@
 
 A `Mesh` holds the nodal coordinates (f64) and the connectivity as tensors
 on one device, plus host-side metadata: the element type name, named node
-sets (numpy index arrays, used to build boundary conditions) and, on
-generated Kuhn boxes, the `BoxStructure` descriptor.
+sets (numpy index arrays, used to build boundary conditions), an optional
+quadrature override and, on generated Kuhn boxes, the `BoxStructure`
+descriptor.
 """
 
 from __future__ import annotations
@@ -28,6 +29,8 @@ class Mesh:
     node_sets     dict[str, np.ndarray] named node index sets (host)
     structure     optional BoxStructure (mesh/structure.py)
     coords_host, conn_host  numpy copies for host-side setup code
+    n_quad        quadrature override (None: the element's default rule;
+                  5 on a TET10 mesh: the 5-point degree-3 rule)
     """
 
     coords: torch.Tensor
@@ -37,6 +40,7 @@ class Mesh:
     structure: object | None
     coords_host: np.ndarray
     conn_host: np.ndarray
+    n_quad: int | None = None
 
     @property
     def device(self) -> torch.device:
@@ -56,11 +60,17 @@ class Mesh:
 
     @property
     def element(self) -> ElementType:
-        return get_element(self.element_type)
+        return get_element(self.element_type, self.n_quad)
+
+    def with_node_sets(self, **sets) -> "Mesh":
+        """A mesh with the given named node sets added (or replaced)."""
+        ns = dict(self.node_sets)
+        ns.update({k: np.asarray(v, np.int64) for k, v in sets.items()})
+        return dataclasses.replace(self, node_sets=ns)
 
     @staticmethod
     def create(coords, conn, element_type: str, node_sets: dict | None = None,
-               structure=None, device="cuda") -> "Mesh":
+               structure=None, device="cuda", n_quad: int | None = None) -> "Mesh":
         """Mesh on `device` (the card by default; raises where CUDA is
         absent, with no fallback to the CPU)."""
         coords_np = np.asarray(coords, np.float64)
@@ -80,6 +90,7 @@ class Mesh:
             structure=structure,
             coords_host=coords_np,
             conn_host=conn_np,
+            n_quad=n_quad,
         )
 
 

@@ -51,13 +51,15 @@ def box_mesh(
     element_type: str = "tet4",
     tol: float = 1e-9,
     device="cuda",
+    n_quad: int | None = None,
 ) -> Mesh:
     """Box [0,lx]x[0,ly]x[0,lz] of nx*ny*nz cells, 5 tets each, the
     parity of (i + j + k) choosing the mirror variant; no `BoxStructure`,
     so the element passes take the unstructured (indexed) path. Cells in
     lexicographic (i, j, k) order, 5 tets per cell; negatively oriented
     tets get two vertices swapped. Node sets: the six faces xmin ... zmax
-    (mid-side nodes included)."""
+    (mid-side nodes included). `n_quad` overrides the element's default
+    quadrature rule (`Mesh.n_quad`)."""
     xs = np.linspace(0.0, lx, nx + 1)
     ys = np.linspace(0.0, ly, ny + 1)
     zs = np.linspace(0.0, lz, nz + 1)
@@ -89,7 +91,8 @@ def box_mesh(
     if element_type == "tet10":
         coords, conn = tet4_to_tet10(coords, conn)
     return Mesh.create(coords, conn, element_type,
-                       _face_sets(coords, lx, ly, lz, tol), device=device)
+                       _face_sets(coords, lx, ly, lz, tol), device=device,
+                       n_quad=n_quad)
 
 
 def box_mesh_kuhn(
@@ -102,17 +105,19 @@ def box_mesh_kuhn(
     element_type: str = "tet4",
     tol: float = 1e-9,
     device="cuda",
+    n_quad: int | None = None,
 ) -> Mesh:
     """Box [0,lx]x[0,ly]x[0,lz] of nx*ny*nz cells with the uniform
     Kuhn/Freudenthal 6-tet decomposition and class-contiguous node
     numbering, carrying a `BoxStructure` descriptor (mesh/structure.py).
-    Node sets: the six faces xmin ... zmax (mid-side nodes included)."""
+    Node sets: the six faces xmin ... zmax (mid-side nodes included).
+    `n_quad` overrides the element's default quadrature rule."""
     st = build_box_structure(nx, ny, nz, element_type)
     coords = class_coords(st, lx, ly, lz)
     conn = structure_conn(st)
     return Mesh.create(coords, conn, element_type,
                        _face_sets(coords, lx, ly, lz, tol), structure=st,
-                       device=device)
+                       device=device, n_quad=n_quad)
 
 
 def tet4_to_tet10(coords: np.ndarray, conn: np.ndarray) -> tuple[np.ndarray, np.ndarray]:

@@ -43,9 +43,9 @@ from fea_large_tpu_torch.ops.smallmat import mm3
 #: these where they launch their kernel, and nowhere else)
 LAUNCHES = {"apply": 0, "freeze": 0, "force": 0, "resid": 0}
 
-#: (q, npe) the kernels are instantiated for: TET10 with the 4-point rule
-#: and TET4 with the 1-point rule
-SUPPORTED = ((4, 10), (1, 4))
+#: (q, npe) the kernels are instantiated for: TET10 with the 4-point and
+#: the 5-point rule and TET4 with the 1-point rule
+SUPPORTED = ((4, 10), (5, 10), (1, 4))
 
 #: threads (elements) per block of the kernels
 BLOCK = 128

@@ -22,16 +22,15 @@ raises. There is no fallback from a failed build or launch. `LAUNCHES`
 counts kernel launches per pass.
 
 The kernels keep a warp's lanes along the cell axis, so every row access
-is coalesced, and are bound by memory traffic. B1, B2 and B3 run one thread
-per (tet slot, cell) in blocks of 32 cells. B2 stores the state rows of its
-slot straight from registers. B1 (every PCG iteration) and B3 sum their
-nodal contributions over the points in registers (B1 npe x 3; B3 the upper
+is coalesced, and are bound by memory traffic (B5 as much by its f64
+arithmetic). All five run one thread per (tet slot, cell) in blocks of 32
+cells. B2 stores the state rows of its slot straight from registers. B1
+(every PCG iteration), B3, B4 and B5 sum their nodal contributions over the
+points in registers (B1, B4 and B5 npe x 3, B5 in double; B3 the upper
 triangle of its symmetric 3x3 blocks, npe x 6), and each block then sums
 the slots of every pair through shared memory in the t-major order of
 `StructTables.slot_table` (the order of `_pair_rows`) and writes each
-output row once, B3 in three rounds over the block row. B4 and B5 run one
-thread per cell and add into their output rows per (tet slot, point). No
-atomics; repeats are bitwise equal.
+output row once. No atomics; repeats are bitwise equal.
 
 The kernels are built with nvcc at first use (ops/cuda_build.py) and
 loaded with ctypes.
@@ -54,8 +53,9 @@ from fea_large_tpu_torch.ops.smallmat import mm3
 LAUNCHES = {"freeze": 0, "apply": 0, "diag": 0, "force": 0, "resid": 0}
 
 #: (q, npe, T) lattices the kernels are instantiated for: TET10 with the
-#: 4-point rule and TET4 with the 1-point rule, on the 6-tet Kuhn cell
-SUPPORTED = ((4, 10, 6), (1, 4, 6))
+#: 4-point and the 5-point rule and TET4 with the 1-point rule, on the
+#: 6-tet Kuhn cell
+SUPPORTED = ((4, 10, 6), (5, 10, 6), (1, 4, 6))
 
 SOURCE = cuda_build.CSRC / "struct_kernels.cu"
 
@@ -133,8 +133,8 @@ class StructTables:
               order (at most T: a pair is a node of a tet at most once),
               padded with T*npe (a zero row) — the plain versions'
               fixed-order pair sums
-    slot_table int32 copy of slot_rows for the kernels B1 and B3, whose
-              blocks sum each pair row over these slots in this order
+    slot_table int32 copy of slot_rows for the kernels B1, B3, B4 and B5,
+              whose blocks sum each pair row over these slots in this order
     """
 
     q: int
@@ -299,8 +299,8 @@ def _library():
         "fea_struct_freeze_f32": [P] * 8 + [I] * 5 + [Fl, Fl, P],
         "fea_struct_apply_f32": [P] * 11 + [I] * 5 + [P],
         "fea_struct_diag_f32": [P] * 10 + [I] * 5 + [P],
-        "fea_struct_force_f32": [P] * 6 + [I] * 5 + [P],
-        "fea_struct_resid_f64": [P] * 5 + [I] * 6 + [D, D, P],
+        "fea_struct_force_f32": [P] * 7 + [I] * 5 + [P],
+        "fea_struct_resid_f64": [P] * 6 + [I] * 6 + [D, D, P],
     })
 
 
@@ -407,7 +407,7 @@ def struct_force(tb: StructTables, F, S):
     with torch.cuda.device(F.device):
         _launch(
             "force", _ptr(F), _ptr(S), _ptr(tb.gN), _ptr(tb.dV),
-            _ptr(tb.pair_of), _ptr(out), *_dims(tb, tb.P),
+            _ptr(tb.pair_of), _ptr(tb.slot_table), _ptr(out), *_dims(tb, tb.P),
         )
     return out
 
@@ -424,7 +424,7 @@ def struct_resid(tb: StructTables, cache: torch.Tensor, material):
     with torch.cuda.device(cache.device):
         _launch(
             "resid", _ptr(cache), _ptr(tb.gN), _ptr(tb.dV), _ptr(tb.pair_of),
-            _ptr(out), *_dims(tb, tb.P, material.kind),
+            _ptr(tb.slot_table), _ptr(out), *_dims(tb, tb.P, material.kind),
             ctypes.c_double(material.lam), ctypes.c_double(material.mu),
             suffix="f64",
         )

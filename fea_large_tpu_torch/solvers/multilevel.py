@@ -271,8 +271,10 @@ def build_coarse_space(mesh, material, bc, agg_size: int | None = None,
     where both hyperelastic tangents reduce to isotropic linear elasticity.
     Needs the f32 SoAProblem `soa` (the probing assembly); the reference's
     host builders (soa=None) are not ported."""
-    if modes not in (3, 6):
-        raise NotImplementedError(f"coarse modes={modes} is not ported (3 or 6)")
+    if modes not in (3, 6, 12):
+        raise ValueError(f"coarse modes must be 3, 6 or 12, got {modes}")
+    if modes == 12:
+        raise NotImplementedError("coarse modes=12 is not ported (3 or 6)")
     if soa is None:
         raise NotImplementedError("the host coarse builders are not ported: pass soa")
     st = mesh.structure

@@ -67,7 +67,9 @@ class SolverOptions:
     device-loop budget. The port runs two paths; `NewtonSolver` raises on
     any other combination:
       * linear="pcg", precision="mixed", device_loop=False,
-        preconditioner "jacobi" or "two_level" with coarse_modes 3 or 6;
+        preconditioner "jacobi" or "two_level" with coarse_modes 3 or 6
+        (12 is not ported; any other value is a ValueError, as in the
+        reference);
       * linear="pcg_bcsr", precision="f64" (block-Jacobi; the mixed-path
         fields preconditioner, coarse_modes, agg_size, device_loop and
         resid_df have no effect there, as in the reference).
@@ -122,6 +124,10 @@ class SolveResult:
     converged: bool
     history: list  # list[IncrementRecord]
 
+    @property
+    def total_newton_iters(self) -> int:
+        return sum(h.newton_iters for h in self.history)
+
 
 def _unsupported(opts: SolverOptions) -> str | None:
     """What of `opts` is not ported (NotImplementedError), or None. Raises
@@ -138,12 +144,14 @@ def _unsupported(opts: SolverOptions) -> str | None:
         return f"precision={opts.precision!r}"
     if opts.linear != "pcg":
         raise ValueError("precision='mixed' requires linear='pcg'")
+    if opts.preconditioner == "two_level" and opts.coarse_modes not in (3, 6, 12):
+        raise ValueError(f"coarse modes must be 3, 6 or 12, got {opts.coarse_modes}")
     if opts.device_loop:
         return "device_loop=True (the device-resident Newton loop)"
     if opts.preconditioner not in ("jacobi", "two_level"):
         return f"preconditioner={opts.preconditioner!r}"
-    if opts.preconditioner == "two_level" and opts.coarse_modes not in (3, 6):
-        return f"coarse_modes={opts.coarse_modes}"
+    if opts.preconditioner == "two_level" and opts.coarse_modes == 12:
+        return "coarse_modes=12 (the rigid-body + linear-strain basis)"
     return None
 
 

@@ -152,3 +152,13 @@ def test_build_coarse_space_rejects_unported_paths(problem):
                               soa=problem["soa"])
     with pytest.raises(NotImplementedError):
         ml.build_coarse_space(problem["mesh"], problem["mat"], problem["bc"], modes=6)
+
+
+def test_build_coarse_space_rejects_bad_modes_as_the_reference(problem):
+    """Modes outside (3, 6, 12) are a ValueError in both packages."""
+    with pytest.raises(ValueError, match="3, 6 or 12"):
+        ml.build_coarse_space(problem["mesh"], problem["mat"], problem["bc"], modes=5,
+                              soa=problem["soa"])
+    with pytest.raises(ValueError, match="3, 6 or 12"):
+        ref_ml.build_coarse_space(problem["ref_mesh"], problem["ref_mat"], problem["ref_bc"],
+                                  modes=5)

@@ -193,11 +193,11 @@ def test_card_inputs_are_well_conditioned_in_f32(et, fields):
         assert min_det < 0 and inverted > 0 and gap > 2e-5
 
 
-def _card_inputs(et, block):
+def _card_inputs(et, block, n_quad=None):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels are CUDA C++ for sm_90a")
     # 5*3*3*3 = 135 elements: a partial last block for blocks of 32 and 128
-    mesh = box_mesh(3, 3, 3, element_type=et, device="cuda")
+    mesh = box_mesh(3, 3, 3, element_type=et, device="cuda", n_quad=n_quad)
     p = soa.SoAProblem.build(mesh, torch.float32)
     q, npe, _, E = p.gradN.shape
     assert E % block != 0
@@ -242,3 +242,22 @@ def test_elem_force_kernel_matches_plain_on_card(et):
     out = ek.elem_force(gradN, p.detJxW, *state[:2], npe=npe, q=q)
     torch.cuda.synchronize()
     assert _rel(out, ek.elem_force_plain(gradN, p.detJxW, *state[:2], npe=npe, q=q)) <= 2e-5
+
+
+def test_five_point_rule_elem_kernels_match_plain_on_card():
+    """The (q, npe) = (5, 10) instances of B6-B9 on a TET10 box with
+    `n_quad=5`."""
+    p, q, npe, ue, ve, state = _card_inputs("tet10", 128, n_quad=5)
+    assert (q, npe) == (5, 10)
+    kw = dict(npe=npe, q=q)
+    gradN = p.gradN.view(q * npe * 3, -1)
+    mat = NeoHookean(1.0, 0.6)
+    for a, b in zip(ek.elem_freeze(ue, gradN, mat, **kw), ek.elem_freeze_plain(ue, gradN, mat, **kw)):
+        assert _rel(a, b) <= 2e-5
+    assert _rel(ek.elem_apply(ve, gradN, p.detJxW, *state, **kw),
+                ek.elem_apply_plain(ve, gradN, p.detJxW, *state, **kw)) <= 2e-5
+    assert _rel(ek.elem_force(gradN, p.detJxW, *state[:2], **kw),
+                ek.elem_force_plain(gradN, p.detJxW, *state[:2], **kw)) <= 2e-5
+    args = (ue.double(), gradN.double(), p.detJxW.double(), mat)
+    assert _rel(ek.elem_resid(*args, **kw), ek.elem_resid_plain(*args, **kw)) <= 1e-12
+    torch.cuda.synchronize()

@@ -1,12 +1,12 @@
 """PyTorch port: the CUDA sources of the kernels whose threads share a
 block's work, run on the CPU against their plain versions.
 
-B10 (`csrc/bcsr_kernels.cu`: a warp per block row, a shuffle tree) and, of
-`csrc/struct_kernels.cu`, B1 (`apply_kernel`) and B3 (`diag_kernel`: one
-thread per (tet slot, cell), a shared-memory combine behind
-`__syncthreads()`, B3's in three rounds) and B2 (`freeze_kernel`: one thread
-per (tet slot, cell), each storing its own rows) are compiled
-with g++ against `tests/cuda_on_cpu/cuda_runtime.h`, which runs every CUDA
+B10 (`csrc/bcsr_kernels.cu`: a warp per block row, a shuffle tree) and
+the five kernels of `csrc/struct_kernels.cu`, all one thread per (tet slot,
+cell): B1 (`apply_kernel`), B3 (`diag_kernel`), B4 (`force_kernel`) and B5
+(`resid_kernel`, in double), whose register sums end in a shared-memory
+combine behind `__syncthreads()`, and B2 (`freeze_kernel`), whose threads
+store their own rows, are compiled with g++ against `tests/cuda_on_cpu/cuda_runtime.h`, which runs every CUDA
 block as real host threads with barriers for `__syncthreads()` and for the
 warp shuffles. The C interface is then called on CPU tensors exactly as the
 wrappers call it on the card. This holds the kernels' indexing, masking of
@@ -94,10 +94,12 @@ def bcsr_lib(tmp_path_factory):
 def struct_lib(tmp_path_factory):
     lib = _build(sk.SOURCE, tmp_path_factory.mktemp("struct"))
     P, I = ctypes.c_void_p, ctypes.c_int
-    F = ctypes.c_float
+    F, D = ctypes.c_float, ctypes.c_double
     for fn, argtypes in {"fea_struct_apply_f32": [P] * 11 + [I] * 5 + [P],
                          "fea_struct_diag_f32": [P] * 10 + [I] * 5 + [P],
-                         "fea_struct_freeze_f32": [P] * 8 + [I] * 5 + [F, F, P]}.items():
+                         "fea_struct_freeze_f32": [P] * 8 + [I] * 5 + [F, F, P],
+                         "fea_struct_force_f32": [P] * 7 + [I] * 5 + [P],
+                         "fea_struct_resid_f64": [P] * 6 + [I] * 6 + [D, D, P]}.items():
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = I
     return lib
@@ -145,64 +147,85 @@ RAGGED = pytest.mark.parametrize(
     ids=["tet10-45", "tet4-42", "tet10-24"])
 
 
-def _lattice(et, cells, material=NeoHookean(1.0, 0.6)):
+def _lattice(et, cells, material=NeoHookean(1.0, 0.6), dtype=torch.float32, n_quad=None):
     """A Kuhn lattice whose C is not a multiple of the 32-cell tile of a
     block (45 and 42: rows that start anywhere within a 32-byte sector, so
-    B2's blocks overlap; 24: a multiple of 8, so they do not): its f32
-    problem, the pair caches of a displacement u and a direction v, and the
-    state rows frozen at u."""
-    mesh = box_mesh_kuhn(*cells, element_type=et, device="cpu")
-    p = soa.SoAProblem.build(mesh, torch.float32)
+    B2's blocks overlap; 24: a multiple of 8, so they do not): its problem
+    in `dtype`, the pair caches of a displacement u and a direction v, and
+    the state rows frozen at u."""
+    mesh = box_mesh_kuhn(*cells, element_type=et, device="cpu", n_quad=n_quad)
+    p = soa.SoAProblem.build(mesh, dtype)
     tb = p.tables
     assert tb.C % 32 != 0
     c = mesh.coords_host.T
     u = np.stack([0.01 * np.sin(np.pi * c[0]) * c[2], np.zeros_like(c[0]), -0.05 * c[2]])
     v = np.cos(np.pi * c) * (1.0 + c[::-1])
-    uc, vc = (sk.gather_cache(p.structure, tb.pairs, torch.tensor(x, dtype=torch.float32)).contiguous()
+    uc, vc = (sk.gather_cache(p.structure, tb.pairs, torch.tensor(x, dtype=dtype)).contiguous()
               for x in (u, v))
     rows = [r.contiguous() for r in sk.struct_freeze_plain(tb, uc, material)]
     return tb, uc, vc, rows
 
 
-def _assert_matches(outs, plain):
-    """Two launches bitwise equal, and within 2e-5 of the plain version's
-    largest entry."""
-    assert torch.equal(*outs)
-    assert float((outs[0] - plain).abs().max()) <= 2e-5 * float(plain.abs().max())
+def _launch_lattice(lib, name, tb, cache, vcache, rows, material):
+    """One launch of lattice kernel `name` through the C interface, as the
+    wrappers of ops/struct_kernels.py make it, on outputs pre-filled with
+    NaN: (outputs, plain outputs, CUDA error code)."""
+    geo = (_ptr(tb.gN), _ptr(tb.dV), _ptr(tb.pair_of), _ptr(tb.slot_table))
+    dims = (tb.C, tb.q, tb.npe, tb.T)
+    state = [_ptr(r) for r in rows]
+    if name == "freeze":
+        plain = sk.struct_freeze_plain(tb, cache, material)
+        outs = [torch.full_like(r, float("nan")) for r in plain]
+        err = lib.fea_struct_freeze_f32(_ptr(cache), geo[0], geo[2], *(_ptr(o) for o in outs),
+                                        *dims, material.kind, material.lam, material.mu, None)
+        return outs, plain, err
+    n_rows = 9 * tb.P if name == "diag" else 3 * tb.P
+    out = torch.full((n_rows, tb.C), float("nan"), dtype=cache.dtype)
+    if name == "apply":
+        err = lib.fea_struct_apply_f32(_ptr(vcache), *state, *geo, _ptr(out), *dims, tb.P, None)
+        plain = sk.struct_apply_plain(tb, vcache, *rows)
+    elif name == "diag":
+        err = lib.fea_struct_diag_f32(*state, *geo, _ptr(out), *dims, tb.P, None)
+        plain = sk.struct_diag_plain(tb, *rows)
+    elif name == "force":
+        err = lib.fea_struct_force_f32(*state[:2], *geo, _ptr(out), *dims, tb.P, None)
+        plain = sk.struct_force_plain(tb, *rows[:2])
+    else:
+        err = lib.fea_struct_resid_f64(_ptr(cache), *geo, _ptr(out), *dims, tb.P, material.kind,
+                                       material.lam, material.mu, None)
+        plain = sk.struct_resid_plain(tb, cache, material)
+    return [out], [plain], err
+
+
+def _check_lattice(lib, name, et, cells, material=NeoHookean(1.0, 0.6), n_quad=None):
+    """Kernel `name` launched twice on one lattice: every output written
+    (none left NaN), the two launches bitwise equal, and within 2e-5 (f32;
+    the f64 residual 1e-12) of the plain version's largest entry: another
+    summation order than the plain version's. Returns (tables, outputs)."""
+    dtype, bound = (torch.float64, 1e-12) if name == "resid" else (torch.float32, 2e-5)
+    tb, cache, vcache, rows = _lattice(et, cells, material, dtype, n_quad)
+    (first, plain, err1), (second, _, err2) = (
+        _launch_lattice(lib, name, tb, cache, vcache, rows, material) for _ in range(2))
+    assert err1 == 0 and err2 == 0
+    for a, b, ref in zip(first, second, plain):
+        assert torch.equal(a, b)
+        assert float((a - ref).abs().max()) <= bound * float(ref.abs().max())
+    return tb, first
 
 
 @RAGGED
 def test_apply_source_matches_plain_on_cpu_threads(struct_lib, et, cells):
     """B1 on ragged lattices; two launches bitwise equal."""
-    tb, _, cache, rows = _lattice(et, cells)
-    outs = []
-    for _ in range(2):
-        out = torch.full((3 * tb.P, tb.C), float("nan"), dtype=torch.float32)
-        err = struct_lib.fea_struct_apply_f32(
-            _ptr(cache), *(_ptr(r) for r in rows), _ptr(tb.gN), _ptr(tb.dV), _ptr(tb.pair_of),
-            _ptr(tb.slot_table), _ptr(out), tb.C, tb.q, tb.npe, tb.T, tb.P, None)
-        assert err == 0
-        outs.append(out)
-    _assert_matches(outs, sk.struct_apply_plain(tb, cache, *rows))
+    _check_lattice(struct_lib, "apply", et, cells)
 
 
 @RAGGED
 def test_diag_source_matches_plain_on_cpu_threads(struct_lib, et, cells):
-    """B3 on ragged lattices: every one of the 9P rows written (none left
-    NaN) by the three rounds of the combine, the mirrored lower triangle
-    within the f32 bound of the plain version's; two launches bitwise
-    equal."""
-    tb, _, _, rows = _lattice(et, cells)
-    outs = []
-    for _ in range(2):
-        out = torch.full((9 * tb.P, tb.C), float("nan"), dtype=torch.float32)
-        err = struct_lib.fea_struct_diag_f32(
-            *(_ptr(r) for r in rows), _ptr(tb.gN), _ptr(tb.dV), _ptr(tb.pair_of),
-            _ptr(tb.slot_table), _ptr(out), tb.C, tb.q, tb.npe, tb.T, tb.P, None)
-        assert err == 0
-        outs.append(out)
-    _assert_matches(outs, sk.struct_diag_plain(tb, *rows))
-    blocks = outs[0].view(tb.P, 3, 3, tb.C)
+    """B3 on ragged lattices: every one of the 9P rows written by the
+    combine, the mirrored lower triangle within the f32 bound of the plain
+    version's; two launches bitwise equal."""
+    tb, (out,) = _check_lattice(struct_lib, "diag", et, cells)
+    blocks = out.view(tb.P, 3, 3, tb.C)
     assert torch.equal(blocks, blocks.transpose(1, 2))
 
 
@@ -212,14 +235,37 @@ def test_freeze_source_matches_plain_on_cpu_threads(struct_lib, et, cells, mater
     """B2 on ragged lattices, for the three material kinds: each of the five
     outputs (F, S, A, alpha, beta) against the plain version's; two
     launches bitwise equal."""
-    tb, cache, _, plain = _lattice(et, cells, material)
-    runs = []
-    for _ in range(2):
-        outs = [torch.full_like(r, float("nan")) for r in plain]
-        err = struct_lib.fea_struct_freeze_f32(
-            _ptr(cache), _ptr(tb.gN), _ptr(tb.pair_of), *(_ptr(o) for o in outs), tb.C, tb.q,
-            tb.npe, tb.T, material.kind, material.lam, material.mu, None)
-        assert err == 0
-        runs.append(outs)
-    for a, b, ref in zip(*runs, plain):
-        _assert_matches((a, b), ref)
+    _check_lattice(struct_lib, "freeze", et, cells, material)
+
+
+@RAGGED
+def test_force_source_matches_plain_on_cpu_threads(struct_lib, et, cells):
+    """B4 on ragged lattices: every one of the 3P rows written by the
+    combine; two launches bitwise equal."""
+    _check_lattice(struct_lib, "force", et, cells)
+
+
+@RAGGED
+@pytest.mark.parametrize("material", MATERIALS, ids=lambda m: m.name)
+def test_resid_source_matches_plain_on_cpu_threads(struct_lib, et, cells, material):
+    """B5 (f64) on ragged lattices, for the three material kinds: within
+    1e-12 of the plain version (another summation order, and the stress
+    from the symmetric half of C); two launches bitwise equal."""
+    _check_lattice(struct_lib, "resid", et, cells, material)
+
+
+@pytest.mark.parametrize("name", ["freeze", "apply", "diag", "force", "resid"])
+def test_five_point_rule_source_matches_plain_on_cpu_threads(struct_lib, name):
+    """The (q, npe, T) = (5, 10, 6) instances of B1-B5 (a TET10 lattice with
+    the 5-point rule, `Mesh.n_quad = 5`) on a ragged lattice of 45 cells."""
+    tb, _ = _check_lattice(struct_lib, name, "tet10", (5, 3, 3), n_quad=5)
+    assert (tb.q, tb.npe, tb.T) == (5, 10, 6) and (tb.q, tb.npe, tb.T) in sk.SUPPORTED
+
+
+def test_lattice_source_refuses_other_rules(struct_lib):
+    """A (q, npe) with no instance (TET4 with a 4-point rule) is refused by
+    the C interface, as the wrappers refuse it before (`_check`)."""
+    material = NeoHookean(1.0, 0.6)
+    tb, cache, vcache, rows = _lattice("tet4", (4, 3, 2), material, n_quad=4)
+    assert (tb.q, tb.npe, tb.T) == (4, 4, 6) and (tb.q, tb.npe, tb.T) not in sk.SUPPORTED
+    assert _launch_lattice(struct_lib, "force", tb, cache, vcache, rows, material)[2] != 0

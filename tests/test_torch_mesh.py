@@ -183,6 +183,53 @@ def test_interop_builds_port_objects_from_reference_arrays():
         np.testing.assert_array_equal(t.numpy(), a.astype(np.float32))
 
 
+def test_mesh_n_quad_matches_reference():
+    """The quadrature override: through `Mesh.create`, the generators,
+    `interop.mesh_from_numpy` and `dataclasses.replace`, as the reference's
+    `Mesh.n_quad`; the element tables of the overridden mesh are the
+    reference's (1e-15)."""
+    import dataclasses
+
+    from fea_large_tpu_torch.mesh.core import Mesh
+    from fea_large_tpu_torch.mesh.generators import box_mesh
+
+    ref = dataclasses.replace(ref_box_mesh_kuhn(2, 2, 2, element_type="tet10"), n_quad=5)
+    base = box_mesh_kuhn(2, 2, 2, element_type="tet10", device="cpu")
+    assert base.n_quad is None and base.element.n_quad == 4
+    meshes = [
+        box_mesh_kuhn(2, 2, 2, element_type="tet10", device="cpu", n_quad=5),
+        box_mesh(2, 2, 2, element_type="tet10", device="cpu", n_quad=5),
+        dataclasses.replace(base, n_quad=5),
+        Mesh.create(base.coords_host, base.conn_host, "tet10", device="cpu", n_quad=5),
+        interop.mesh_from_numpy(ref.coords_host, ref.conn_host, "tet10", ref.node_sets,
+                                device="cpu", n_quad=ref.n_quad),
+    ]
+    for mesh in meshes:
+        assert mesh.n_quad == ref.n_quad == 5
+        assert (mesh.element.name, mesh.element.n_quad) == (ref.element.name, ref.element.n_quad)
+        for f in ("quad_points", "quad_weights", "shape", "shape_grad"):
+            np.testing.assert_allclose(getattr(mesh.element, f), getattr(ref.element, f),
+                                       rtol=0, atol=1e-15)
+
+
+def test_mesh_with_node_sets_matches_reference():
+    """`Mesh.with_node_sets` adds and replaces named sets and leaves the
+    mesh it was called on as it was, as the reference's."""
+    ref_mesh = ref_box_mesh_kuhn(2, 2, 3, element_type="tet10")
+    mesh = box_mesh_kuhn(2, 2, 3, element_type="tet10", device="cpu", n_quad=5)
+    corner = np.nonzero((ref_mesh.coords_host < 1e-9).all(1))[0]
+    ref = ref_mesh.with_node_sets(corner=corner, zmin=[0, 1])
+    port = mesh.with_node_sets(corner=corner, zmin=[0, 1])
+    assert port.node_sets.keys() == ref.node_sets.keys()
+    for k in ref.node_sets:
+        np.testing.assert_array_equal(port.node_sets[k], ref.node_sets[k])
+    assert "corner" not in mesh.node_sets and len(mesh.node_sets["zmin"]) > 2
+    assert port.coords is mesh.coords and port.structure is mesh.structure and port.n_quad == 5
+    bc = DirichletBuilder(port).fix("corner").build()
+    ref_bc = RefDirichletBuilder(ref).fix("corner").build()
+    np.testing.assert_array_equal(bc.free_mask.numpy(), np.asarray(ref_bc.free_mask))
+
+
 def test_port_never_imports_jax_or_the_reference():
     """The port imports torch and numpy only; the reference turns on JAX
     x64 globally when imported, so only tests may import both."""
@@ -224,3 +271,16 @@ def test_interop_builders_default_to_the_card():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             interop.dirichlet_from_numpy(np.ones((2, 3)), np.zeros((2, 3)))
+    # the loads take no device of their own: they lie where the mesh lies,
+    # which is the card unless the caller asked for the CPU
+    from fea_large_tpu_torch.bc import body_forces, nodal_forces
+
+    for fn in (nodal_forces, body_forces):
+        assert "device" not in inspect.signature(fn).parameters
+    if torch.cuda.is_available():
+        mesh = box_mesh_kuhn(1, 1, 1)
+        assert nodal_forces(mesh, {"zmax": [0.0, 0.0, 1.0]}).device.type == "cuda"
+        assert body_forces(mesh, [0.0, 0.0, 1.0]).device.type == "cuda"
+    mesh = box_mesh_kuhn(1, 1, 1, device="cpu")
+    assert nodal_forces(mesh, {"zmax": [0.0, 0.0, 1.0]}).device.type == "cpu"
+    assert body_forces(mesh, [0.0, 0.0, 1.0]).device.type == "cpu"

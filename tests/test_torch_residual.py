@@ -160,8 +160,37 @@ def test_resid_kernel_matches_plain_on_card(et, kind, port_cls):
     mat = port_cls(1.0, 0.6)
     n0 = sk.LAUNCHES["resid"]
     out = sk.struct_resid(tb, cache, mat)
+    again = sk.struct_resid(tb, cache, mat)
     torch.cuda.synchronize()
-    assert sk.LAUNCHES["resid"] == n0 + 1
+    assert sk.LAUNCHES["resid"] == n0 + 2
+    assert torch.equal(out, again)
+    plain = sk.struct_resid_plain(tb, cache, mat)
+    assert float((out - plain).abs().max()) <= 1e-12 * float(plain.abs().max())
+
+
+@pytest.mark.parametrize(
+    "et,cells,n_quad",
+    [("tet10", (5, 3, 3), None), ("tet4", (7, 3, 2), None), ("tet10", (4, 4, 4), None),
+     ("tet10", (5, 3, 3), 5)],
+    ids=["tet10-45", "tet4-42", "tet10-64", "tet10-5pt-45"])
+def test_resid_kernel_ragged_cell_tile_on_card(et, cells, n_quad):
+    """B5 on lattices whose C is not (45, 42) and is (64) a multiple of the
+    32-cell tile of a block, and with the 5-point rule; its sums cross
+    threads: two launches bitwise equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel is CUDA C++ for sm_90a")
+    mesh = box_mesh_kuhn(*cells, element_type=et, device="cuda", n_quad=n_quad)
+    p64 = soa.SoAProblem.build(mesh, torch.float64)
+    tb = p64.tables
+    cache = sk.gather_cache(p64.structure, tb.pairs,
+                            torch.tensor(_u(mesh.coords_host), device="cuda"))
+    mat = NeoHookean(1.0, 0.6)
+    n0 = sk.LAUNCHES["resid"]
+    out = sk.struct_resid(tb, cache, mat)
+    again = sk.struct_resid(tb, cache, mat)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES["resid"] == n0 + 2
+    assert torch.equal(out, again)
     plain = sk.struct_resid_plain(tb, cache, mat)
     assert float((out - plain).abs().max()) <= 1e-12 * float(plain.abs().max())
 

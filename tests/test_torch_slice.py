@@ -21,6 +21,7 @@ import jax.numpy as jnp
 
 from fea_large_tpu.bc import DirichletBuilder as RefDirichletBuilder
 from fea_large_tpu.materials.neo_hookean import NeoHookean as RefNH
+from fea_large_tpu.mesh.generators import box_mesh as ref_box_mesh
 from fea_large_tpu.mesh.generators import box_mesh_kuhn as ref_box_mesh_kuhn
 from fea_large_tpu.solvers.newton import NewtonSolver as RefNewtonSolver
 from fea_large_tpu.solvers.newton import SolverOptions as RefOptions
@@ -172,13 +173,53 @@ def test_newton_solver_rejects_unported_options(case, bad):
 
 @pytest.mark.parametrize("bad", [
     dict(linear="pcg_bcsr"), dict(linear="gmres"), dict(linear="pcg_bcsr", precision="f64", pallas=True),
+    dict(coarse_modes=5), dict(coarse_modes=5, device_loop=True),
 ])
 def test_newton_solver_rejects_what_the_reference_rejects(case, bad):
     """ValueError where the reference raises one: the mixed path with the
-    assembled BCSR system, an unknown linear solver, and pallas=True on
-    the f64 path."""
+    assembled BCSR system, an unknown linear solver, pallas=True on the f64
+    path, and coarse modes other than 3, 6 or 12 (12 is a value of the
+    reference that the port lacks: NotImplementedError, above)."""
     with pytest.raises(ValueError):
         NewtonSolver(case.mesh, NeoHookean(1.0, 0.6), case.bc, options=SolverOptions(**{**BENCH, **bad}))
     with pytest.raises(ValueError):
         RefNewtonSolver(case.ref_mesh, RefNH(jnp.asarray(1.0), jnp.asarray(0.6)), case.ref_bc,
                         options=RefOptions(**{**BENCH, **bad}))
+
+
+def test_tet10_five_point_rule_solve_matches_reference():
+    """A TET10 5-tet box 2x2x2 with the 5-point degree-3 rule (`n_quad=5`,
+    the mesh of tests/test_parity.py::test_parity_tet10_5pt_quadrature),
+    f64 assembled path: the reference's increments and Newton counts, and u
+    within 1e-10 relative (both f64, summed in another order)."""
+    import dataclasses
+
+    ref_mesh = dataclasses.replace(ref_box_mesh(2, 2, 2, element_type="tet10"), n_quad=5)
+    ref_bc = RefDirichletBuilder(ref_mesh).fix("zmin").prescribe("zmax", "z", -0.15).build()
+    opts = dict(linear="pcg_bcsr", n_steps=1, pcg_tol=1e-13)
+    ref = RefNewtonSolver(ref_mesh, RefNH(jnp.asarray(1.0), jnp.asarray(0.6)), ref_bc,
+                          options=RefOptions(**opts)).solve()
+    mesh = box_mesh(2, 2, 2, element_type="tet10", device="cpu", n_quad=5)
+    assert mesh.element.n_quad == 5 and ref_mesh.element.n_quad == 5
+    bc = DirichletBuilder(mesh).fix("zmin").prescribe("zmax", "z", -0.15).build()
+    solver = NewtonSolver(mesh, NeoHookean(1.0, 0.6), bc, options=SolverOptions(**opts))
+    assert solver.geom.gradN.shape[1] == 5
+    port = solver.solve()
+    assert ref.converged and port.converged
+    assert [r.newton_iters for r in port.history] == [r.newton_iters for r in ref.history]
+    assert port.total_newton_iters == ref.total_newton_iters == sum(
+        r.newton_iters for r in port.history)
+    u_r = np.asarray(ref.u)
+    assert np.linalg.norm(port.u.numpy() - u_r) <= 1e-10 * np.linalg.norm(u_r)
+    # the 4-point rule gives another answer: the override reached the element pass
+    four = NewtonSolver(box_mesh(2, 2, 2, element_type="tet10", device="cpu"), NeoHookean(1.0, 0.6),
+                        bc, options=SolverOptions(**opts)).solve()
+    assert np.linalg.norm(four.u.numpy() - u_r) > 1e-6 * np.linalg.norm(u_r)
+
+
+def test_total_newton_iters_matches_reference(case):
+    """`SolveResult.total_newton_iters` over two increments."""
+    ref, port = case.solve(**dict(BENCH, preconditioner="jacobi", n_steps=2))
+    assert len(port.history) == 2
+    assert port.total_newton_iters == ref.total_newton_iters == sum(
+        r.newton_iters for r in port.history)

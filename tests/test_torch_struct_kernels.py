@@ -221,8 +221,12 @@ def test_force_kernel_matches_plain_on_card():
     p, u, _ = _card_problem()
     tb = p.tables
     rows = soa.soa_freeze(p, NeoHookean(1.0, 0.6), u).rows(tb)
+    n0 = sk.LAUNCHES["force"]
     out = sk.struct_force(tb, *rows[:2])
+    again = sk.struct_force(tb, *rows[:2])
     torch.cuda.synchronize()
+    assert sk.LAUNCHES["force"] == n0 + 2
+    assert torch.equal(out, again)
     assert _rel(out, sk.struct_force_plain(tb, *rows[:2])) <= 2e-5
 
 
@@ -248,3 +252,51 @@ def test_apply_kernel_ragged_cell_tile_on_card(et, cells):
     assert sk.LAUNCHES["apply"] == n0 + 2
     assert torch.equal(out, again)
     assert _rel(out, sk.struct_apply_plain(tb, cache, *rows)) <= 2e-5
+
+
+RAGGED_ON_CARD = pytest.mark.parametrize(
+    "et,cells,n_quad",
+    [("tet10", (5, 3, 3), None), ("tet4", (7, 3, 2), None), ("tet10", (4, 4, 4), None),
+     ("tet10", (5, 3, 3), 5)],
+    ids=["tet10-45", "tet4-42", "tet10-64", "tet10-5pt-45"])
+
+
+@RAGGED_ON_CARD
+def test_force_kernel_ragged_cell_tile_on_card(et, cells, n_quad):
+    """B4 on lattices whose C is not (45, 42) and is (64) a multiple of the
+    32-cell tile of a block, and with the 5-point rule; its sums cross
+    threads: two launches bitwise equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels are CUDA C++ for sm_90a")
+    mesh = box_mesh_kuhn(*cells, element_type=et, device="cuda", n_quad=n_quad)
+    p = soa.SoAProblem.build(mesh, torch.float32)
+    u = torch.tensor(_fields(mesh.coords_host)[0], dtype=torch.float32, device="cuda")
+    tb = p.tables
+    rows = soa.soa_freeze(p, NeoHookean(1.0, 0.6), u).rows(tb)
+    n0 = sk.LAUNCHES["force"]
+    out = sk.struct_force(tb, *rows[:2])
+    again = sk.struct_force(tb, *rows[:2])
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES["force"] == n0 + 2
+    assert torch.equal(out, again)
+    assert _rel(out, sk.struct_force_plain(tb, *rows[:2])) <= 2e-5
+
+
+def test_five_point_rule_kernels_match_plain_on_card():
+    """The (5, 10, 6) instances of B1, B2 and B3 (B4 and B5 have their own
+    cases) on a TET10 lattice with `n_quad=5`."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels are CUDA C++ for sm_90a")
+    mesh = box_mesh_kuhn(5, 3, 3, element_type="tet10", device="cuda", n_quad=5)
+    p = soa.SoAProblem.build(mesh, torch.float32)
+    tb = p.tables
+    assert (tb.q, tb.npe, tb.T) == (5, 10, 6)
+    u, v = (torch.tensor(x, dtype=torch.float32, device="cuda") for x in _fields(mesh.coords_host))
+    mat = NeoHookean(1.0, 0.6)
+    cache = sk.gather_cache(p.structure, tb.pairs, u)
+    rows = sk.struct_freeze(tb, cache, mat)
+    for a, b in zip(rows, sk.struct_freeze_plain(tb, cache, mat)):
+        assert _rel(a, b) <= 2e-5
+    vc = sk.gather_cache(p.structure, tb.pairs, v)
+    assert _rel(sk.struct_apply(tb, vc, *rows), sk.struct_apply_plain(tb, vc, *rows)) <= 2e-5
+    assert _rel(sk.struct_diag(tb, *rows), sk.struct_diag_plain(tb, *rows)) <= 2e-5
