@@ -2,10 +2,10 @@
 
     python3 chip_smoke.py [--against CHECKOUT ...] [--lattice-only]
 
-Drives the port's three paths through a Newton solve of bench.py's problem
+Drives the port's four paths through a Newton solve of bench.py's problem
 (neo-Hookean (1.0, 0.6), zmin fixed, zmax pushed -0.05 in z, 5% affine
-start, EW forcing with eta_min 1e-2, newton_rtol 1e-6) at full width, and
-checks them:
+start, EW forcing with eta_min 1e-2, newton_rtol 1e-6) at full width, the
+dense direct path and the task-file entry point, and checks them:
 
   * the Kuhn path, bench.py's default (mixed precision, two-level PCG with
     6 coarse modes, device_loop=False): TET10 Kuhn lattice n=35, 1,073,733
@@ -17,9 +17,14 @@ checks them:
     pass of an unstructured mesh runs on the card, the coarse-space probes
     included, and, with resid_df=None, the fused f64 residual B9;
   * the f64 assembled path of config 2 (linear="pcg_bcsr",
-    precision="f64", block-Jacobi PCG, pcg_tol 1e-8, bench.py's f64
-    settings): the same 5-tet box, nnzb 9,184,321, the BCSR product B10
-    (csrc/bcsr_kernels.cu) in every PCG iteration.
+    precision="f64", block-Jacobi PCG) with the tolerances of bench.py's
+    f64 mode (pcg_tol 1e-8): the same 5-tet box, nnzb 9,184,321, the BCSR
+    product B10 (csrc/bcsr_kernels.cu) in every PCG iteration;
+  * the f64 matrix-free path, bench.py's own f64 mode
+    (FEA_BENCH_PRECISION=f64: linear="pcg", precision="f64", Jacobi, pcg_tol
+    1e-8) on the Kuhn box n=35, plain PyTorch (the reference runs no Pallas
+    kernel there), the dense direct path (linear="direct") and the seven
+    single-device task files through `python -m fea_large_tpu_torch run`.
 
 Phases:
 
@@ -77,11 +82,29 @@ Phases:
      variant of a kernel source, e.g. unpacked by `git archive` into
      build/), the lattice kernels as each checkout builds them, queued, at
      n=35 and n=36, in turns with this one's (there, here, here, there);
-  7. a JSON line of the kernels, then the result line.
+  7. the f64 matrix-free, direct and CLI paths, none of which launches a
+     kernel of the port: (a) bench.py's f64 mode at full width (1,073,733
+     DOF; setup, one warm-up and three timed solves, bitwise-equal u and
+     equal PCG lists, s/step, peak memory, the host CPU recheck, and the ms
+     of TangentState.freeze, the scattered element_diag_blocks and one
+     masked apply_tangent product); (b) the dense direct path on
+     tasks/uniaxial_tet4.json (1,029 DOF) and on config 2's compression of
+     a 5-tet TET10 box n=8 (13,203 DOF, dense K 1.39 GB), with the
+     assembly and Cholesky ms, a bitwise-equal repeat and the host CPU
+     recheck; (c) `python -m fea_large_tpu_torch run` on the seven
+     single-device task files at once (each must converge and write its
+     convergence JSON, checkpoint, npz and vtk; the f64 ones in the
+     reference's increments and Newton counts), the mixed Kuhn task's u
+     against an f64 solve of the same file, one `info` and one `bench
+     --reps 3` (its JSON line printed);
+  8. a JSON line of the kernels, then the result line.
 
 `--lattice-only` runs phases 0-2 and the lattice kernels' part of phase 6
 (with `--against`) and stops: a short call that checks and times a change
 to csrc/struct_kernels.cu. It prints no result line.
+
+Phase 7 runs after phase 6, once the solvers of phases 3-5 are released, so
+that its peak memory is its own.
 
 Any failed check raises, so the exit code is non-zero and no result line
 is printed. Without a CUDA device it stops in phase 0.
@@ -90,10 +113,13 @@ is printed. Without a CUDA device it stops in phase 0.
 import argparse
 import ctypes
 import json
+import os
+import pathlib
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
@@ -102,15 +128,24 @@ import numpy as np
 import torch
 
 from fea_large_tpu_torch.assembly.bcsr import BCSRStructure, assemble_bcsr
+from fea_large_tpu_torch.assembly.dense import assemble_dense, mask_dense_system
+from fea_large_tpu_torch.assembly.matfree import TangentState, apply_tangent
 from fea_large_tpu_torch.assembly.scatter import NodeScatter
 from fea_large_tpu_torch.bc import DirichletBuilder
-from fea_large_tpu_torch.elements.kernels import element_stiffness, precompute_geometry
+from fea_large_tpu_torch.elements.kernels import (
+    element_diag_blocks,
+    element_stiffness,
+    precompute_geometry,
+)
+from fea_large_tpu_torch.io.export import load_checkpoint
+from fea_large_tpu_torch.io.task import load_task
 from fea_large_tpu_torch.materials import NeoHookean, NeoHookeanVolumetric, StVenantKirchhoff
 from fea_large_tpu_torch.mesh.generators import box_mesh, box_mesh_kuhn
 from fea_large_tpu_torch.ops import bcsr_kernels as bk
 from fea_large_tpu_torch.ops import cuda_build, elem_kernels as ek, soa, struct_kernels as sk
 from fea_large_tpu_torch.solvers.linear import (
     block_jacobi_preconditioner,
+    dense_cholesky_solve,
     jacobi_inverse_blocks,
     pcg_chunk,
     pcg_init,
@@ -156,15 +191,42 @@ BENCH = dict(
 )
 KUHN = dict(BENCH, resid_df=None)
 FIVE_TET = dict(BENCH, pallas=True, agg_size=100, resid_df=None)
-#: bench.py's f64 settings (FEA_BENCH_PRECISION=f64: Jacobi, pcg_tol 1e-8)
-#: on the assembled system
+#: config 2's assembled system (linear="pcg_bcsr") with the tolerances of
+#: bench.py's f64 mode (Jacobi, pcg_tol 1e-8)
 BCSR = dict(linear="pcg_bcsr", precision="f64", forcing="ew", ew_eta_min=1e-2,
             newton_rtol=1e-6, pcg_tol=1e-8, pcg_maxiter=2000)
+#: bench.py's own f64 mode (FEA_BENCH_PRECISION=f64): Jacobi PCG on the
+#: matrix-free tangent
+MATFREE = dict(BCSR, linear="pcg")
+#: the dense direct path on config 2's compression (zmin fixed, zmax -0.2,
+#: two increments) of a 5-tet TET10 box: (cells per axis, DOF); dense K
+#: 1.39 GB in f64
+DIRECT = dict(linear="direct", n_steps=2)
+DIRECT_N = (8, 13_203)
+#: the task files one card runs (tasks/distributed_* ask for 8 shards)
+REPO = pathlib.Path(__file__).resolve().parent
+SINGLE_DEVICE_TASKS = (
+    "uniaxial_tet4.json", "beam_bending.json", "block_compression_tet10.json",
+    "block_compression_tet10.sexp", "block_compression_kuhn.json", "gravity_column_tet10.json",
+    "pressure_tet10.json",
+)
+#: the JAX reference's `run` of the f64 task files, measured on CPU: Newton
+#: count per converged increment
+REFERENCE_TASK_NEWTON = {
+    "uniaxial_tet4.json": [6], "beam_bending.json": [5, 6, 6, 6, 6],
+    "block_compression_tet10.json": [7, 7, 5, 5, 5, 6],
+    "block_compression_tet10.sexp": [7, 7, 5, 5, 5, 6],
+    "gravity_column_tet10.json": [4, 4], "pressure_tet10.json": [3, 3],
+}
+#: the mixed Kuhn task's u against an f64 solve of the same file (max-norm,
+#: relative): its newton_rtol is 1e-8; 8.4e-8 measured on CPU
+MIXED_TASK_BOUND = 1e-6
 
 #: cells per axis of the phase-2 checks, and (cells per axis, DOF) of the
 #: full-width solves
 CHECK_N = {"kuhn": 21, "5tet": 13}
-FULL = {"kuhn": (35, 1_073_733), "5tet": (36, 1_027_083), "bcsr": (36, 1_027_083)}
+FULL = {"kuhn": (35, 1_073_733), "5tet": (36, 1_027_083), "bcsr": (36, 1_027_083),
+        "matfree": (35, 1_073_733)}
 
 STRUCT_SRC = "fea_large_tpu_torch/csrc/struct_kernels.cu"
 ELEM_SRC = "fea_large_tpu_torch/csrc/elem_kernels.cu"
@@ -883,6 +945,238 @@ def bcsr_timings(solver, u0, mat, table):
           f"{1e3 * (time.perf_counter() - t0) / max(done, 1):.4f} ms")
 
 
+def host_reduction(build_cpu, material, bc_fn, u, f_ext, scale, r0):
+    """The residual of u at `scale` recomputed by the plain f64 element pass
+    on the host CPU, over the increment's first residual r0: (|R|,
+    reduction). `build_cpu()` builds the mesh on the CPU, `bc_fn(mesh)` its
+    BCs; f_ext lies on any device (None: no load)."""
+    mesh = build_cpu()
+    f = torch.zeros((mesh.n_nodes, 3), dtype=torch.float64) if f_ext is None else f_ext.cpu()
+    p64 = soa.SoAProblem.build(mesh, torch.float64)
+    _, r = _residual_soa_fn(u.cpu(), scale, p64, material, bc_fn(mesh), f)
+    return float(r), float(r) / r0
+
+
+def matfree_full_width(device, card):
+    """(a) bench.py's own f64 mode, the matrix-free path, at full width."""
+    n, n_dof = FULL["matfree"]
+    mat = NeoHookean(1.0, 0.6)
+    t0 = time.perf_counter()
+    mesh = box_mesh_kuhn(n, n, n, element_type="tet10", device=device)
+    bc = bench_bc(mesh)
+    check(mesh.n_dof == n_dof, f"matfree full width is {n_dof} DOF, got {mesh.n_dof}")
+    u0 = bench_start(mesh, bc)
+    torch.cuda.synchronize()
+    t_mesh = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    solver = NewtonSolver(mesh, mat, bc, options=SolverOptions(**MATFREE))
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t1
+    check(solver.bcsr is None, "the matrix-free path builds no BCSR structure")
+    print(f"matfree n={n}: {mesh.n_nodes} nodes, {mesh.n_elements} tets, {mesh.n_dof} DOF; mesh "
+          f"{t_mesh:.2f} s, solver setup {t_setup:.2f} s")
+    runs = []
+    for rep in ("warm-up", "timed 0", "timed 1", "timed 2"):
+        t2 = time.perf_counter()
+        u, ok, rec = solver._newton(u0, 1.0)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t2
+        red = rec.residual_norms[-1] / rec.residual_norms[0]
+        print(f"{rep} solve: {dt:.4f} s, newton {rec.newton_iters}, pcg {rec.pcg_iters} (total "
+              f"{sum(rec.pcg_iters)}), |R| {rec.residual_norms[0]:.6e} -> "
+              f"{rec.residual_norms[-1]:.6e} (reduction {red:.3e}), "
+              f"{dt / max(rec.newton_iters, 1):.5f} s/step")
+        check(ok and red <= 1e-6, f"matfree {rep} solve converged to reduction <= 1e-6")
+        runs.append((u, rec, dt))
+    peak = torch.cuda.max_memory_allocated()
+    print(f"peak device memory: {peak} B ({peak / 2**30:.2f} GiB)")
+    ua, reca, _ = runs[0]
+    for u, rec, _ in runs[1:]:
+        check(torch.equal(ua, u), "every matfree solve gives bitwise-equal u")
+        check(rec.pcg_iters == reca.pcg_iters and rec.residual_norms == reca.residual_norms,
+              "every matfree solve gives identical PCG lists and residual norms")
+    check(bool(torch.isfinite(ua).all()) and tuple(ua.shape) == (mesh.n_nodes, 3), "finite u [N, 3]")
+    r_cpu, red_cpu = host_reduction(
+        lambda: box_mesh_kuhn(n, n, n, element_type="tet10", device="cpu"), mat, bench_bc, ua,
+        None, 1.0, reca.residual_norms[0])
+    print(f"host CPU f64 residual of the converged u: {r_cpu:.6e} (reduction {red_cpu:.3e})")
+    check(red_cpu <= 1e-6, "host-recomputed residual reduction <= 1e-6")
+    conn, geom, scatter, free = mesh.conn, solver.geom, solver.scatter, bc.free_mask
+    state, _ = TangentState.freeze(u0, conn, geom, mat)
+    v = spmv_x(mesh.n_nodes, device)
+
+    def matvec(x):  # the masked product of `_pcg_step`
+        xm = x * free
+        return apply_tangent(state, xm, conn, geom, scatter) * free + (x - xm)
+
+    passes = {
+        "TangentState.freeze": lambda: TangentState.freeze(u0, conn, geom, mat),
+        "scattered element_diag_blocks": lambda: scatter(element_diag_blocks(u0[conn], geom, mat)),
+        "masked apply_tangent matvec": lambda: matvec(v),
+        "f64 residual (_residual_fn)": lambda: solver._residual(u0, 1.0),
+    }
+    pass_ms = {name: cuda_ms(fn) for name, fn in passes.items()}
+    for name, ms in pass_ms.items():
+        print(f"  pass {name:30s} {ms:9.4f} ms")
+    # the product's least time: its inputs read once, its output written once
+    b = scatter.buckets
+    mv_bytes = nbytes(v, conn, geom.gradN, geom.detJxW, state.F, state.S, *state.mat_state, free,
+                      *b.idx, *b.mask, b.inv, matvec(v))
+    mv_bound = 1e3 * mv_bytes / HBM_BYTES_S
+    print(f"  masked apply_tangent matvec: {mv_bytes} B once each, bound {mv_bound:.4f} ms "
+          f"(bytes), plain PyTorch at {100 * mv_bound / pass_ms['masked apply_tangent matvec']:.1f}%"
+          f" of it; PCG {sum(reca.pcg_iters)} iterations, "
+          f"{1e3 * runs[1][2] / sum(reca.pcg_iters):.3f} ms per iteration over a timed solve")
+    summary = {
+        "path": "matfree", "n_dof": mesh.n_dof, "newton_iters": reca.newton_iters,
+        "pcg_iters": reca.pcg_iters, "residual_reduction": reca.residual_norms[-1]
+        / reca.residual_norms[0], "host_reduction": red_cpu,
+        "s_per_step": [dt / r.newton_iters for _, r, dt in runs[1:]],
+        "solve_s": [dt for _, _, dt in runs], "setup_s": t_setup, "peak_bytes": peak,
+        "pass_ms": pass_ms, "card": card,
+    }
+    print("slice: " + json.dumps(summary))
+
+
+def direct_solve(label, mesh, material, bc, f_ext, opts, build_cpu, bc_fn):
+    """(b) one dense direct solve and a repeat: Newton counts, the
+    reduction (also recomputed on the host CPU), the assembly and Cholesky
+    ms at the converged u, peak memory."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    solver = NewtonSolver(mesh, material, bc, f_ext, options=opts)
+    check(solver.bcsr is not None, "the direct path sums through the BCSR slot buckets")
+    runs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        res = solver.solve()
+        torch.cuda.synchronize()
+        runs.append((res, time.perf_counter() - t0))
+    (res, dt), (res2, dt2) = runs
+    peak = torch.cuda.max_memory_allocated()
+    last = res.history[-1]
+    red = last.residual_norms[-1] / last.residual_norms[0]
+    steps = [(r.load_factor, r.newton_iters) for r in res.history]
+    print(f"{label}: {mesh.n_dof} DOF, dense K {(mesh.n_dof ** 2) * 8 / 1e9:.2f} GB; solve "
+          f"{dt:.4f} s and {dt2:.4f} s, (load factor, newton) {steps}, reduction {red:.3e}")
+    check(res.converged, f"{label} converged")
+    check(torch.equal(res.u, res2.u) and steps == [(r.load_factor, r.newton_iters)
+                                                   for r in res2.history],
+          f"{label}: two solves bitwise equal")
+    r_cpu, red_cpu = host_reduction(build_cpu, material, bc_fn, res.u, f_ext, 1.0,
+                                    last.residual_norms[0])
+    print(f"  host CPU f64 residual of the converged u: {r_cpu:.6e} (reduction {red_cpu:.3e})")
+    check(red_cpu <= 1e-8, f"{label} host-recomputed reduction <= 1e-8")
+    args = (res.u, mesh.conn, solver.geom, material, solver.bcsr, solver.scatter)
+    K, f_int = assemble_dense(*args)
+    A, b = mask_dense_system(K, bc.project(-f_int), bc.free_mask)
+    del K
+    ms = {"assemble_dense": cuda_ms(lambda: assemble_dense(*args)),
+          "dense_cholesky_solve": cuda_ms(lambda: dense_cholesky_solve(A, b))}
+    rate = mesh.n_dof ** 3 / 3.0 / (ms["dense_cholesky_solve"] * 1e-3)
+    print(f"  assemble_dense {ms['assemble_dense']:.4f} ms, dense_cholesky_solve "
+          f"{ms['dense_cholesky_solve']:.4f} ms (median of 10; n^3/3 FLOP of the factor at "
+          f"{rate / 1e12:.2f} TFLOP/s f64), peak device memory {peak} B ({peak / 2**30:.2f} GiB)")
+    return {"path": label, "n_dof": mesh.n_dof, "newton": [n for _, n in steps],
+            "load_factors": [lf for lf, _ in steps], "reduction": red, "host_reduction": red_cpu,
+            "solve_s": [dt, dt2], "ms": ms, "peak_bytes": peak}
+
+
+def direct_runs(device, card):
+    """(b) tasks/uniaxial_tet4.json at its own size, then config 2's
+    compression of the 5-tet TET10 box n=8, by the dense direct solve."""
+    path = REPO / "tasks" / "uniaxial_tet4.json"
+    task, cpu_task = load_task(path, device=device), load_task(path, device="cpu")
+    uni = direct_solve("direct uniaxial_tet4", task.mesh, task.material, task.build_bc(),
+                       task.build_forces(), task.solver, lambda: cpu_task.mesh,
+                       lambda _: cpu_task.build_bc())
+    check(uni["newton"] == REFERENCE_TASK_NEWTON["uniaxial_tet4.json"],
+          "uniaxial_tet4: the reference's Newton count")
+    n, n_dof = DIRECT_N
+
+    def bc_fn(m):
+        return DirichletBuilder(m).fix("zmin").prescribe("zmax", "z", -0.2).build()
+
+    mesh = box_mesh(n, n, n, element_type="tet10", device=device)
+    check(mesh.n_dof == n_dof, f"the direct box is {n_dof} DOF, got {mesh.n_dof}")
+    box = direct_solve(f"direct 5-tet TET10 n={n}", mesh, NeoHookean(1.0, 0.6), bc_fn(mesh), None,
+                       SolverOptions(**DIRECT),
+                       lambda: box_mesh(n, n, n, element_type="tet10", device="cpu"), bc_fn)
+    for out in (uni, box):
+        print("slice: " + json.dumps({**out, "card": card}))
+
+
+def module_cli(*args, timeout=600):
+    """`python -m fea_large_tpu_torch ARGS` from the repository's root on
+    the card (FEA_PLATFORM unset): the finished process."""
+    env = {k: v for k, v in os.environ.items() if k != "FEA_PLATFORM"}
+    return subprocess.run([sys.executable, "-m", "fea_large_tpu_torch", *args], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+
+
+def cli_runs(device, card):
+    """(c) `run` on the seven single-device task files, all started
+    together; the mixed Kuhn task against an f64 solve of the same file;
+    one `info`, then one `bench --reps 3` alone."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        t0 = time.perf_counter()
+
+        def run(name):
+            return module_cli("run", f"tasks/{name}", "--out", f"{tmp}/{name}")
+
+        with ThreadPoolExecutor(len(SINGLE_DEVICE_TASKS) + 1) as pool:
+            info = pool.submit(module_cli, "info", "tasks/pressure_tet10.json")
+            procs = dict(zip(SINGLE_DEVICE_TASKS, pool.map(run, SINGLE_DEVICE_TASKS)))
+            info = info.result()
+        print(f"seven `run`s at once: {time.perf_counter() - t0:.1f} s")
+        for name, proc in procs.items():
+            check(proc.returncode == 0, f"run {name}: exit {proc.returncode}\n{proc.stderr[-3000:]}")
+            print(f"  {name}: " + " | ".join(proc.stdout.strip().splitlines()[-2:]))
+            stem, out = name.split(".")[0], pathlib.Path(tmp) / name
+            conv = json.loads((out / f"{stem}_convergence.json").read_text())
+            check(conv["converged"], f"run {name} converged")
+            for ext in ("_checkpoint.npz", "_final.npz", "_deformed.vtk"):
+                check((out / f"{stem}{ext}").exists(), f"run {name} wrote {stem}{ext}")
+            check("von_mises" in (out / f"{stem}_deformed.vtk").read_text(),
+                  f"run {name}: the vtk holds von Mises")
+            newton = [step["newton_iters"] for step in conv["steps"]]
+            if name in REFERENCE_TASK_NEWTON:
+                check(newton == REFERENCE_TASK_NEWTON[name],
+                      f"run {name}: Newton counts {newton}, reference {REFERENCE_TASK_NEWTON[name]}")
+        check(info.returncode == 0 and json.loads(info.stdout)["n_dof"] == 1995,
+              f"info: exit {info.returncode}\n{info.stderr[-2000:]}")
+        print(f"info tasks/pressure_tet10.json: {json.dumps(json.loads(info.stdout))}")
+        # the mixed Kuhn task against an f64 solve of the same file
+        name = "block_compression_kuhn.json"
+        u = load_checkpoint(pathlib.Path(tmp) / name / "block_compression_kuhn_final.npz")["u"]
+    task = load_task(REPO / "tasks" / name, device=device)
+    f64 = NewtonSolver(task.mesh, task.material, task.build_bc(), task.build_forces(),
+                       SolverOptions(linear="pcg_bcsr", precision="f64", n_steps=task.solver.n_steps,
+                                     forcing="ew", newton_rtol=1e-10, pcg_tol=1e-12)).solve()
+    check(f64.converged, "the f64 solve of the Kuhn task converged")
+    u64 = f64.u.cpu().numpy()
+    err = float(np.abs(u - u64).max() / np.abs(u64).max())
+    print(f"  {name} (mixed, host loop) against its f64 solve: max |du| / max |u| {err:.3e} "
+          f"(bound {MIXED_TASK_BOUND})")
+    check(err <= MIXED_TASK_BOUND, "the mixed Kuhn task agrees with its f64 solve")
+    bench = module_cli("bench", f"tasks/{name}", "--reps", "3")
+    check(bench.returncode == 0, f"bench: exit {bench.returncode}\n{bench.stderr[-2000:]}")
+    line = json.loads(bench.stdout.strip().splitlines()[-1])
+    check(line["newton_steps"] > 0 and len(line["reps"]) == 3, "bench printed its JSON line")
+    print(f"bench tasks/{name} --reps 3 ({card}): " + json.dumps(line))
+
+
+def phase_f64_cli(device, card):
+    print(f"== phase 7: f64 matrix-free, direct and CLI paths ({card})")
+    t0 = time.perf_counter()
+    matfree_full_width(device, card)
+    print(f"phase 7a: {time.perf_counter() - t0:.1f} s")
+    direct_runs(device, card)
+    print(f"phase 7b: {time.perf_counter() - t0:.1f} s")
+    cli_runs(device, card)
+    print(f"phase 7: {time.perf_counter() - t0:.1f} s")
+
 #: run from the root of another checkout: its lattice kernels, queued, on
 #: its own inputs at full width and on the next lattice (C a multiple of 8)
 AGAINST = """
@@ -1044,6 +1338,9 @@ def main():
     bcsr = phase_bcsr(device, card)
     table = phase_timings(kuhn, five_tet, bcsr, card, args.against)
     launches = {**kuhn[2], **five_tet[2], **bcsr[2]}
+    del kuhn, five_tet, bcsr  # phase 7's peak memory is its own
+    torch.cuda.empty_cache()
+    phase_f64_cli(device, card)
     kernels = []
     for name, (_, _, source, replaces) in KERNELS.items():
         t = table[name]

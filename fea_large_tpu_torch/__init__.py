@@ -3,10 +3,12 @@
 Total-Lagrangian large-strain hyperelasticity on TET4/TET10 meshes (Kuhn
 lattices and unstructured meshes), solved by Newton's method: the
 mixed-precision path (f64 residual, f32 tangent and PCG with block-Jacobi
-or two-level preconditioning) and the f64 assembled path (BCSR stiffness,
-block-Jacobi PCG). Every kernel the reference wrote in Pallas runs here as
-a CUDA kernel written for Hopper (csrc/*.cu), with a plain PyTorch version
-beside its wrapper; everything else is plain PyTorch.
+or two-level preconditioning) and the f64 paths (BCSR stiffness or the
+matrix-free tangent with block-Jacobi PCG, or the dense stiffness with a
+Cholesky solve). Task files run through `python -m fea_large_tpu_torch
+run|info|bench` (cli.py). Every kernel the reference wrote in Pallas runs
+here as a CUDA kernel written for Hopper (csrc/*.cu), with a plain PyTorch
+version beside its wrapper; everything else is plain PyTorch.
 
 The package imports torch and numpy and never the JAX package, which stays
 the reference.

@@ -127,7 +127,8 @@ class BCSRMatrix:
         return self.data[self.structure.diag_slots]
 
     def to_dense(self) -> torch.Tensor:
-        """Dense [3N, 3N]; tests only."""
+        """Dense [3N, 3N] (the direct path, assembly/dense.py): each stored
+        block written once, no accumulation."""
         s = self.structure
         n = s.n_nodes
         K = self.data.new_zeros((n, 3, n, 3))

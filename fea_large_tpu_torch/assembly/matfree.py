@@ -1,0 +1,86 @@
+"""Matrix-free tangent operator of the f64 matrix-free path (counterpart of
+`fea_large_tpu/assembly/matfree.py`).
+
+K is never formed. Per Newton iterate `TangentState.freeze` evaluates the
+per-point state (F, S and the tangent factors) once; each PCG iteration then
+applies
+
+    (K v)_e[a,i] = sum_q V_q dP_iJ g_a[J],
+    dP = dF S + F dS,   dF = sum_b v_b (x) g_b,   dE = sym(F^T dF),
+    dS = CC : dE = alpha (A:dE) A + beta A dE A
+
+on the factored tangent of materials/base.py (dE is symmetric, so
+A sym(dE) A = A dE A). The reference calls its material's `tangent_apply`
+here; the port's materials expose the factors only. Memory is O(E q), and
+the nodal sums go through `NodeScatter` (fixed order, no atomics).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import torch
+
+from fea_large_tpu_torch.assembly.scatter import NodeScatter
+from fea_large_tpu_torch.elements.kernels import (
+    ElementGeometry,
+    _nodal,
+    _stress_state,
+    element_diag_blocks,
+)
+from fea_large_tpu_torch.ops.smallmat import mm3
+
+
+class TangentState(NamedTuple):
+    """Frozen per-point state of the consistent tangent at a displacement."""
+
+    F: torch.Tensor  # [E, q, 3, 3]
+    S: torch.Tensor  # [E, q, 3, 3]
+    mat_state: tuple  # (alpha [E, q], A [E, q, 3, 3], beta [E, q]): `stress_and_factors`
+
+    @staticmethod
+    def freeze(u: torch.Tensor, conn: torch.Tensor, geom: ElementGeometry,
+               material) -> tuple["TangentState", torch.Tensor]:
+        """(state, fe [E, npe, 3]) at u [N, 3]: the kinematics and the
+        constitutive update once per Newton iterate, and the element
+        internal force from the same F and S."""
+        F, S, alpha, A, beta = _stress_state(u[conn], geom.gradN, material)
+        fe = _nodal(mm3(F, S) * geom.detJxW[..., None, None], geom.gradN)
+        return TangentState(F=F, S=S, mat_state=(alpha, A, beta)), fe
+
+
+def apply_tangent(state: TangentState, v: torch.Tensor, conn: torch.Tensor,
+                  geom: ElementGeometry, scatter: NodeScatter) -> torch.Tensor:
+    """K(u) v [N, 3] without forming K: the exact consistent tangent,
+    material and geometric. The reference also takes the material, whose
+    `tangent_apply` it calls; here the factors are in `state.mat_state`."""
+    g = geom.gradN
+    dF = (v[conn][:, None, :, :, None] * g[:, :, :, None, :]).sum(2)  # [E, q, 3, 3]
+    FtdF = mm3(state.F.transpose(-1, -2), dF)
+    dE = 0.5 * (FtdF + FtdF.transpose(-1, -2))
+    alpha, A, beta = state.mat_state
+    AdE = (A * dE).sum((-2, -1))
+    dS = (alpha * AdE)[..., None, None] * A + beta[..., None, None] * mm3(mm3(A, dE), A)
+    dP = mm3(dF, state.S) + mm3(state.F, dS)
+    return scatter(_nodal(dP * geom.detJxW[..., None, None], g))
+
+
+class MatFreeOperator(NamedTuple):
+    """Matrix-free K(u): the product, the internal force and the nodal
+    diagonal blocks (block-Jacobi). Built afresh per Newton iterate."""
+
+    matvec: Callable[[torch.Tensor], torch.Tensor]
+    f_int: torch.Tensor  # [N, 3]
+    diag_blocks: torch.Tensor  # [N, 3, 3]
+
+
+def make_operator(u: torch.Tensor, conn: torch.Tensor, geom: ElementGeometry, material,
+                  scatter: NodeScatter) -> MatFreeOperator:
+    """Freeze the tangent state at u [N, 3] and return the operator."""
+    state, fe = TangentState.freeze(u, conn, geom, material)
+    diag = scatter(element_diag_blocks(u[conn], geom, material))
+
+    def matvec(v):
+        return apply_tangent(state, v, conn, geom, scatter)
+
+    return MatFreeOperator(matvec=matvec, f_int=scatter(fe), diag_blocks=diag)

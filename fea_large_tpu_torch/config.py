@@ -8,10 +8,14 @@ TF32 is switched off explicitly for matrix products and convolutions
 instead of relying on PyTorch's defaults.
 
 There is no global device: every builder takes a `device` argument, and
-tensors carry it from there.
+tensors carry it from there. The command-line entry point (cli.py) runs on
+the card, or on the CPU where FEA_PLATFORM=cpu, the reference's own switch
+(`task_device`).
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -32,3 +36,9 @@ def as_device(device) -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {dev} requested but CUDA is not available")
     return dev
+
+
+def task_device() -> torch.device:
+    """The command-line entry point's device: the CPU where the environment
+    sets FEA_PLATFORM=cpu, else the card (raises where CUDA is absent)."""
+    return as_device("cpu" if os.environ.get("FEA_PLATFORM") == "cpu" else "cuda")

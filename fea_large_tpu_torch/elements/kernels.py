@@ -1,5 +1,5 @@
-"""Batched element kernels of the f64 assembled path: geometry, internal
-force and consistent tangent (counterpart of
+"""Batched element kernels of the f64 paths: geometry, internal force,
+consistent tangent and its nodal diagonal blocks (counterpart of
 `fea_large_tpu/elements/kernels.py`).
 
 Layout kept from the reference (element axis first):
@@ -106,3 +106,30 @@ def element_stiffness(ue: torch.Tensor, geom: ElementGeometry, material):
         Ke.addcmul_((kb * sk)[:, :, None, None, :], sk.transpose(1, 2)[:, None, :, :, None])
         Ke.addcmul_((V[:, k, None, None] * Gs[:, k])[:, :, None, :, None], eye[:, None, :])
     return Ke, fe
+
+
+def element_diag_blocks(ue: torch.Tensor, geom: ElementGeometry, material) -> torch.Tensor:
+    """Per-element nodal diagonal blocks Ke[a, :, a, :] -> [E, npe, 3, 3],
+    the block-Jacobi preconditioner of the matrix-free path without
+    assembling K (the nodal sums go through `NodeScatter`). The diagonal of
+    `element_stiffness`'s factored form, with G_aa = g_a.A.g_a and
+    Gs_aa = g_a.S.g_a:
+
+      D[a,i,k] = sum_q V [(alpha + beta/2) s_ai s_ak + beta/2 B_ik G_aa
+                          + Gs_aa delta_ik]
+    """
+    g, V = geom.gradN, geom.detJxW
+    F, S, alpha, A, beta = _stress_state(ue, g, material)
+    FA = mm3(F, A)
+    s = (FA[:, :, None, :, :] * g[:, :, :, None, :]).sum(-1)  # [E, q, npe, 3]
+    B = mm3(FA, F.transpose(-1, -2))  # [E, q, 3, 3]
+
+    def gMg(M):  # g_a . M . g_a: [E, q, npe]
+        return ((g[..., :, None] * M[:, :, None, :, :]).sum(-2) * g).sum(-1)
+
+    wss = (V * (alpha + 0.5 * beta))[..., None, None, None]
+    wb = (0.5 * V * beta)[..., None] * gMg(A)  # [E, q, npe]
+    D = (wss * s[..., :, None] * s[..., None, :]).sum(1)
+    D = D + (wb[..., None, None] * B[:, :, None]).sum(1)
+    gs = (V[..., None] * gMg(S)).sum(1)  # [E, npe]
+    return D + gs[..., None, None] * torch.eye(3, dtype=ue.dtype, device=ue.device)

@@ -40,6 +40,16 @@ def inv_det3(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return adj * (1.0 / det)[..., None, None], det
 
 
+def det3(a: torch.Tensor) -> torch.Tensor:
+    """Determinant of [..., 3, 3], expanded along row 0 as the reference's
+    `det3`."""
+    return (
+        a[..., 0, 0] * (a[..., 1, 1] * a[..., 2, 2] - a[..., 1, 2] * a[..., 2, 1])
+        - a[..., 0, 1] * (a[..., 1, 0] * a[..., 2, 2] - a[..., 1, 2] * a[..., 2, 0])
+        + a[..., 0, 2] * (a[..., 1, 0] * a[..., 2, 1] - a[..., 1, 1] * a[..., 2, 0])
+    )
+
+
 def inv3(a: torch.Tensor) -> torch.Tensor:
     """Inverse of [..., 3, 3] via the adjugate."""
     return inv_det3(a)[0]

@@ -1,5 +1,5 @@
-"""Preconditioned conjugate gradients and block-Jacobi (counterpart of
-`fea_large_tpu/solvers/linear.py`, less the dense Cholesky solve).
+"""Dense Cholesky, preconditioned conjugate gradients and block-Jacobi
+(counterpart of `fea_large_tpu/solvers/linear.py`).
 
 PCG runs as a host loop over device tensors, resumable across chunks
 (`PCGState`). The vector arithmetic stays on the device; the loop fetches
@@ -16,6 +16,17 @@ import math
 import torch
 
 from fea_large_tpu_torch.ops.smallmat import inv3
+
+
+def dense_cholesky_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve the SPD system A x = b ([n, n], [n]) by Cholesky, in A's dtype:
+    the direct path's solve, `cho_factor` and `cho_solve` in the reference.
+    Where A is not positive definite x is all NaN, as the reference's
+    factor is (a NaN Newton residual then bisects the load step), with no
+    host sync."""
+    L, info = torch.linalg.cholesky_ex(A)
+    x = torch.cholesky_solve(b[:, None], L).squeeze(1)
+    return torch.where(info == 0, x, torch.full_like(x, float("nan")))
 
 
 def jacobi_inverse_blocks(diag_blocks: torch.Tensor, free_mask: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,6 @@
 """Newton driver with incremental load stepping (counterpart of
 `fea_large_tpu/solvers/newton.py`): the host-loop mixed-precision path and
-the f64 assembled path.
+the three f64 paths (assembled BCSR, matrix-free, dense direct).
 
 Mixed precision (`precision="mixed"`, `linear="pcg"`), per Newton
 iteration (`NewtonSolver._newton_mixed`):
@@ -21,12 +21,20 @@ iteration (`NewtonSolver._newton_mixed`):
   * the forcing term `newton_lin_tol` (Eisenstat-Walker choice 2 with the
     lower cap `ew_eta_min`, the termination safeguard and the f32 floor).
 
-f64 assembled (`precision="f64"`, `linear="pcg_bcsr"`, config 2 of the
-reference), per Newton iteration (`NewtonSolver._newton`): the f64
-residual of the element pass (`_residual_fn`), the element stiffness
-assembled into BCSR (assembly/bcsr.py), and block-Jacobi PCG on the masked
-system with one restart from the final iterate (`_pcg_with_restart`),
-whose product is the BCSR kernel B10 on the card (ops/bcsr_kernels.py).
+f64 (`precision="f64"`), per Newton iteration (`NewtonSolver._newton`):
+the f64 residual of the element pass (`_residual_fn`), then one step
+(`_step`) on the masked system:
+  * `linear="pcg_bcsr"` (config 2 of the reference): the element stiffness
+    assembled into BCSR (assembly/bcsr.py) and block-Jacobi PCG with one
+    restart from the final iterate (`_pcg_with_restart`), whose product is
+    the BCSR kernel B10 on the card (ops/bcsr_kernels.py);
+  * `linear="pcg"` (matrix-free, bench.py's FEA_BENCH_PRECISION=f64): the
+    frozen tangent state, the scattered element diagonal blocks and the
+    same PCG on the tangent action (assembly/matfree.py), plain PyTorch;
+  * `linear="direct"` (config 1): the dense K (assembly/dense.py) and a
+    Cholesky solve; one "iteration" per step, no forcing term.
+The matrix-free and direct routes are plain PyTorch: the reference runs
+them as XLA-fused einsums and `cho_solve`, outside any Pallas kernel.
 
 `solve` steps the load factor to 1 with bisection on Newton failure.
 """
@@ -39,6 +47,8 @@ import time
 import torch
 
 from fea_large_tpu_torch.assembly.bcsr import BCSRStructure, assemble_bcsr
+from fea_large_tpu_torch.assembly.dense import assemble_dense, mask_dense_system
+from fea_large_tpu_torch.assembly.matfree import make_operator
 from fea_large_tpu_torch.assembly.scatter import NodeScatter
 from fea_large_tpu_torch.elements.kernels import element_internal_force, precompute_geometry
 from fea_large_tpu_torch.ops.residual import resid_df_supported, soa_internal_force_df
@@ -53,6 +63,7 @@ from fea_large_tpu_torch.solvers.linear import (
     PCGResult,
     apply_block_jacobi,
     block_jacobi_preconditioner,
+    dense_cholesky_solve,
     drive_chunked_pcg,
     jacobi_inverse_blocks,
     pcg,
@@ -64,15 +75,20 @@ from fea_large_tpu_torch.solvers.linear import (
 @dataclasses.dataclass(frozen=True)
 class SolverOptions:
     """Solver configuration: the reference's fields and defaults, less the
-    device-loop budget. The port runs two paths; `NewtonSolver` raises on
+    device-loop budget. The port runs four routes; `NewtonSolver` raises on
     any other combination:
       * linear="pcg", precision="mixed", device_loop=False,
         preconditioner "jacobi" or "two_level" with coarse_modes 3 or 6
         (12 is not ported; any other value is a ValueError, as in the
-        reference);
-      * linear="pcg_bcsr", precision="f64" (block-Jacobi; the mixed-path
-        fields preconditioner, coarse_modes, agg_size, device_loop and
-        resid_df have no effect there, as in the reference).
+        reference). device_loop=True (the reference's default, its
+        device-resident Newton loop) is not ported: the task loader
+        (io/task.py) runs such tasks on the host loop, whose trajectory
+        the reference pins its device loop to;
+      * precision="f64" with linear="pcg_bcsr" (assembled BCSR),
+        linear="pcg" (matrix-free) or linear="direct" (dense Cholesky).
+        Block-Jacobi on the PCG routes; the mixed-path fields
+        preconditioner, coarse_modes, agg_size, device_loop and resid_df
+        have no effect there, as in the reference.
 
     pallas    accepted for parity with the reference, and without effect:
               there it picks the Pallas element-block passes over the XLA
@@ -136,10 +152,8 @@ def _unsupported(opts: SolverOptions) -> str | None:
         raise ValueError(f"unknown linear solver {opts.linear!r}")
     if opts.pallas and opts.precision != "mixed":
         raise ValueError("pallas=True requires precision='mixed'")
-    if opts.linear == "direct":
-        return "linear='direct' (the dense Cholesky path)"
     if opts.precision == "f64":
-        return None if opts.linear == "pcg_bcsr" else "precision='f64' with the matrix-free PCG"
+        return None
     if opts.precision != "mixed":
         return f"precision={opts.precision!r}"
     if opts.linear != "pcg":
@@ -202,21 +216,42 @@ def _pcg_with_restart(matvec, r, precond, pcg_tol, pcg_maxiter) -> PCGResult:
                      residual_norm=res2.residual_norm, converged=res2.converged)
 
 
-def _step_bcsr_fn(u, scale, conn, geom, material, bc, f_ext, scatter, structure, pcg_tol,
-                  pcg_maxiter):
-    """One f64 Newton step on the assembled system: (u + du, PCG
-    iterations, converged, final relative PCG residual)."""
-    K, f_int = assemble_bcsr(u, conn, geom, material, structure, scatter)
-    r = bc.project(scale * f_ext - f_int)
-    precond = block_jacobi_preconditioner(K.block_diagonal(), bc.free_mask)
+def _step_direct_fn(u, scale, conn, geom, material, bc, f_ext, scatter, structure):
+    """One f64 Newton step by the dense Cholesky solve of the masked
+    system: (u + du, 1, True, 0.0), the PCG routes' tuple."""
+    K, f_int = assemble_dense(u, conn, geom, material, structure, scatter)
+    A, b = mask_dense_system(K, bc.project(scale * f_ext - f_int), bc.free_mask)
+    return u + dense_cholesky_solve(A, b).reshape(u.shape), 1, True, 0.0
+
+
+def _pcg_step(u, r, product, diag_blocks, bc, pcg_tol, pcg_maxiter):
+    """(u + du, PCG iterations, converged, final relative PCG residual):
+    block-Jacobi PCG with one restart on the masked system M K M + (I - M)
+    du = r, given K v = product(v) and K's nodal diagonal blocks."""
+    precond = block_jacobi_preconditioner(diag_blocks, bc.free_mask)
 
     def matvec(v):
         vm = bc.project(v)
-        return bc.project(K.matvec(vm)) + (v - vm)
+        return bc.project(product(vm)) + (v - vm)
 
     res = _pcg_with_restart(matvec, r, precond, pcg_tol, pcg_maxiter)
     rel = res.residual_norm / max(float(torch.linalg.norm(r)), 1e-300)
     return u + res.x, res.iterations, res.converged, rel
+
+
+def _step_matfree_fn(u, scale, conn, geom, material, bc, f_ext, scatter, pcg_tol, pcg_maxiter):
+    """One f64 Newton step on the matrix-free tangent (`_pcg_step`)."""
+    op = make_operator(u, conn, geom, material, scatter)
+    r = bc.project(scale * f_ext - op.f_int)
+    return _pcg_step(u, r, op.matvec, op.diag_blocks, bc, pcg_tol, pcg_maxiter)
+
+
+def _step_bcsr_fn(u, scale, conn, geom, material, bc, f_ext, scatter, structure, pcg_tol,
+                  pcg_maxiter):
+    """One f64 Newton step on the assembled BCSR system (`_pcg_step`)."""
+    K, f_int = assemble_bcsr(u, conn, geom, material, structure, scatter)
+    r = bc.project(scale * f_ext - f_int)
+    return _pcg_step(u, r, K.matvec, K.block_diagonal(), bc, pcg_tol, pcg_maxiter)
 
 
 def _residual_soa_fn(u, scale, soa64, material, bc, f_ext):
@@ -258,8 +293,9 @@ class NewtonSolver:
     """Total-Lagrangian quasi-static solver for one mesh/material/BC setup
     on the mesh's device. The mixed path builds the f32 and f64 SoA
     element geometry and, for "two_level", the coarse space (host setup +
-    device probing); the f64 path builds the BCSR structure, and its
-    element geometry and node scatter at first use."""
+    device probing); the f64 paths build their element geometry and node
+    scatter at first use, and the BCSR structure where they sum into it
+    (linear="pcg_bcsr" and "direct"; the matrix-free path has none)."""
 
     def __init__(self, mesh, material, bc, f_ext=None, options=None):
         self.options = options or SolverOptions()
@@ -281,7 +317,8 @@ class NewtonSolver:
         self._resid_df = False
         self._coarse = None
         if self.options.precision == "f64":
-            self.bcsr = BCSRStructure.build(mesh.conn_host, mesh.n_nodes, mesh.device)
+            if self.options.linear in ("pcg_bcsr", "direct"):
+                self.bcsr = BCSRStructure.build(mesh.conn_host, mesh.n_nodes, mesh.device)
             return
         self._soa = SoAProblem.build(mesh, torch.float32)
         self._soa64 = SoAProblem.build(mesh, torch.float64, share_maps_from=self._soa)
@@ -318,9 +355,16 @@ class NewtonSolver:
                             self.f_ext, self.scatter)
 
     def _step(self, u, scale, lin_tol=None):
-        tol = self.options.pcg_tol if lin_tol is None else lin_tol
-        return _step_bcsr_fn(u, scale, self.mesh.conn, self.geom, self.material, self.bc,
-                             self.f_ext, self.scatter, self.bcsr, tol, self.options.pcg_maxiter)
+        """One f64 Newton step on the route of `options.linear`."""
+        opts = self.options
+        args = (u, scale, self.mesh.conn, self.geom, self.material, self.bc, self.f_ext,
+                self.scatter)
+        if opts.linear == "direct":
+            return _step_direct_fn(*args, self.bcsr)
+        tol = opts.pcg_tol if lin_tol is None else lin_tol
+        if opts.linear == "pcg":
+            return _step_matfree_fn(*args, tol, opts.pcg_maxiter)
+        return _step_bcsr_fn(*args, self.bcsr, tol, opts.pcg_maxiter)
 
     def _freeze(self, u):
         """f32 tangent state at u [N, 3]."""
@@ -446,7 +490,9 @@ class NewtonSolver:
             # also made no real progress (the Newton residual is the arbiter)
             if lin_failed and norm > 0.5 * norms[-2]:
                 break
-            lin_tol, eta = newton_lin_tol(opts, it, norms, norm0, eta)
+            lin_tol = None  # the direct solve takes no forcing term
+            if opts.linear != "direct":
+                lin_tol, eta = newton_lin_tol(opts, it, norms, norm0, eta)
             u, lin_iters, lin_ok, lin_rel = self._step(u, scale, lin_tol)
             pcg_iters.append(int(lin_iters))
             # inexact Newton: a direction that reduced the linear residual

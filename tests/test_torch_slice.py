@@ -163,8 +163,8 @@ def test_pallas_option_changes_nothing():
 
 
 @pytest.mark.parametrize("bad", [
-    dict(device_loop=True), dict(precision="f64"), dict(linear="direct", precision="f64"),
-    dict(linear="direct"), dict(preconditioner="three_level"), dict(coarse_modes=12),
+    dict(device_loop=True), dict(precision="f32"), dict(preconditioner="three_level"),
+    dict(coarse_modes=12),
 ])
 def test_newton_solver_rejects_unported_options(case, bad):
     with pytest.raises(NotImplementedError):
@@ -173,13 +173,14 @@ def test_newton_solver_rejects_unported_options(case, bad):
 
 @pytest.mark.parametrize("bad", [
     dict(linear="pcg_bcsr"), dict(linear="gmres"), dict(linear="pcg_bcsr", precision="f64", pallas=True),
-    dict(coarse_modes=5), dict(coarse_modes=5, device_loop=True),
+    dict(coarse_modes=5), dict(coarse_modes=5, device_loop=True), dict(linear="direct"),
 ])
 def test_newton_solver_rejects_what_the_reference_rejects(case, bad):
     """ValueError where the reference raises one: the mixed path with the
-    assembled BCSR system, an unknown linear solver, pallas=True on the f64
-    path, and coarse modes other than 3, 6 or 12 (12 is a value of the
-    reference that the port lacks: NotImplementedError, above)."""
+    assembled BCSR system or the dense solve, an unknown linear solver,
+    pallas=True on the f64 path, and coarse modes other than 3, 6 or 12
+    (12 is a value of the reference that the port lacks:
+    NotImplementedError, above)."""
     with pytest.raises(ValueError):
         NewtonSolver(case.mesh, NeoHookean(1.0, 0.6), case.bc, options=SolverOptions(**{**BENCH, **bad}))
     with pytest.raises(ValueError):
