@@ -5,7 +5,9 @@
 Drives the port's four paths through a Newton solve of bench.py's problem
 (neo-Hookean (1.0, 0.6), zmin fixed, zmax pushed -0.05 in z, 5% affine
 start, EW forcing with eta_min 1e-2, newton_rtol 1e-6) at full width, the
-dense direct path and the task-file entry point, and checks them:
+dense direct path, the task-file entry point, the three-level and 12-mode
+preconditioners, the host coarse builders, an autodiff material on the
+f64 paths and the examples, and checks them:
 
   * the Kuhn path, bench.py's default (mixed precision, two-level PCG with
     6 coarse modes, device_loop=False): TET10 Kuhn lattice n=35, 1,073,733
@@ -97,14 +99,35 @@ Phases:
      reference's increments and Newton counts), the mixed Kuhn task's u
      against an f64 solve of the same file, one `info` and one `bench
      --reps 3` (its JSON line printed);
-  8. a JSON line of the kernels, then the result line.
+  8. (a) bench.py's problem at full width with preconditioner="three_level"
+     (levels of 21,952 and 2,744 aggregates) and (b) with the 12-mode
+     two-level space: setup seconds on the host and on the card, three
+     solves as in phases 3-4, the lattice kernels launched (B1-B5), the
+     Newton count and PCG list beside phase 3's, and phase 6's passes of
+     one Newton and one PCG iteration (the preconditioner and its coarse
+     apply among them); (c) the host coarse
+     builders at full width: the f64 Galerkin product of the rigid-body
+     basis over phase 3's aggregates (K0 kept from (a)) against the probed
+     Ac (2e-5 of its largest entry), and FEA_COARSE_INVERT=host against the
+     device inverse, both against the f64 inverse of the same Ac; (d)
+     MooneyRivlin(1.0, 0.6), whose tangent the generic branch forms
+     through torch.func: phase 5's assembled path at full width (B10 in
+     every PCG iteration) with the generic and the factored
+     `element_stiffness` timed, the direct path on the
+     uniaxial_tension example's box and the matrix-free path on a Kuhn box
+     n=12, each with a warm-up, two timed solves (bitwise equal) and the
+     host CPU recheck; (e) the three examples through `python -m
+     fea_large_tpu_torch.examples.<name>`, each exiting 0 with OK. No
+     coarse inverse of phases 3, 4 and 8 may take the host fallback;
+  9. a JSON line of the kernels (with each kernel's launches on phase 8's
+     paths), then the result line.
 
 `--lattice-only` runs phases 0-2 and the lattice kernels' part of phase 6
 (with `--against`) and stops: a short call that checks and times a change
 to csrc/struct_kernels.cu. It prints no result line.
 
-Phase 7 runs after phase 6, once the solvers of phases 3-5 are released, so
-that its peak memory is its own.
+Phases 7 and 8 run after phase 6, once the solvers of phases 3-5 are
+released, so that their peak memory is their own.
 
 Any failed check raises, so the exit code is non-zero and no result line
 is printed. Without a CUDA device it stops in phase 0.
@@ -139,10 +162,17 @@ from fea_large_tpu_torch.elements.kernels import (
 )
 from fea_large_tpu_torch.io.export import load_checkpoint
 from fea_large_tpu_torch.io.task import load_task
-from fea_large_tpu_torch.materials import NeoHookean, NeoHookeanVolumetric, StVenantKirchhoff
+from fea_large_tpu_torch.materials import (
+    MooneyRivlin,
+    NeoHookean,
+    NeoHookeanVolumetric,
+    StVenantKirchhoff,
+)
 from fea_large_tpu_torch.mesh.generators import box_mesh, box_mesh_kuhn
 from fea_large_tpu_torch.ops import bcsr_kernels as bk
 from fea_large_tpu_torch.ops import cuda_build, elem_kernels as ek, soa, struct_kernels as sk
+from fea_large_tpu_torch.ops.pooling import make_lattice_pool
+from fea_large_tpu_torch.solvers import multilevel as ml
 from fea_large_tpu_torch.solvers.linear import (
     block_jacobi_preconditioner,
     dense_cholesky_solve,
@@ -221,6 +251,25 @@ REFERENCE_TASK_NEWTON = {
 #: the mixed Kuhn task's u against an f64 solve of the same file (max-norm,
 #: relative): its newton_rtol is 1e-8; 8.4e-8 measured on CPU
 MIXED_TASK_BOUND = 1e-6
+
+#: phase 8: bench.py's problem with the three-level space (aggregates of
+#: 16 nodes) and with the 12-mode two-level space; phase 3's resid_df=None
+THREE_LEVEL = dict(KUHN, preconditioner="three_level")
+TWELVE_MODES = dict(KUHN, coarse_modes=12)
+#: phase 8c: the host Galerkin product against the probed Ac
+#: (tests/test_multilevel.py's bound), and the host inverse against the
+#: device one: the reference test's bound on a 3^3 box, or, where the two
+#: f32 routes differ by more at full width (f32 rounding times the
+#: condition of Ac), the host route no farther from the f64 inverse than
+#: twice the device route
+HOST_AC_BOUND = 2e-5
+HOST_INV_BOUND = 5e-5
+#: phase 8d: the autodiff material on the f64 paths, and the depth of its
+#: matrix-free run (a Kuhn box, cells per axis)
+MR = MooneyRivlin(1.0, 0.6)
+MR_MATFREE_N = 12
+#: phase 8e: the example counterparts, run as `python -m`
+EXAMPLES = ("uniaxial_tension", "beam_bending", "block_compression")
 
 #: cells per axis of the phase-2 checks, and (cells per axis, DOF) of the
 #: full-width solves
@@ -611,7 +660,8 @@ def full_width(label, build, opts, keys, device, card):
     torch.cuda.synchronize()
     t_setup = time.perf_counter() - t1
     in_setup = {name: KERNELS[name][0][KERNELS[name][1]] for name in keys}
-    print(f"kernel launches in setup: {in_setup}")
+    print(f"kernel launches in setup: {in_setup}; coarse setup {solver._coarse.setup}")
+    check(solver._coarse.setup["invert"] == "device", "the coarse inverse was built on the card")
     check(all(in_setup[k] > 0 for k in keys if k.endswith(("_freeze", "_apply"))),
           f"the {label} setup's probes launch the freeze and tangent-action kernels")
     print(f"{label} n={n}: {mesh.n_nodes} nodes, {mesh.n_elements} tets, {mesh.n_dof} DOF; "
@@ -666,7 +716,7 @@ def full_width(label, build, opts, keys, device, card):
         "launches": launches, "setup_launches": in_setup, "card": card,
     }
     print("slice: " + json.dumps(summary))
-    return solver, u0, launches
+    return solver, u0, launches, reca.pcg_iters
 
 
 def phase_kuhn(device, card):
@@ -900,25 +950,29 @@ def bcsr_timings(solver, u0, mat, table):
     b_ms, b_by = max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
     ms, device_ms, plain_ms = cuda_ms(kern), queued_ms(kern), cuda_ms(plain)
     N = st.n_nodes
-    try:
-        with warnings.catch_warnings():  # torch marks BSR tensors as beta
-            warnings.simplefilter("ignore", UserWarning)
-            A = torch.sparse_bsr_tensor(st.indptr, st.indices, K.data, size=(3 * N, 3 * N))
-        xc = x.reshape(3 * N, 1)
-        lib_err = rel_err((A @ xc).reshape(N, 3), y)[1]
-        lib_ms = cuda_ms(lambda: A @ xc)
-        lib = f"{lib_ms:9.4f} ms (rel diff to the kernel {lib_err:.2e})"
-    except (RuntimeError, NotImplementedError) as exc:  # a yardstick, not a path of the port
-        lib_ms, lib = None, f"refused by torch on this card: {str(exc).splitlines()[0]}"
+    lib_ms, lib = {}, {}
+    for tag, data, xv in (("f64", K.data, x), ("f32", K.data.float(), x.float())):
+        try:
+            with warnings.catch_warnings():  # torch marks BSR tensors as beta
+                warnings.simplefilter("ignore", UserWarning)
+                A = torch.sparse_bsr_tensor(st.indptr, st.indices, data, size=(3 * N, 3 * N))
+            xc = xv.reshape(3 * N, 1)
+            y_k = calls[f"bcsr_spmv/{tag}"][0]()
+            lib_err = rel_err((A @ xc).reshape(N, 3), y_k)[1]
+            lib_ms[tag] = cuda_ms(lambda A=A, xc=xc: A @ xc)
+            lib[tag] = f"{lib_ms[tag]:9.4f} ms (rel diff to the kernel {lib_err:.2e})"
+        except (RuntimeError, NotImplementedError) as exc:  # a yardstick, not a path of the port
+            lib_ms[tag], lib[tag] = None, f"refused by torch on this card: {str(exc).splitlines()[0]}"
     table["bcsr_spmv"] = dict(bound_ms=b_ms, bound_by=b_by, ms=ms, device_ms=device_ms,
                               plain_ms=plain_ms, max_abs_err=errs["bcsr_spmv/f64"][0],
-                              library_ms=lib_ms)
+                              library_ms=lib_ms["f64"], library_ms_f32=lib_ms["f32"])
     print(f"  {'bcsr_spmv/f64':24s} kernel {ms:9.4f} ms   queued {device_ms:9.4f} ms   bound "
           f"{b_ms:8.4f} ms ({nbytes(*inputs, y)} B, {b_by}, {100 * b_ms / ms:5.1f}% / "
           f"{100 * b_ms / device_ms:5.1f}% of it)   plain {plain_ms:9.4f} ms   host "
           f"{host_us(kern):6.1f} us/launch")
     print(f"  {'bcsr_spmv/f32':24s} kernel {cuda_ms(calls['bcsr_spmv/f32'][0]):9.4f} ms")
-    print(f"  cuSPARSE BSR product (torch.sparse_bsr_tensor @ x, f64): {lib}")
+    for tag in ("f64", "f32"):
+        print(f"  cuSPARSE BSR product (torch.sparse_bsr_tensor @ x, {tag}): {lib[tag]}")
     ue = u0[solver.mesh.conn]
     Ke, _ = element_stiffness(ue, solver.geom, mat)
     free = bc.free_mask
@@ -1008,7 +1062,7 @@ def matfree_full_width(device, card):
 
     def matvec(x):  # the masked product of `_pcg_step`
         xm = x * free
-        return apply_tangent(state, xm, conn, geom, scatter) * free + (x - xm)
+        return apply_tangent(state, xm, conn, geom, mat, scatter) * free + (x - xm)
 
     passes = {
         "TangentState.freeze": lambda: TangentState.freeze(u0, conn, geom, mat),
@@ -1177,6 +1231,339 @@ def phase_f64_cli(device, card):
     cli_runs(device, card)
     print(f"phase 7: {time.perf_counter() - t0:.1f} s")
 
+def solve_runs(label, run, timed=2):
+    """A warm-up and `timed` timed solves of `run()` -> (u, ok, record):
+    each converged to a reduction <= 1e-6, all bitwise equal in u with
+    identical PCG lists and residual norms. Returns [(u, record, s)]."""
+    runs = []
+    for rep in ["warm-up"] + [f"timed {i}" for i in range(timed)]:
+        t0 = time.perf_counter()
+        u, ok, rec = run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        red = rec.residual_norms[-1] / rec.residual_norms[0]
+        print(f"  {label} {rep}: {dt:.4f} s, newton {rec.newton_iters}, pcg {rec.pcg_iters} "
+              f"(total {sum(rec.pcg_iters)}), |R| {rec.residual_norms[0]:.6e} -> "
+              f"{rec.residual_norms[-1]:.6e} (reduction {red:.3e}), "
+              f"{dt / max(rec.newton_iters, 1):.5f} s/step")
+        check(ok and red <= 1e-6, f"{label} {rep} solve converged to reduction <= 1e-6")
+        runs.append((u, rec, dt))
+    ua, reca, _ = runs[0]
+    for u, rec, _ in runs[1:]:
+        check(torch.equal(ua, u), f"{label}: every solve gives bitwise-equal u")
+        check(rec.pcg_iters == reca.pcg_iters and rec.residual_norms == reca.residual_norms,
+              f"{label}: every solve gives identical PCG lists and residual norms")
+    check(bool(torch.isfinite(ua).all()) and ua.dim() == 2 and ua.shape[1] == 3, "finite u [N, 3]")
+    return runs
+
+
+def host_reduction_aos(mesh_cpu, material, bc_cpu, u, scale, r0):
+    """The residual of u recomputed by the plain f64 element pass of the
+    f64 paths (`_residual_fn`, the one an autodiff material runs) on the
+    host CPU, over the first residual r0: (|R|, reduction)."""
+    solver = NewtonSolver(mesh_cpu, material, bc_cpu, options=SolverOptions(linear="pcg"))
+    _, r = solver._residual(u.cpu(), scale)
+    return float(r), float(r) / r0
+
+
+def mixed_phase8(label, mesh, bc, opts, mesh_cpu, card):
+    """(8a, 8b) a mixed solve of bench.py's problem on `mesh` with `opts`:
+    setup (host and device seconds), three solves, the lattice kernels
+    launched (counts set to 0 before the setup, read after the solves),
+    peak memory and the host CPU recheck. Returns (solver, summary)."""
+    u0 = bench_start(mesh, bc)
+    torch.cuda.synchronize()
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    solver = NewtonSolver(mesh, NeoHookean(1.0, 0.6), bc, options=SolverOptions(**opts))
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    setup = dict(solver._coarse.setup)
+    print(f"{label}: setup {t_setup:.2f} s ({setup['host_s']:.2f} s host, {setup['device_s']:.2f} s "
+          f"device, inverse on the {setup['invert']})")
+    check(setup["invert"] == "device", f"{label}: the coarse inverse was built on the card")
+    in_setup = {k: KERNELS[k][0][KERNELS[k][1]] for k in KERNELS if k.startswith("struct_")}
+    runs = solve_runs(label, lambda: solver._newton(u0, 1.0))
+    launches = {k: KERNELS[k][0][KERNELS[k][1]] for k in KERNELS if k.startswith("struct_")}
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  kernel launches (setup {in_setup}; setup + 3 solves {launches}); peak device memory "
+          f"{peak} B ({peak / 2**30:.2f} GiB)")
+    check(all(v > 0 for v in launches.values()), f"every lattice kernel launched on the {label} path")
+    u, rec, _ = runs[0]
+    r_cpu, red_cpu = host_reduction(lambda: mesh_cpu, NeoHookean(1.0, 0.6), bench_bc, u, None, 1.0,
+                                    rec.residual_norms[0])
+    print(f"  host CPU f64 residual of the converged u: {r_cpu:.6e} (reduction {red_cpu:.3e})")
+    check(red_cpu <= 1e-6, f"{label}: host-recomputed residual reduction <= 1e-6")
+    time_passes(newton_pcg_passes(solver, u0, NeoHookean(1.0, 0.6), soa.soa_freeze,
+                                  _residual_df_fn))
+    summary = {
+        "path": label, "n_dof": mesh.n_dof, "newton_iters": rec.newton_iters,
+        "pcg_iters": rec.pcg_iters, "host_reduction": red_cpu,
+        "s_per_step": [dt / r.newton_iters for _, r, dt in runs[1:]],
+        "solve_s": [dt for _, _, dt in runs], "setup_s": t_setup, "setup": setup,
+        "peak_bytes": peak, "launches": launches, "setup_launches": in_setup, "card": card,
+    }
+    return solver, summary
+
+
+def host_builders_phase8(solver, k0):
+    """(8c) the host coarse builders at full width on the Kuhn box: the f64
+    Galerkin product of the rigid-body basis over the pooled aggregates
+    (modes 6, `k0` the K0 the three-level build made) against the probed
+    f32 Ac of the same aggregates, and FEA_COARSE_INVERT=host against the
+    device inverse of `build_coarse_space`."""
+    mesh, bc, mat = solver.mesh, solver.bc, NeoHookean(1.0, 0.6)
+    coords = mesh.coords_host
+    agg_size = ml.default_agg_size(mesh.n_nodes, 2500, structured=True)
+    pool = make_lattice_pool(mesh.structure, max(1, mesh.n_nodes // agg_size))
+    agg = pool.agg_host()
+    n_agg = int(agg.max()) + 1
+    cnt = np.bincount(agg, minlength=n_agg).astype(float)
+    cent = np.stack([np.bincount(agg, weights=coords[:, d], minlength=n_agg) / cnt
+                     for d in range(3)], axis=1)
+    dvec = ml._rbm_dvec(coords, agg, cent, n_agg)
+    t0 = time.perf_counter()
+    host = ml._host_coarse_matrix_rbm(mesh, mat.lam, mat.mu, agg, dvec, n_agg,
+                                      bc.free_mask.cpu().numpy(), k0=k0)
+    t_host = time.perf_counter() - t0
+    dev = mesh.device
+    color, Bn, d, cm, src, dst, nc = ml._probe_plan(mesh.conn_host, agg, n_agg, 6, dvec)
+    state0 = soa.soa_freeze(solver._soa, mat, torch.zeros((3, mesh.n_nodes), device=dev))
+    Z = ml._probe_run(solver._soa, state0, bc.free_mask.to(torch.float32),
+                      torch.as_tensor(Bn, device=dev), torch.as_tensor(d, device=dev),
+                      torch.as_tensor(color[agg], device=dev), cm, 6, pool)
+    Ac = ml._assemble_dense_coarse(Z.reshape(-1), torch.as_tensor(src, device=dev),
+                                   torch.as_tensor(dst, device=dev), nc).cpu().numpy()
+    diff = float(np.abs(Ac - host).max())
+    scale = float(np.abs(host).max())
+    print(f"8c host Galerkin product (modes 6, {n_agg} aggregates, dim {nc}): {t_host:.2f} s on the "
+          f"host (K0 reused); probed Ac vs host Ac: max |diff| {diff:.3e} = {diff / scale:.3e} of "
+          f"max |Ac| (bound {HOST_AC_BOUND})")
+    check(diff <= HOST_AC_BOUND * scale, "the probed coarse matrix matches the host Galerkin product")
+    spaces = {}
+    for route in ("device", "host"):
+        if route == "host":
+            os.environ["FEA_COARSE_INVERT"] = "host"
+        try:
+            t0 = time.perf_counter()
+            spaces[route] = ml.build_coarse_space(mesh, mat, bc, modes=6, soa=solver._soa)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        finally:
+            os.environ.pop("FEA_COARSE_INVERT", None)
+        check(spaces[route].setup["invert"] == route, f"the {route} inverse route was taken")
+        print(f"  build_coarse_space, inverse on the {route}: {dt:.2f} s ({spaces[route].setup})")
+    # the f64 inverse of the same ridged Ac: how far each f32 route is from it
+    A64 = torch.as_tensor(Ac, dtype=torch.float64, device=dev)
+    d64 = torch.diagonal(A64)
+    A64 = A64 + torch.diag((d64 <= 0).double() + 1e-8 * max(float(d64.max()), 1.0))
+    eig = torch.linalg.eigvalsh(A64)
+    inv64 = torch.cholesky_inverse(torch.linalg.cholesky(A64))
+    inv_scale = float(inv64.abs().max())
+    a, b = spaces["host"].acinv, spaces["device"].acinv
+    err = float((a - b).abs().max()) / inv_scale
+    err_host = float((a.double() - inv64).abs().max()) / inv_scale
+    err_dev = float((b.double() - inv64).abs().max()) / inv_scale
+    print(f"  host vs device inverse (dim {a.shape[0]}): max |diff| {err:.3e} of max (the "
+          f"reference test's bound at a 3^3 box: {HOST_INV_BOUND}); against the f64 inverse: host "
+          f"{err_host:.3e}, device {err_dev:.3e}; condition number of the ridged Ac "
+          f"{float(eig[-1] / eig[0]):.3e}")
+    check(err_host <= max(HOST_INV_BOUND, 2.0 * err_dev),
+          "the host inverse is as close to the f64 inverse as the device inverse")
+    return {"dim": nc, "host_product_s": t_host, "ac_rel": diff / scale,
+            "inverse_rel": err, "inverse_rel_f64": {"host": err_host, "device": err_dev},
+            "cond": float(eig[-1] / eig[0]), "setups": {k: v.setup for k, v in spaces.items()}}
+
+
+def mooney_rivlin_phase8(device, card):
+    """(8d) MooneyRivlin(1.0, 0.6) through the generic tangent on the f64
+    paths: the assembled BCSR path on phase 5's problem at full width (B10
+    in every PCG iteration), the direct path on the uniaxial_tension
+    example's box, and the matrix-free path on a Kuhn box of depth
+    MR_MATFREE_N; each with a warm-up, two timed solves and the host
+    CPU recheck."""
+    out = {}
+    n, n_dof = FULL["bcsr"]
+    mesh = box_mesh(n, n, n, element_type="tet10", device=device)
+    check(mesh.n_dof == n_dof, f"8d full width is {n_dof} DOF, got {mesh.n_dof}")
+    bc = bench_bc(mesh)
+    u0 = bench_start(mesh, bc)
+    torch.cuda.synchronize()
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    solver = NewtonSolver(mesh, MR, bc, options=SolverOptions(**BCSR))
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    runs = solve_runs("8d MR pcg_bcsr", lambda: solver._newton(u0, 1.0))
+    launches = bk.LAUNCHES["spmv"]
+    total_pcg = sum(sum(r.pcg_iters) for _, r, _ in runs)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  bcsr_spmv launches (3 solves): {launches}, PCG iterations: {total_pcg}; setup (host "
+          f"BCSR build) {t_setup:.2f} s; peak device memory {peak} B ({peak / 2**30:.2f} GiB)")
+    check(launches >= total_pcg, "B10 launched at least once per PCG iteration on the MR path")
+    u, rec, _ = runs[0]
+    mesh_cpu = box_mesh(n, n, n, element_type="tet10", device="cpu")
+    r_cpu, red_cpu = host_reduction_aos(mesh_cpu, MR, bench_bc(mesh_cpu), u, 1.0,
+                                        rec.residual_norms[0])
+    print(f"  host CPU f64 residual of the converged u: {r_cpu:.6e} (reduction {red_cpu:.3e})")
+    check(red_cpu <= 1e-6, "8d MR pcg_bcsr: host-recomputed residual reduction <= 1e-6")
+    ue = u0[mesh.conn]
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ms = {"element_stiffness MR (generic)": cuda_ms(lambda: element_stiffness(ue, solver.geom, MR), 3)}
+    es_peak = torch.cuda.max_memory_allocated() - base
+    ms["element_stiffness NH (factored)"] = cuda_ms(
+        lambda: element_stiffness(ue, solver.geom, NeoHookean(1.0, 0.6)))
+    print(f"  element_stiffness at u0, {mesh.n_elements} TET10: generic (MR) "
+          f"{ms['element_stiffness MR (generic)']:.2f} ms (median of 3; its own peak {es_peak} B), "
+          f"factored (NH) {ms['element_stiffness NH (factored)']:.2f} ms (median of 10)")
+    out["bcsr"] = {"path": "8d MR pcg_bcsr", "n_dof": mesh.n_dof, "newton_iters": rec.newton_iters,
+                   "pcg_iters": rec.pcg_iters, "host_reduction": red_cpu,
+                   "solve_s": [dt for _, _, dt in runs], "setup_s": t_setup, "peak_bytes": peak,
+                   "launches": {"bcsr_spmv": launches}, "ms": ms,
+                   "element_stiffness_peak_bytes": es_peak}
+    del solver, mesh, bc, u0, ue
+    torch.cuda.empty_cache()
+    # the direct path on examples/uniaxial_tension's box (6^3 TET4, zmax +0.2)
+    mesh = box_mesh(6, 6, 6, element_type="tet4", device=device)
+    mesh_cpu = box_mesh(6, 6, 6, element_type="tet4", device="cpu")
+
+    def tension(m):
+        return DirichletBuilder(m).fix("zmin").prescribe("zmax", "z", 0.2).build()
+
+    bc = tension(mesh)
+    torch.cuda.reset_peak_memory_stats()
+    solver = NewtonSolver(mesh, MR, bc, options=SolverOptions(linear="direct"))
+
+    def direct():
+        res = solver.solve()
+        return res.u, res.converged, res.history[-1]
+
+    runs = solve_runs("8d MR direct", direct)
+    u, rec, _ = runs[0]
+    peak = torch.cuda.max_memory_allocated()
+    r_cpu, red_cpu = host_reduction_aos(mesh_cpu, MR, tension(mesh_cpu), u, 1.0,
+                                        rec.residual_norms[0])
+    print(f"  host CPU f64 residual of the converged u: {r_cpu:.6e} (reduction {red_cpu:.3e}); "
+          f"peak device memory {peak} B")
+    check(red_cpu <= 1e-8, "8d MR direct: host-recomputed reduction <= 1e-8")
+    top = u[torch.as_tensor(mesh.node_sets["zmax"], device=device)]
+    check(abs(float(top[:, 2].mean()) - 0.2) < 1e-12 and float(u[:, 0].min()) < -1e-3,
+          "8d MR direct: the prescribed stretch and a lateral contraction")
+    out["direct"] = {"path": "8d MR direct", "n_dof": mesh.n_dof, "newton_iters": rec.newton_iters,
+                     "host_reduction": red_cpu, "solve_s": [dt for _, _, dt in runs],
+                     "peak_bytes": peak}
+    # the matrix-free path on a Kuhn box of depth MR_MATFREE_N
+    n = MR_MATFREE_N
+    mesh = box_mesh_kuhn(n, n, n, element_type="tet10", device=device)
+    mesh_cpu = box_mesh_kuhn(n, n, n, element_type="tet10", device="cpu")
+    bc = bench_bc(mesh)
+    u0 = bench_start(mesh, bc)
+    torch.cuda.reset_peak_memory_stats()
+    solver = NewtonSolver(mesh, MR, bc, options=SolverOptions(**MATFREE))
+    check(solver.bcsr is None, "the matrix-free path builds no BCSR structure")
+    runs = solve_runs(f"8d MR matfree Kuhn n={n}", lambda: solver._newton(u0, 1.0))
+    u, rec, dt = runs[1]
+    peak = torch.cuda.max_memory_allocated()
+    r_cpu, red_cpu = host_reduction_aos(mesh_cpu, MR, bench_bc(mesh_cpu), u, 1.0,
+                                        rec.residual_norms[0])
+    print(f"  host CPU f64 residual of the converged u: {r_cpu:.6e} (reduction {red_cpu:.3e}); "
+          f"peak device memory {peak} B")
+    check(red_cpu <= 1e-6, "8d MR matfree: host-recomputed residual reduction <= 1e-6")
+    conn, geom, scatter, free = mesh.conn, solver.geom, solver.scatter, bc.free_mask
+    v = spmv_x(mesh.n_nodes, device)
+    ms = {}
+    for name, mat in (("MR (generic)", MR), ("NH (factored)", NeoHookean(1.0, 0.6))):
+        state, _ = TangentState.freeze(u0, conn, geom, mat)
+        ms[f"masked apply_tangent {name}"] = cuda_ms(
+            lambda s=state, m=mat: apply_tangent(s, v * free, conn, geom, m, scatter) * free
+            + v * (1 - free))
+        ms[f"TangentState.freeze {name}"] = cuda_ms(lambda m=mat: TangentState.freeze(u0, conn, geom, m))
+    print("  " + ", ".join(f"{k} {t:.3f} ms" for k, t in ms.items())
+          + f"; {1e3 * dt / sum(rec.pcg_iters):.3f} ms per PCG iteration over a timed solve")
+    out["matfree"] = {"path": f"8d MR matfree Kuhn n={n}", "n_dof": mesh.n_dof,
+                      "newton_iters": rec.newton_iters, "pcg_iters": rec.pcg_iters,
+                      "host_reduction": red_cpu, "solve_s": [d for _, _, d in runs],
+                      "peak_bytes": peak, "ms": ms}
+    return out
+
+
+def examples_phase8(card):
+    """(8e) `python -m fea_large_tpu_torch.examples.<name>` on the card,
+    the three started together: each exits 0 and prints OK."""
+    env = {k: v for k, v in os.environ.items() if k != "FEA_PLATFORM"}
+
+    def run(name):
+        return subprocess.run([sys.executable, "-m", f"fea_large_tpu_torch.examples.{name}"],
+                              cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(EXAMPLES)) as pool:
+        procs = dict(zip(EXAMPLES, pool.map(run, EXAMPLES)))
+    print(f"8e three examples at once ({card}): {time.perf_counter() - t0:.1f} s")
+    for name, proc in procs.items():
+        check(proc.returncode == 0, f"example {name}: exit {proc.returncode}\n{proc.stderr[-3000:]}")
+        lines = proc.stdout.strip().splitlines()
+        print(f"  {name}: " + " | ".join(lines[:1] + lines[-3:]))
+        check(lines[0].startswith("device: cuda") and lines[-1] == "OK",
+              f"example {name} ran on the card and printed OK")
+
+
+def phase_more(device, card, kuhn_pcg):
+    """Phase 8: the three-level and 12-mode spaces, the host coarse
+    builders at full width, the autodiff material on the f64 paths, and
+    the examples."""
+    print(f"== phase 8: three-level and 12-mode preconditioners, host coarse builders, "
+          f"Mooney-Rivlin, examples ({card})")
+    t0 = time.perf_counter()
+    n, n_dof = FULL["kuhn"]
+    mesh = box_mesh_kuhn(n, n, n, element_type="tet10", device=device)
+    check(mesh.n_dof == n_dof, f"phase 8 full width is {n_dof} DOF, got {mesh.n_dof}")
+    mesh_cpu = box_mesh_kuhn(n, n, n, element_type="tet10", device="cpu")
+    bc = bench_bc(mesh)
+    k0 = {}
+    build_k0 = ml._host_k0_csr
+
+    def keep_k0(*args, **kw):  # the three-level build's K0, kept for 8c
+        k0["K"] = build_k0(*args, **kw)
+        return k0["K"]
+
+    ml._host_k0_csr = keep_k0
+    try:
+        solver, three = mixed_phase8("8a three_level", mesh, bc, THREE_LEVEL, mesh_cpu, card)
+    finally:
+        ml._host_k0_csr = build_k0
+    sp = solver._coarse
+    three.update(n_agg1=sp.n_agg1, n_agg2=sp.n_agg2, level2_dim=sp.ac2inv.shape[0])
+    print(f"  levels: n1 = {sp.n_agg1} aggregates, n2 = {sp.n_agg2}, level-2 dim "
+          f"{sp.ac2inv.shape[0]}; Newton {three['newton_iters']}, PCG {three['pcg_iters']} "
+          f"(phase 3, two-level modes 6: PCG {kuhn_pcg})")
+    print(f"phase 8a: {time.perf_counter() - t0:.1f} s")
+    host = host_builders_phase8(solver, k0.pop("K"))
+    print(f"phase 8c: {time.perf_counter() - t0:.1f} s")
+    del solver, sp
+    torch.cuda.empty_cache()
+    solver, twelve = mixed_phase8("8b two_level modes 12", mesh, bc, TWELVE_MODES, mesh_cpu, card)
+    twelve.update(n_agg=solver._coarse.n_agg, coarse_dim=solver._coarse.acinv.shape[0])
+    print(f"  coarse: {solver._coarse.n_agg} aggregates, dim {solver._coarse.acinv.shape[0]}, "
+          f"probing {twelve['setup']['device_s']:.2f} s on the card; PCG {twelve['pcg_iters']} "
+          f"(phase 3, modes 6: {kuhn_pcg})")
+    launches = {"8a": three["launches"], "8b": twelve["launches"]}
+    print(f"phase 8b: {time.perf_counter() - t0:.1f} s")
+    del solver, mesh, mesh_cpu
+    torch.cuda.empty_cache()
+    mr = mooney_rivlin_phase8(device, card)
+    launches["8d"] = mr["bcsr"]["launches"]
+    print(f"phase 8d: {time.perf_counter() - t0:.1f} s")
+    examples_phase8(card)
+    for out in (three, twelve, host, *mr.values()):
+        print("slice: " + json.dumps({**out, "card": card}))
+    print(f"phase 8: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 #: run from the root of another checkout: its lattice kernels, queued, on
 #: its own inputs at full width and on the next lattice (C a multiple of 8)
 AGAINST = """
@@ -1288,13 +1675,13 @@ def phase_timings(kuhn, five_tet, bcsr, card, against=()):
     t0 = time.perf_counter()
     mat = NeoHookean(1.0, 0.6)
     table = {}
-    solver, u0, _ = kuhn
+    solver, u0 = kuhn[:2]
     errs = lattice_timings(solver.mesh, table, against)
     time_passes(newton_pcg_passes(solver, u0, mat, soa.soa_freeze, _residual_df_fn))
     time_passes({"f64 residual (_residual_soa_fn)": lambda: _residual_soa_fn(
         u0, 1.0, solver._soa64, mat, solver.bc, solver.f_ext)})
     resid_df_turns(solver, u0, "Kuhn")
-    solver5, u05, _ = five_tet
+    solver5, u05 = five_tet[:2]
     y = element_inputs(solver5.mesh)
     calls5 = element_calls(y, (mat,))
     errs5 = run_checks(calls5)
@@ -1338,9 +1725,11 @@ def main():
     bcsr = phase_bcsr(device, card)
     table = phase_timings(kuhn, five_tet, bcsr, card, args.against)
     launches = {**kuhn[2], **five_tet[2], **bcsr[2]}
-    del kuhn, five_tet, bcsr  # phase 7's peak memory is its own
+    kuhn_pcg = kuhn[3]
+    del kuhn, five_tet, bcsr  # phases 7 and 8 hold their own peak memory
     torch.cuda.empty_cache()
     phase_f64_cli(device, card)
+    more = phase_more(device, card, kuhn_pcg)
     kernels = []
     for name, (_, _, source, replaces) in KERNELS.items():
         t = table[name]
@@ -1349,6 +1738,8 @@ def main():
             "launches": launches[name], "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t.get("library_ms"), "device_ms": t["device_ms"],
+            **({"library_ms_f32": t["library_ms_f32"]} if "library_ms_f32" in t else {}),
+            "launches_phase8": {p: c[name] for p, c in more.items() if name in c},
         })
     print(f"total: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -7,12 +7,14 @@ applies
 
     (K v)_e[a,i] = sum_q V_q dP_iJ g_a[J],
     dP = dF S + F dS,   dF = sum_b v_b (x) g_b,   dE = sym(F^T dF),
-    dS = CC : dE = alpha (A:dE) A + beta A dE A
+    dS = CC : dE
 
-on the factored tangent of materials/base.py (dE is symmetric, so
-A sym(dE) A = A dE A). The reference calls its material's `tangent_apply`
-here; the port's materials expose the factors only. Memory is O(E q), and
-the nodal sums go through `NodeScatter` (fixed order, no atomics).
+where a material with the factored tangent (materials/base.py) gives dS =
+alpha (A:dE) A + beta A dE A from the frozen factors (dE is symmetric, so
+A sym(dE) A = A dE A), and any other (an autodiff material) its
+`tangent_apply` on its frozen state, as the reference calls it. Memory is
+O(E q), and the nodal sums go through `NodeScatter` (fixed order, no
+atomics).
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from fea_large_tpu_torch.elements.kernels import (
     _stress_state,
     element_diag_blocks,
 )
+from fea_large_tpu_torch.materials.base import factored_product
 from fea_large_tpu_torch.ops.smallmat import mm3
 
 
@@ -36,7 +39,9 @@ class TangentState(NamedTuple):
 
     F: torch.Tensor  # [E, q, 3, 3]
     S: torch.Tensor  # [E, q, 3, 3]
-    mat_state: tuple  # (alpha [E, q], A [E, q, 3, 3], beta [E, q]): `stress_and_factors`
+    #: the factors (alpha [E, q], A [E, q, 3, 3], beta [E, q]) of a material
+    #: with the factored tangent, else the material's `pk2_and_state` state
+    mat_state: object
 
     @staticmethod
     def freeze(u: torch.Tensor, conn: torch.Tensor, geom: ElementGeometry,
@@ -44,23 +49,25 @@ class TangentState(NamedTuple):
         """(state, fe [E, npe, 3]) at u [N, 3]: the kinematics and the
         constitutive update once per Newton iterate, and the element
         internal force from the same F and S."""
-        F, S, alpha, A, beta = _stress_state(u[conn], geom.gradN, material)
+        F, C, S, mat_state = _stress_state(u[conn], geom.gradN, material)
         fe = _nodal(mm3(F, S) * geom.detJxW[..., None, None], geom.gradN)
-        return TangentState(F=F, S=S, mat_state=(alpha, A, beta)), fe
+        factors = material.iso_tangent_factors(mat_state, C)
+        return TangentState(F=F, S=S, mat_state=mat_state if factors is None else factors), fe
 
 
 def apply_tangent(state: TangentState, v: torch.Tensor, conn: torch.Tensor,
-                  geom: ElementGeometry, scatter: NodeScatter) -> torch.Tensor:
+                  geom: ElementGeometry, material, scatter: NodeScatter) -> torch.Tensor:
     """K(u) v [N, 3] without forming K: the exact consistent tangent,
-    material and geometric. The reference also takes the material, whose
-    `tangent_apply` it calls; here the factors are in `state.mat_state`."""
+    material and geometric."""
     g = geom.gradN
     dF = (v[conn][:, None, :, :, None] * g[:, :, :, None, :]).sum(2)  # [E, q, 3, 3]
     FtdF = mm3(state.F.transpose(-1, -2), dF)
     dE = 0.5 * (FtdF + FtdF.transpose(-1, -2))
-    alpha, A, beta = state.mat_state
-    AdE = (A * dE).sum((-2, -1))
-    dS = (alpha * AdE)[..., None, None] * A + beta[..., None, None] * mm3(mm3(A, dE), A)
+    factors = material.iso_tangent_factors(state.mat_state, None)
+    if factors is None:
+        dS = material.tangent_apply(state.mat_state, dE)
+    else:
+        dS = factored_product(*factors, dE)
     dP = mm3(dF, state.S) + mm3(state.F, dS)
     return scatter(_nodal(dP * geom.detJxW[..., None, None], g))
 
@@ -81,6 +88,6 @@ def make_operator(u: torch.Tensor, conn: torch.Tensor, geom: ElementGeometry, ma
     diag = scatter(element_diag_blocks(u[conn], geom, material))
 
     def matvec(v):
-        return apply_tangent(state, v, conn, geom, scatter)
+        return apply_tangent(state, v, conn, geom, material, scatter)
 
     return MatFreeOperator(matvec=matvec, f_int=scatter(fe), diag_blocks=diag)

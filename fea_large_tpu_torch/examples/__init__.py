@@ -1,0 +1,10 @@
+"""Runnable examples of the port, counterparts of the reference's
+`examples/*.py` (the same problems, options, physics checks and `OK` line):
+
+    python -m fea_large_tpu_torch.examples.uniaxial_tension
+    python -m fea_large_tpu_torch.examples.beam_bending
+    python -m fea_large_tpu_torch.examples.block_compression [n]
+
+Each runs on the card, or on the CPU where FEA_PLATFORM=cpu (no fallback:
+without CUDA and without that switch it fails).
+"""

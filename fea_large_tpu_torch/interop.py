@@ -53,9 +53,13 @@ def dirichlet_from_numpy(free_mask, prescribed_values, device="cuda") -> Dirichl
 
 
 def material_from_numpy(kind, lam, mu) -> Material:
-    """Material from its kind (0 SVK, 1 neo-Hookean, 2 neo-Hookean
-    volumetric) and Lame constants."""
-    cls = next(c for c in set(MATERIAL_REGISTRY.values()) if c.kind == int(kind))
+    """Material from its registry name (any alias, e.g. "mooney_rivlin") or
+    its kernel code (0 SVK, 1 neo-Hookean, 2 neo-Hookean volumetric) and
+    its Lame constants."""
+    if isinstance(kind, str):
+        cls = MATERIAL_REGISTRY[kind.lower()]
+    else:
+        cls = next(c for c in set(MATERIAL_REGISTRY.values()) if c.kind == int(kind))
     return cls(float(np.asarray(lam)), float(np.asarray(mu)))
 
 
@@ -91,4 +95,43 @@ def soa_problem_from_numpy(n_nodes, gradN, detJxW, conn_T, buckets,
         detJxW=torch.tensor(np.asarray(detJxW), dtype=dtype, device=dev),
         conn_T=torch.tensor(np.asarray(conn_T), dtype=torch.int64, device=dev),
         buckets=buckets,
+    )
+
+
+def coarse_space_from_numpy(agg, dvec, acinv, modes, device="cuda"):
+    """Two-level CoarseSpace from the aggregate id per node agg [N], the
+    normalized arms dvec [N, 3] (modes 6 and 12; None for 3) and the
+    explicit inverse acinv [modes*Nc, modes*Nc], with the aggregate
+    transfer of an unstructured mesh (`AggregateTransfer`: on a lattice
+    the same sums as its pooled transfer, in another order)."""
+    from fea_large_tpu_torch.solvers.multilevel import AggregateTransfer, CoarseSpace
+
+    dev = as_device(device)
+    agg = np.asarray(agg).astype(np.int64)
+    d = None if dvec is None else np.asarray(dvec, np.float32)
+    return CoarseSpace(
+        acinv=torch.tensor(np.asarray(acinv), dtype=torch.float32, device=dev),
+        dvec=None if d is None else torch.tensor(d, device=dev),
+        n_agg=int(agg.max()) + 1,
+        modes=int(modes),
+        pool=AggregateTransfer.build(agg, dev),
+        dvec_T=None if d is None else torch.tensor(np.ascontiguousarray(d.T), device=dev),
+    )
+
+
+def multilevel_space_from_numpy(agg1, agg2, dinv1, ac2inv, device="cuda"):
+    """Three-level MultilevelSpace from the node -> level-1 aggregate map
+    agg1 [N], the level-1 -> level-2 map agg2 [Nc1], the inverse diagonal
+    blocks dinv1 [Nc1, 3, 3] and the explicit inverse ac2inv [3 Nc2, 3 Nc2]."""
+    from fea_large_tpu_torch.solvers.multilevel import AggregateTransfer, MultilevelSpace
+
+    dev = as_device(device)
+    agg1, agg2 = np.asarray(agg1).astype(np.int64), np.asarray(agg2).astype(np.int64)
+    return MultilevelSpace(
+        t1=AggregateTransfer.build(agg1, dev),
+        dinv1=torch.tensor(np.asarray(dinv1), dtype=torch.float32, device=dev),
+        t2=AggregateTransfer.build(agg2, dev),
+        ac2inv=torch.tensor(np.asarray(ac2inv), dtype=torch.float32, device=dev),
+        n_agg1=int(agg1.max()) + 1,
+        n_agg2=int(agg2.max()) + 1,
     )

@@ -26,7 +26,7 @@ Schema (JSON):
                                   #  enables the structured fast path
   "element_type": "tet4" | "tet10",
   "quadrature": null | 1 | 4 | 5,                    # points per element
-  "material": {"model": "svk"|"neo_hookean",
+  "material": {"model": "svk"|"neo_hookean"|"mooney_rivlin"|...,  # registry
                "lambda": ..., "mu": ...               # or "E": ..., "nu": ...},
   "loading": {
      "n_steps": 3,

@@ -1,3 +1,7 @@
+from fea_large_tpu_torch.materials.autodiff import (  # noqa: F401
+    AutodiffMaterial,
+    MooneyRivlin,
+)
 from fea_large_tpu_torch.materials.base import (  # noqa: F401
     MATERIAL_REGISTRY,
     Material,

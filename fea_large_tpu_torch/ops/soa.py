@@ -285,8 +285,20 @@ def _route(p: SoAProblem, x: torch.Tensor, kernel, plain):
     return plain if x.dtype == torch.float64 else kernel
 
 
+def _soa_material(material):
+    """The SoA passes take the registered isotropic materials (the factored
+    tangent and a kernel code); any other raises, as the reference's SoA
+    material dispatch does."""
+    if material.kind not in (0, 1, 2):
+        raise NotImplementedError(
+            f"SoA kernels support the registered isotropic materials; got "
+            f"{type(material).__name__} (use the AoS path)"
+        )
+
+
 def soa_freeze(p: SoAProblem, material, u_T: torch.Tensor) -> SoAState:
     """Kinematics + constitutive state at u (u_T [3, N])."""
+    _soa_material(material)
     if p.structure is None:
         q, npe, gradN, _ = ek.flat_tables(p)
         fn = _route(p, u_T, ek.elem_freeze, ek.elem_freeze_plain)

@@ -24,7 +24,7 @@ from fea_large_tpu_torch.ops.smallmat import det3, mm3
 def quad_point_stress(u, conn, geom: ElementGeometry, material):
     """(S [E,q,3,3], sigma [E,q,3,3], J [E,q]) at every quadrature point."""
     F = deformation_gradient(u[conn], geom.gradN)
-    S = material.stress_and_factors(mm3(F.transpose(-1, -2), F))[0]
+    S = material.pk2(mm3(F.transpose(-1, -2), F))
     J = det3(F)
     sigma = mm3(mm3(F, S), F.transpose(-1, -2)) / J[..., None, None]
     return S, sigma, J

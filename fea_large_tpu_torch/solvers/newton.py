@@ -13,11 +13,12 @@ iteration (`NewtonSolver._newton_mixed`):
     (`_residual_soa_fn`);
   * the f32 tangent state (freeze), the block-Jacobi blocks (diag), and a
     chunked PCG solve of the masked f32 tangent system (tangent action),
-    preconditioned by block-Jacobi plus the optional two-level coarse
-    correction (solvers/multilevel.py); a two-level solve that breaks down
-    is retried with block-Jacobi alone. On the card the f32 freeze, tangent
-    action and force are the lattice kernels on Kuhn lattices and the
-    element-block kernels (ops/elem_kernels.py) on unstructured meshes;
+    preconditioned by block-Jacobi plus the optional two- or three-level
+    coarse correction (solvers/multilevel.py); a solve with a coarse
+    correction that breaks down is retried with block-Jacobi alone. On the
+    card the f32 freeze, tangent action and force are the lattice kernels
+    on Kuhn lattices and the element-block kernels (ops/elem_kernels.py)
+    on unstructured meshes;
   * the forcing term `newton_lin_tol` (Eisenstat-Walker choice 2 with the
     lower cap `ew_eta_min`, the termination safeguard and the f32 floor).
 
@@ -77,10 +78,11 @@ class SolverOptions:
     """Solver configuration: the reference's fields and defaults, less the
     device-loop budget. The port runs four routes; `NewtonSolver` raises on
     any other combination:
-      * linear="pcg", precision="mixed", device_loop=False,
-        preconditioner "jacobi" or "two_level" with coarse_modes 3 or 6
-        (12 is not ported; any other value is a ValueError, as in the
-        reference). device_loop=True (the reference's default, its
+      * linear="pcg", precision="mixed", device_loop=False, preconditioner
+        "jacobi", "two_level" (coarse_modes 3, 6 or 12; any other value is
+        a ValueError, as in the reference) or "three_level" (aggregates of
+        agg_size or 16 nodes); any other name is block-Jacobi, as in the
+        reference. device_loop=True (the reference's default, its
         device-resident Newton loop) is not ported: the task loader
         (io/task.py) runs such tasks on the host loop, whose trajectory
         the reference pins its device loop to;
@@ -162,10 +164,6 @@ def _unsupported(opts: SolverOptions) -> str | None:
         raise ValueError(f"coarse modes must be 3, 6 or 12, got {opts.coarse_modes}")
     if opts.device_loop:
         return "device_loop=True (the device-resident Newton loop)"
-    if opts.preconditioner not in ("jacobi", "two_level"):
-        return f"preconditioner={opts.preconditioner!r}"
-    if opts.preconditioner == "two_level" and opts.coarse_modes == 12:
-        return "coarse_modes=12 (the rigid-body + linear-strain basis)"
     return None
 
 
@@ -278,7 +276,8 @@ def _mixed_matvec(soa, state, free32_T, v):
 
 
 def _mixed_precond(inv_blocks, free32, coarse):
-    """Block-Jacobi, plus the two-level coarse correction when `coarse`."""
+    """Block-Jacobi, plus the coarse correction of `coarse` when given (a
+    two-level `CoarseSpace` or a three-level `MultilevelSpace`)."""
 
     def apply(r):
         z = apply_block_jacobi(inv_blocks, free32, r)
@@ -293,9 +292,11 @@ class NewtonSolver:
     """Total-Lagrangian quasi-static solver for one mesh/material/BC setup
     on the mesh's device. The mixed path builds the f32 and f64 SoA
     element geometry and, for "two_level", the coarse space (host setup +
-    device probing); the f64 paths build their element geometry and node
-    scatter at first use, and the BCSR structure where they sum into it
-    (linear="pcg_bcsr" and "direct"; the matrix-free path has none)."""
+    device probing), for "three_level" the multilevel space (host Galerkin
+    products + a device inverse); the f64 paths build their element
+    geometry and node scatter at first use, and the BCSR structure where
+    they sum into it (linear="pcg_bcsr" and "direct"; the matrix-free path
+    has none)."""
 
     def __init__(self, mesh, material, bc, f_ext=None, options=None):
         self.options = options or SolverOptions()
@@ -305,7 +306,7 @@ class NewtonSolver:
         self.mesh = mesh
         self.material = material
         self.bc = bc
-        #: two-level -> block-Jacobi fallbacks taken on CG breakdown
+        #: coarse-corrected -> block-Jacobi fallbacks taken on CG breakdown
         self.precond_fallbacks = 0
         self.f_ext = (
             torch.zeros((mesh.n_nodes, 3), dtype=torch.float64, device=mesh.device)
@@ -333,6 +334,12 @@ class NewtonSolver:
             self._coarse = build_coarse_space(
                 mesh, material, bc, agg_size=self.options.agg_size,
                 modes=self.options.coarse_modes, soa=self._soa,
+            )
+        elif self.options.preconditioner == "three_level":
+            from fea_large_tpu_torch.solvers.multilevel import build_multilevel_space
+
+            self._coarse = build_multilevel_space(
+                mesh, material, bc, agg_size1=self.options.agg_size or 16,
             )
 
     @property
@@ -371,9 +378,9 @@ class NewtonSolver:
         return soa_freeze(self._soa, self.material, u.to(torch.float32).T.contiguous())
 
     def _linear_solve(self, state, inv_blocks, b, lin_tol, free32, free32_T):
-        """Chunked PCG on the masked f32 tangent system; the two-level
-        preconditioner falls back to block-Jacobi alone when its solve is
-        not accepted. Returns (x, iterations, accepted)."""
+        """Chunked PCG on the masked f32 tangent system; a preconditioner with
+        a coarse correction falls back to block-Jacobi alone when its solve
+        is not accepted. Returns (x, iterations, accepted)."""
         opts = self.options
 
         def matvec(v):

@@ -98,7 +98,7 @@ def test_matfree_pieces_match_reference(ref_cls, cls, et):
 
     ref_kv = ref_apply_tangent(ref_state, jnp.asarray(v), ref_mesh.conn, ref_geom, ref_mat,
                                ref_scatter)
-    _close(apply_tangent(state, vt, mesh.conn, geom, scatter), ref_kv)
+    _close(apply_tangent(state, vt, mesh.conn, geom, mat, scatter), ref_kv)
     ref_diag = ref_element_diag_blocks(jnp.asarray(u)[ref_mesh.conn], ref_geom, ref_mat)
     _close(element_diag_blocks(ut[mesh.conn], geom, mat), ref_diag)
 

@@ -17,6 +17,7 @@ import jax.numpy as jnp
 
 from fea_large_tpu.bc import DirichletBuilder as RefDirichletBuilder
 from fea_large_tpu.elements.reference import get_element as ref_get_element
+from fea_large_tpu.materials.base import MATERIAL_REGISTRY as REF_REGISTRY
 from fea_large_tpu.materials.base import lame_from_E_nu as ref_lame
 from fea_large_tpu.materials.base import make_material as ref_make_material
 from fea_large_tpu.materials.neo_hookean import NeoHookean as RefNH
@@ -124,7 +125,8 @@ def test_material_stress_and_factors_match_reference(ref_cls, port_cls):
 
 
 def test_material_registry_matches_reference():
-    for name in ("svk", "st_venant_kirchhoff", "neo_hookean", "nh", "neo_hookean_vol", "a1"):
+    for name in ("svk", "st_venant_kirchhoff", "neo_hookean", "nh", "neo_hookean_vol", "a1",
+                 "mooney_rivlin", "mr"):
         ref = ref_make_material(name, lam=1.0, mu=0.5)
         port = make_material(name, lam=1.0, mu=0.5)
         assert type(port).__name__ == type(ref).__name__
@@ -133,7 +135,12 @@ def test_material_registry_matches_reference():
     assert make_material("svk", E=2.0, nu=0.3) == StVenantKirchhoff(*lame_from_E_nu(2.0, 0.3))
     assert lame_from_E_nu(2.0, 0.3) == tuple(float(x) for x in ref_lame(2.0, 0.3))
     assert {StVenantKirchhoff.kind, NeoHookean.kind, NeoHookeanVolumetric.kind} == {0, 1, 2}
-    assert set(MATERIAL_REGISTRY.values()) == {StVenantKirchhoff, NeoHookean, NeoHookeanVolumetric}
+    # every name and alias of the reference's registry, to the same class;
+    # the three with a kernel code are the closed-form materials
+    assert sorted(MATERIAL_REGISTRY) == sorted(REF_REGISTRY)
+    assert all(MATERIAL_REGISTRY[k].__name__ == REF_REGISTRY[k].__name__ for k in REF_REGISTRY)
+    assert {c for c in MATERIAL_REGISTRY.values() if c.kind >= 0} == {
+        StVenantKirchhoff, NeoHookean, NeoHookeanVolumetric}
 
 
 def test_dirichlet_matches_reference():

@@ -162,10 +162,7 @@ def test_pallas_option_changes_nothing():
     assert ok0 and ok1 and torch.equal(u0, u1) and rec0.pcg_iters == rec1.pcg_iters
 
 
-@pytest.mark.parametrize("bad", [
-    dict(device_loop=True), dict(precision="f32"), dict(preconditioner="three_level"),
-    dict(coarse_modes=12),
-])
+@pytest.mark.parametrize("bad", [dict(device_loop=True), dict(precision="f32")])
 def test_newton_solver_rejects_unported_options(case, bad):
     with pytest.raises(NotImplementedError):
         NewtonSolver(case.mesh, NeoHookean(1.0, 0.6), case.bc, options=SolverOptions(**{**BENCH, **bad}))
@@ -178,9 +175,7 @@ def test_newton_solver_rejects_unported_options(case, bad):
 def test_newton_solver_rejects_what_the_reference_rejects(case, bad):
     """ValueError where the reference raises one: the mixed path with the
     assembled BCSR system or the dense solve, an unknown linear solver,
-    pallas=True on the f64 path, and coarse modes other than 3, 6 or 12
-    (12 is a value of the reference that the port lacks:
-    NotImplementedError, above)."""
+    pallas=True on the f64 path, and coarse modes other than 3, 6 or 12."""
     with pytest.raises(ValueError):
         NewtonSolver(case.mesh, NeoHookean(1.0, 0.6), case.bc, options=SolverOptions(**{**BENCH, **bad}))
     with pytest.raises(ValueError):
