@@ -1,13 +1,13 @@
 """Smoke run of the PyTorch + CUDA port (fea_large_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py [--against CHECKOUT ...] [--lattice-only]
+    python3 chip_smoke.py [--against CHECKOUT ...] [--lattice-only] [--sharded-only]
 
 Drives the port's four paths through a Newton solve of bench.py's problem
 (neo-Hookean (1.0, 0.6), zmin fixed, zmax pushed -0.05 in z, 5% affine
 start, EW forcing with eta_min 1e-2, newton_rtol 1e-6) at full width, the
 dense direct path, the task-file entry point, the three-level and 12-mode
 preconditioners, the host coarse builders, an autodiff material on the
-f64 paths and the examples, and checks them:
+f64 paths, the examples and the sharded paths, and checks them:
 
   * the Kuhn path, bench.py's default (mixed precision, two-level PCG with
     6 coarse modes, device_loop=False): TET10 Kuhn lattice n=35, 1,073,733
@@ -119,12 +119,35 @@ Phases:
      host CPU recheck; (e) the three examples through `python -m
      fea_large_tpu_torch.examples.<name>`, each exiting 0 with OK. No
      coarse inverse of phases 3, 4 and 8 may take the host fallback;
-  9. a JSON line of the kernels (with each kernel's launches on phase 8's
-     paths), then the result line.
+  9. the sharded paths (fea_large_tpu_torch/dist/), one process per shard,
+     the ranks sharing the card over gloo (CUDA tensors staged through the
+     host): first B1-B3 on rank 0's local Kuhn box (9 x 36 x 36 cells) and
+     B6-B7 on a rank's padded element tables of (b), built as the ranks
+     build them, against their plain versions at the phase-2 bounds; then
+     (a) bench.py's problem on a Kuhn TET10 box n=36 (1,167,051 DOF;
+     36 cells divide by 4) on 4 ranks, the structured solver (B1-B3 on
+     every rank), and (b) on the 5-tet TET10 box n=36 (1,027,083 DOF,
+     aggregates of 100 nodes) on 4 ranks, the generic solver (B6-B7): each
+     against the single-device solve on the card (the same Newton count, u
+     within 1e-7 of max |u|, the PCG lists side by side), two sharded
+     solves bitwise equal, setup, s/step, the collectives' host seconds,
+     peak memory per rank, and every kernel of the path launched (counts
+     summed over the ranks); (c) both solvers in f64 on a Kuhn box n=12 on
+     2 ranks, u within 1e-10 of the single-device f64 solve; (d) the two
+     8-shard task files on 8 ranks (the reference's Newton counts, measured
+     on CPU), the distributed example through `python -m`,
+     `dist.dryrun.dryrun_multichip(2)`, and `python -m fea_large_tpu_torch
+     run` of an 8-shard task, which exits 2 on fewer than 8 cards; (e)
+     where there are 4 cards, (a) again with one NCCL rank per card,
+     bitwise equal to (a)'s gloo run;
+  10. a JSON line of the kernels (with each kernel's launches on phase 8's
+     paths and, summed over the ranks, on phase 9's), then the result line.
 
 `--lattice-only` runs phases 0-2 and the lattice kernels' part of phase 6
 (with `--against`) and stops: a short call that checks and times a change
-to csrc/struct_kernels.cu. It prints no result line.
+to csrc/struct_kernels.cu. It prints no result line. `--sharded-only` runs
+phases 0, 1 and 9 and stops, with no result line (on a machine with 4
+cards, 9e included).
 
 Phases 7 and 8 run after phase 6, once the solvers of phases 3-5 are
 released, so that their peak memory is their own.
@@ -270,6 +293,26 @@ MR = MooneyRivlin(1.0, 0.6)
 MR_MATFREE_N = 12
 #: phase 8e: the example counterparts, run as `python -m`
 EXAMPLES = ("uniaxial_tension", "beam_bending", "block_compression")
+
+#: phase 9: the sharded paths (dist/), ranks sharing the card over gloo:
+#: (cells per axis, DOF) of the structured (a) and generic (b) runs on 4
+#: ranks, and of the f64 runs (c) on 2 ranks
+SHARDED = {"kuhn": (36, 1_167_051), "5tet": (36, 1_027_083), "f64": (12, 46_875)}
+SHARDED_RANKS = 4
+#: u against the single-device solve, relative to max |u|: the reference's
+#: bounds for the mixed (tests/test_dist.py:183) and the f64 sharded solves
+SHARDED_MIXED_BOUND = 1e-7
+SHARDED_F64_BOUND = 1e-10
+SHARDED_F64 = dict(linear="pcg", precision="f64", forcing="ew", pcg_tol=1e-13)
+#: the JAX reference's `run` of the 8-shard task files (FEA_PLATFORM=cpu, 8
+#: virtual CPU devices), measured on CPU: per increment (Newton count, PCG)
+REFERENCE_SHARDED_TASKS = {
+    "distributed_compression.json": [(5, [1, 4, 13, 30, 149]), (5, [1, 4, 13, 30, 153])],
+    "distributed_compression_kuhn.json": [(5, [1, 3, 12, 24, 35]), (5, [1, 3, 11, 27, 39])],
+}
+#: the sharded paths' kernels (B1-B3 on a lattice, B6-B7 on a 5-tet box)
+SHARDED_KERNELS = {"kuhn": ("struct_freeze", "struct_apply", "struct_diag"),
+                   "5tet": ("elem_apply", "elem_freeze")}
 
 #: cells per axis of the phase-2 checks, and (cells per axis, DOF) of the
 #: full-width solves
@@ -435,9 +478,16 @@ def element_inputs(mesh):
     """f32 and f64 problems of a 5-tet box and the element kernels' inputs."""
     p = soa.SoAProblem.build(mesh, torch.float32)
     p64 = soa.SoAProblem.build(mesh, torch.float64, share_maps_from=p)
+    return element_inputs_of(p, p64, mesh.coords_host)
+
+
+def element_inputs_of(p, p64, coords_host):
+    """The element kernels' inputs on the f32 and f64 SoA problems p, p64
+    whose nodes lie at `coords_host`."""
+    device = p.gradN.device
     q, npe, _, E = p.gradN.shape
-    u, v = smooth_fields(mesh.coords_host, mesh.device)
-    u64, _ = smooth_fields(mesh.coords_host, mesh.device, torch.float64)
+    u, v = smooth_fields(coords_host, device)
+    u64, _ = smooth_fields(coords_host, device, torch.float64)
     ue, ve = ek._gather_flat(p, u), ek._gather_flat(p, v)
     gradN = p.gradN.view(q * npe * 3, E)
     rows = ek.elem_freeze_plain(ue, gradN, NeoHookean(1.0, 0.6), npe=npe, q=q)
@@ -1564,6 +1614,330 @@ def phase_more(device, card, kuhn_pcg):
     return launches
 
 
+def group_seconds(run, wall):
+    """A process group's timeline, the slowest rank's: seconds from the
+    spawn to its start (interpreter, imports, arguments), to the group's
+    rendezvous, to the end of its work, and the group's wall."""
+    last = {k: max(r[k] for r in run.seconds) for k in ("start", "joined", "done")}
+    return (f"started {last['start']:.1f} s, joined {last['joined']:.1f} s, done "
+            f"{last['done']:.1f} s after the spawn, wall {wall:.1f} s")
+
+
+def sharded_launches(counts, names):
+    """Launches of the kernels `names` in a rank's counts (or their sum over
+    the ranks, `ShardedRun.total_launches`): {"struct": ..., "elem": ...}."""
+    mod = {"struct_": "struct", "elem_": "elem", "bcsr_": "bcsr"}
+    return {name: counts[next(v for k, v in mod.items() if name.startswith(k))][KERNELS[name][1]]
+            for name in names}
+
+
+def single_increment(label, mesh, bc, opts, u0):
+    """The single-device solve of one increment from u0 on the card:
+    (u on the host, record, setup s, solve s)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    solver = NewtonSolver(mesh, NeoHookean(1.0, 0.6), bc, options=SolverOptions(**opts))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    u, ok, rec = solver._newton(u0, 1.0)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    check(ok, f"{label}: the single-device solve converged")
+    print(f"  {label} single device: setup {t1 - t0:.2f} s, solve {t2 - t1:.3f} s, newton "
+          f"{rec.newton_iters}, pcg {rec.pcg_iters}")
+    return u.cpu().numpy(), rec, t1 - t0, t2 - t1
+
+
+def sharded_job(label, build, opts, device):
+    """(9a, 9b) bench.py's problem at full width: the single-device solve
+    of one increment from the 5% affine start on the card, and the rank
+    job of the same solve, twice (the second with the collectives' host
+    time). Returns (job, single-device (u, record, setup s, solve s))."""
+    from fea_large_tpu_torch.dist.launch import Problem, solve_rank
+
+    n, n_dof = SHARDED[label]
+    mesh_cpu = build(n, n, n, element_type="tet10", device="cpu")
+    check(mesh_cpu.n_dof == n_dof, f"9 {label} is {n_dof} DOF, got {mesh_cpu.n_dof}")
+    bc_cpu = bench_bc(mesh_cpu)
+    u0 = bench_start(mesh_cpu, bc_cpu).numpy()
+    mesh = build(n, n, n, element_type="tet10", device=device)
+    single = single_increment(label, mesh, bench_bc(mesh), opts,
+                              torch.as_tensor(u0, device=device))
+    del mesh
+    torch.cuda.empty_cache()
+    job = (solve_rank, dict(problem=Problem.of(mesh_cpu, NeoHookean(1.0, 0.6), bc_cpu),
+                            options=SolverOptions(**opts), u0=u0, increment=1.0, solves=2,
+                            profile=True))
+    return job, single
+
+
+def sharded_check(label, out, run, single, card):
+    """(9a, 9b) the sharded solves against the single-device one: the same
+    Newton count, u within SHARDED_MIXED_BOUND, the PCG lists side by side,
+    two sharded solves bitwise equal with identical records, and every
+    kernel of the path launched (counts summed over the ranks). Returns
+    (launches, u)."""
+    u_single, rec1, setup1, solve1 = single
+    a, b = out["runs"]
+    rec = a["history"][0]
+    print(f"  {label} sharded: {out['kind']}, setup {out['setup_s']:.2f} s (rank 0), coarse "
+          f"{out['n_agg']} aggregates")
+    for i, r in enumerate((a, b)):
+        h = r["history"][0]
+        print(f"  {label} sharded solve {i}: {r['solve_s']:.3f} s, newton {h['newton_iters']}, "
+              f"pcg {h['pcg_iters']} (total {sum(h['pcg_iters'])}), "
+              f"{r['solve_s'] / max(h['newton_iters'], 1):.5f} s/step, |R| "
+              f"{h['residual_norms'][0]:.6e} -> {h['residual_norms'][-1]:.6e}")
+    print(f"  PCG side by side: single device {rec1.pcg_iters}, sharded {rec['pcg_iters']}")
+    check(a["converged"] and b["converged"], f"9 {label}: the sharded solves converged")
+    check(np.array_equal(a["u"], b["u"]), f"9 {label}: two sharded solves bitwise equal")
+    strip = [[{k: v for k, v in h.items() if k != "wall_time"} for h in r["history"]]
+             for r in (a, b)]
+    check(strip[0] == strip[1], f"9 {label}: two sharded solves give identical records")
+    check(rec["newton_iters"] == rec1.newton_iters, f"9 {label}: the single-device Newton count")
+    err = float(np.abs(a["u"] - u_single).max() / np.abs(u_single).max())
+    print(f"  u against the single-device solve: max |du| / max |u| {err:.3e} "
+          f"(bound {SHARDED_MIXED_BOUND})")
+    check(np.isfinite(a["u"]).all() and a["u"].shape == u_single.shape, "finite u [N, 3]")
+    check(err <= SHARDED_MIXED_BOUND, f"9 {label}: u within the mixed bound")
+    coll = b["collective_s"]
+    calls = b["collective_calls"]
+    iters = max(sum(rec["pcg_iters"]), 1)
+    print(f"  collectives of solve 1 (rank 0, host s after a device sync): hops {calls['hop']} "
+          f"in {coll['hop']:.3f} s, sums {calls['sum']} in {coll['sum']:.3f} s; per PCG "
+          f"iteration {(coll['hop'] + coll['sum']) / iters * 1e3:.3f} ms of "
+          f"{b['solve_s'] / iters * 1e3:.3f} ms")
+    launches = sharded_launches(run.total_launches(), SHARDED_KERNELS[label])
+    per_rank = [sharded_launches(r, SHARDED_KERNELS[label]) for r in run.launches]
+    print(f"  kernel launches, summed over the ranks: {launches}; per rank {per_rank}")
+    print(f"  peak device memory of rank 0: {out['peak_bytes']} B; memory report (rank 0): "
+          f"{json.dumps(out['memory'])}")
+    check(all(v > 0 for v in launches.values()), f"9 {label}: every kernel of the path launched")
+    summary = {
+        "path": f"sharded {label}", "n_dof": SHARDED[label][1], "ranks": SHARDED_RANKS,
+        "backend": run.backend, "newton_iters": rec["newton_iters"], "pcg_iters": rec["pcg_iters"],
+        "single_device_pcg_iters": rec1.pcg_iters, "u_err": err,
+        "s_per_step": [r["solve_s"] / r["history"][0]["newton_iters"] for r in (a, b)],
+        "solve_s": [a["solve_s"], b["solve_s"]], "setup_s": out["setup_s"],
+        "single_device": {"setup_s": setup1, "solve_s": solve1,
+                          "s_per_step": solve1 / rec1.newton_iters},
+        "collective_s": coll, "collective_calls": calls, "peak_bytes_rank0": out["peak_bytes"],
+        "peak_bytes_per_rank_9ab": run.peak_bytes, "launches": launches,
+        "launches_per_rank": per_rank, "card": card,
+    }
+    print("slice: " + json.dumps(summary))
+    return launches, a["u"]
+
+
+def sharded_kernel_checks(device):
+    """(9a, 9b) the path's kernels at the shapes the sharded paths give
+    them, against their plain versions at the phase-2 bounds: B1-B3 on
+    rank 0's local Kuhn box (its class grids are not cubic) and B6-B7 on
+    the padded element tables of the rank with the most padding, built as
+    the ranks build them."""
+    from fea_large_tpu_torch.dist.partition import partition_mesh
+    from fea_large_tpu_torch.dist.sharded import shard_soa
+    from fea_large_tpu_torch.dist.structured import structured_partition
+    from fea_large_tpu_torch.dist.structured_solver import local_box
+
+    nh = (NeoHookean(1.0, 0.6),)
+    n, _ = SHARDED["kuhn"]
+    mesh = box_mesh_kuhn(n, n, n, element_type="tet10", device="cpu")
+    local = local_box(mesh, structured_partition(mesh.structure, SHARDED_RANKS), device)
+    x = lattice_inputs(local)
+    print(f"  9a rank 0's local box: {local.structure.cells} cells, C = {x['tb'].C}")
+    calls = {k: c for k, c in lattice_calls(x, nh).items()
+             if k.startswith(SHARDED_KERNELS["kuhn"])}
+    errs = run_checks(calls)
+    report_checks("9a shard", errs)
+    n, _ = SHARDED["5tet"]
+    mesh = box_mesh(n, n, n, element_type="tet10", device="cpu")
+    part = partition_mesh(mesh, SHARDED_RANKS, method="slab")
+    real = (part.elem_global >= 0).sum(axis=1)
+    r = int(np.argmin(real))  # the rank with the most padded elements
+    tables = shard_soa(mesh, part, r, device, mixed=True)
+    x = element_inputs_of(tables.p32, tables.p64,
+                          part.from_global(mesh.coords_host, space="local")[r])
+    print(f"  9b rank {r}'s element tables: E = {x['E']} ({real[r]} real), {part.n_owned} owned "
+          f"+ {part.n_halo} halo node slots")
+    calls = {k: c for k, c in element_calls(x, nh).items()
+             if k.startswith(SHARDED_KERNELS["5tet"])}
+    errs5 = run_checks(calls)
+    report_checks("9b shard", errs5)
+    return {name: err for name, (err, _) in {**errs, **errs5}.items()}
+
+
+def sharded_f64(device, card):
+    """(9c) the structured and the generic path in f64 on a Kuhn box n=12,
+    2 gloo ranks sharing the card, one increment from the 5% affine start,
+    against the single-device f64 (matrix-free) solve: u within
+    SHARDED_F64_BOUND, the same Newton count."""
+    from fea_large_tpu_torch.dist.launch import Problem, run_jobs, run_sharded, solve_rank
+
+    n, n_dof = SHARDED["f64"]
+    mesh_cpu = box_mesh_kuhn(n, n, n, element_type="tet10", device="cpu")
+    check(mesh_cpu.n_dof == n_dof, f"9c is {n_dof} DOF")
+    bc_cpu = bench_bc(mesh_cpu)
+    u0 = bench_start(mesh_cpu, bc_cpu).numpy()
+    mesh = box_mesh_kuhn(n, n, n, element_type="tet10", device=device)
+    u_single, rec1, _, _ = single_increment("9c f64", mesh, bench_bc(mesh), SHARDED_F64,
+                                            torch.as_tensor(u0, device=device))
+    problem = Problem.of(mesh_cpu, NeoHookean(1.0, 0.6), bc_cpu)
+    import dataclasses
+
+    jobs = [(solve_rank, dict(problem=p, options=SolverOptions(**SHARDED_F64), u0=u0,
+                              increment=1.0))
+            for p in (problem, dataclasses.replace(problem, structure=None))]
+    t0 = time.perf_counter()
+    run = run_sharded(run_jobs, [str(device)] * 2, jobs)
+    print(f"  9c: 2 ranks ({run.backend}), both paths: "
+          f"{group_seconds(run, time.perf_counter() - t0)}")
+    out = {}
+    for res, kind in zip(run.result, ("StructuredShardedSolver", "ShardedNewtonSolver")):
+        check(res["kind"] == kind, f"9c runs {kind}")
+        r = res["runs"][0]
+        h = r["history"][0]
+        err = float(np.abs(r["u"] - u_single).max() / np.abs(u_single).max())
+        print(f"  9c {kind}: newton {h['newton_iters']} (single device {rec1.newton_iters}), "
+              f"pcg {h['pcg_iters']}, solve {r['solve_s']:.3f} s, u against the single-device "
+              f"f64 solve {err:.3e} (bound {SHARDED_F64_BOUND})")
+        check(r["converged"] and h["newton_iters"] == rec1.newton_iters,
+              f"9c {kind}: converged in the single-device Newton count")
+        check(err <= SHARDED_F64_BOUND, f"9c {kind}: u within the f64 bound")
+        out[kind] = {"newton_iters": h["newton_iters"], "pcg_iters": h["pcg_iters"],
+                     "u_err": err, "solve_s": r["solve_s"]}
+    return out
+
+
+def sharded_tasks_and_tools(device, card):
+    """(9d) the two 8-shard task files as 8 gloo ranks on the card through
+    the library (the reference's Newton counts), the distributed example,
+    `dryrun_multichip(2)`, and `python -m fea_large_tpu_torch run` of an
+    8-shard task on this machine, which must exit 2 where it has fewer
+    than 8 cards."""
+    from fea_large_tpu_torch.dist.dryrun import dryrun_multichip
+    from fea_large_tpu_torch.dist.launch import Problem, run_jobs, run_sharded, solve_rank
+
+    jobs = []
+    for name in REFERENCE_SHARDED_TASKS:
+        task = load_task(REPO / "tasks" / name, device="cpu")
+        check(task.partition.n_shards == 8, f"{name} asks for 8 shards")
+        jobs.append((solve_rank, dict(
+            problem=Problem.of(task.mesh, task.material, task.build_bc(), task.build_forces()),
+            options=task.solver, partition_method=task.partition.method)))
+    t0 = time.perf_counter()
+    run = run_sharded(run_jobs, [str(device)] * 8, jobs)
+    print(f"  9d: the two task files on 8 ranks ({run.backend}): "
+          f"{group_seconds(run, time.perf_counter() - t0)}")
+    for (name, ref), res in zip(REFERENCE_SHARDED_TASKS.items(), run.result):
+        r = res["runs"][0]
+        got = [(h["newton_iters"], h["pcg_iters"]) for h in r["history"]]
+        print(f"  {name}: {res['kind']}, setup {res['setup_s']:.2f} s, converged "
+              f"{r['converged']}, {r['solve_s']:.2f} s, "
+              f"(newton, pcg) per increment {got}; reference {ref}")
+        check(r["converged"] and [g[0] for g in got] == [x[0] for x in ref],
+              f"9d {name}: the reference's Newton counts")
+    check(run.result[1]["kind"] == "StructuredShardedSolver"
+          and run.result[0]["kind"] == "ShardedNewtonSolver", "9d: the factory's routes")
+    # the example and the 8-shard `run` in their own processes, beside the
+    # dry run
+    env = {k: v for k, v in os.environ.items() if k != "FEA_PLATFORM"}
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool, tempfile.TemporaryDirectory() as tmp:
+        example = pool.submit(
+            subprocess.run, [sys.executable, "-m",
+                             "fea_large_tpu_torch.examples.distributed_compression"],
+            cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+        cli = pool.submit(module_cli, "run", "tasks/distributed_compression_kuhn.json", "--out",
+                          tmp)
+        dryrun_multichip(2, devices=[str(device)] * 2)
+        print(f"  dryrun_multichip(2) on one card: {time.perf_counter() - t0:.1f} s")
+        proc, cli = example.result(), cli.result()
+    print(f"  the example and the 8-shard run beside it: {time.perf_counter() - t0:.1f} s")
+    check(proc.returncode == 0,
+          f"the distributed example: exit {proc.returncode}\n{proc.stderr[-3000:]}")
+    lines = proc.stdout.strip().splitlines()
+    print("  example distributed_compression: " + " | ".join(lines[1:2] + lines[-2:]))
+    check(lines[-1] == "OK", "the distributed example printed OK")
+    if torch.cuda.device_count() < 8:
+        msg = "ERROR: task requests 8 shards but only"
+        print(f"  run tasks/distributed_compression_kuhn.json on {torch.cuda.device_count()} "
+              f"card(s): exit {cli.returncode}: {cli.stdout.strip().splitlines()[-1]}")
+        check(cli.returncode == 2 and msg in cli.stdout,
+              "an 8-shard task on fewer cards exits 2 with the reference's message")
+    else:
+        check(cli.returncode == 0, "an 8-shard task on 8 cards runs")
+    return sharded_launches(run.total_launches(), SHARDED_KERNELS["kuhn"] + SHARDED_KERNELS["5tet"])
+
+
+def sharded_nccl(card, gloo_u):
+    """(9e) 9a again with one rank per card over NCCL, bitwise equal to the
+    gloo run (its sums are in the same fixed order), where there are
+    SHARDED_RANKS cards."""
+    from fea_large_tpu_torch.dist.launch import Problem, run_sharded, solve_rank
+
+    cards = torch.cuda.device_count()
+    if cards < SHARDED_RANKS:
+        print(f"  9e: NCCL not run: {cards} card(s), {SHARDED_RANKS} needed")
+        return None
+    n, _ = SHARDED["kuhn"]
+    mesh_cpu = box_mesh_kuhn(n, n, n, element_type="tet10", device="cpu")
+    bc_cpu = bench_bc(mesh_cpu)
+    u0 = bench_start(mesh_cpu, bc_cpu).numpy()
+    run = run_sharded(solve_rank, [f"cuda:{i}" for i in range(SHARDED_RANKS)],
+                      Problem.of(mesh_cpu, NeoHookean(1.0, 0.6), bc_cpu), SolverOptions(**KUHN),
+                      "slab", u0, 1.0, 2, True)
+    out = run.result
+    a, b = out["runs"]
+    h = a["history"][0]
+    diff = float(np.abs(a["u"] - gloo_u).max())
+    print(f"  9e: {SHARDED_RANKS} ranks ({run.backend}), one per card: setup {out['setup_s']:.2f} "
+          f"s, newton {h['newton_iters']}, pcg {h['pcg_iters']}, solves {a['solve_s']:.3f} s and "
+          f"{b['solve_s']:.3f} s ({b['solve_s'] / h['newton_iters']:.5f} s/step), collectives "
+          f"{b['collective_calls']} in {b['collective_s']}; peak per rank {run.peak_bytes} B; "
+          f"max |u - u(gloo)| {diff:.3e}")
+    check(run.backend == "nccl", "9e runs on NCCL")
+    check(np.array_equal(a["u"], gloo_u) and np.array_equal(a["u"], b["u"]),
+          "9e: NCCL bitwise equal to the gloo run")
+    return {"backend": run.backend, "setup_s": out["setup_s"],
+            "solve_s": [a["solve_s"], b["solve_s"]], "pcg_iters": h["pcg_iters"],
+            "collective_s": b["collective_s"], "collective_calls": b["collective_calls"],
+            "peak_bytes": run.peak_bytes}
+
+
+def phase_sharded(device, card):
+    """Phase 9: the sharded paths (dist/) on one card: ranks share it over
+    gloo; where there are 4 cards, (a) again over NCCL."""
+    print(f"== phase 9: sharded paths, ranks sharing one card over gloo ({card})")
+    t0 = time.perf_counter()
+    from fea_large_tpu_torch.dist.launch import run_jobs, run_sharded
+
+    shard_errs = sharded_kernel_checks(device)
+    print(f"phase 9 kernel checks at the shards' shapes: {time.perf_counter() - t0:.1f} s")
+    jobs = [sharded_job("kuhn", box_mesh_kuhn, KUHN, device),
+            sharded_job("5tet", box_mesh, FIVE_TET, device)]
+    print(f"phase 9a, 9b single-device solves: {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    run = run_sharded(run_jobs, [str(device)] * SHARDED_RANKS, [job for job, _ in jobs])
+    print(f"  9a, 9b: {SHARDED_RANKS} ranks ({run.backend}) on one card, spawn, setup and 2 "
+          f"solves of each: {group_seconds(run, time.perf_counter() - t1)}; peak device memory "
+          f"per rank over both: {run.peak_bytes} B")
+    launches = {}
+    launches["9a"], u_gloo = sharded_check("kuhn", run.result[0], run, jobs[0][1], card)
+    launches["9b"], _ = sharded_check("5tet", run.result[1], run, jobs[1][1], card)
+    del jobs
+    print(f"phase 9b: {time.perf_counter() - t0:.1f} s")
+    f64 = sharded_f64(device, card)
+    print(f"phase 9c: {time.perf_counter() - t0:.1f} s")
+    launches["9d"] = sharded_tasks_and_tools(device, card)
+    print(f"phase 9d: {time.perf_counter() - t0:.1f} s")
+    nccl = sharded_nccl(card, u_gloo)
+    print("slice: " + json.dumps({"path": "sharded f64 and NCCL", "f64": f64, "nccl": nccl,
+                                  "shard_kernel_abs_err": shard_errs, "card": card}))
+    print(f"phase 9: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 #: run from the root of another checkout: its lattice kernels, queued, on
 #: its own inputs at full width and on the next lattice (C a multiple of 8)
 AGAINST = """
@@ -1706,12 +2080,18 @@ def main():
                              "times, queued, in turns with this one's")
     parser.add_argument("--lattice-only", action="store_true",
                         help="phases 0-2 and the lattice kernels' timings only; no result line")
+    parser.add_argument("--sharded-only", action="store_true",
+                        help="phases 0, 1 and 9 (the sharded paths) only; no result line")
     args = parser.parse_args()
     t0 = time.perf_counter()
     card = phase_card()
     device = torch.device("cuda", 0)
     phase_build()
     print(f"phase 1 done at {time.perf_counter() - t0:.1f} s")
+    if args.sharded_only:
+        phase_sharded(device, card)
+        print(f"total: {time.perf_counter() - t0:.1f} s (sharded only: no result line)")
+        return
     phase_kernel_checks(device)
     if args.lattice_only:
         n = FULL["kuhn"][0]
@@ -1730,6 +2110,7 @@ def main():
     torch.cuda.empty_cache()
     phase_f64_cli(device, card)
     more = phase_more(device, card, kuhn_pcg)
+    sharded = phase_sharded(device, card)
     kernels = []
     for name, (_, _, source, replaces) in KERNELS.items():
         t = table[name]
@@ -1740,6 +2121,7 @@ def main():
             "library_ms": t.get("library_ms"), "device_ms": t["device_ms"],
             **({"library_ms_f32": t["library_ms_f32"]} if "library_ms_f32" in t else {}),
             "launches_phase8": {p: c[name] for p, c in more.items() if name in c},
+            "launches_sharded": {p: c[name] for p, c in sharded.items() if name in c},
         })
     print(f"total: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -116,9 +116,9 @@ class OutputSpec:
 
 @dataclasses.dataclass(frozen=True)
 class PartitionSpec:
-    """Domain decomposition request: n_shards devices along a 1-D mesh,
-    partitioned by `method` ("slab" or "rcb"). Parsed as in the reference;
-    the port's solvers are single-device (the CLI raises on n_shards > 1)."""
+    """Domain decomposition request: n_shards shards along a 1-D ring,
+    partitioned by `method` ("slab" or "rcb"): one process per shard
+    (dist/, the CLI's sharded route)."""
 
     n_shards: int = 1
     method: str = "slab"
@@ -210,6 +210,12 @@ def _build_mesh(spec: dict, element_type: str, base: pathlib.Path, device) -> Me
     return mesh
 
 
+def _partition(data: dict) -> PartitionSpec:
+    part = data.get("partition", {})
+    return PartitionSpec(n_shards=int(part.get("n_shards", 1)),
+                         method=str(part.get("method", "slab")))
+
+
 def _parse(data: dict, base: pathlib.Path, name: str, device) -> Task:
     element_type = data.get("element_type", "tet4")
     mesh = _build_mesh(data["mesh"], element_type, base, device)
@@ -272,11 +278,7 @@ def _parse(data: dict, base: pathlib.Path, name: str, device) -> Task:
         npz=bool(out.get("npz", True)),
         msh=bool(out.get("msh", False)),
     )
-    part = data.get("partition", {})
-    partition = PartitionSpec(
-        n_shards=int(part.get("n_shards", 1)),
-        method=str(part.get("method", "slab")),
-    )
+    partition = _partition(data)
     return Task(
         mesh=mesh,
         material=material,
@@ -288,19 +290,26 @@ def _parse(data: dict, base: pathlib.Path, name: str, device) -> Task:
     )
 
 
+def _read(path: pathlib.Path) -> dict:
+    if path.suffix == ".toml":
+        import tomllib
+
+        return tomllib.loads(path.read_text())
+    if path.suffix in (".sexp", ".task", ".lisp"):
+        from fea_large_tpu_torch.io.sexp import load_sexp_task_dict
+
+        return load_sexp_task_dict(path)
+    return json.loads(path.read_text())
+
+
 def load_task(path, device="cuda") -> Task:
     """Load a task from a .json, .toml, or .sexp/.task file (S-expressions:
     io.sexp), with its mesh on `device` (the card by default; raises
     where CUDA is absent, with no fallback to the CPU)."""
     path = pathlib.Path(path)
-    if path.suffix == ".toml":
-        import tomllib
+    return _parse(_read(path), path.parent, name=path.stem, device=device)
 
-        data = tomllib.loads(path.read_text())
-    elif path.suffix in (".sexp", ".task", ".lisp"):
-        from fea_large_tpu_torch.io.sexp import load_sexp_task_dict
 
-        data = load_sexp_task_dict(path)
-    else:
-        data = json.loads(path.read_text())
-    return _parse(data, path.parent, name=path.stem, device=device)
+def task_partition(path) -> PartitionSpec:
+    """A task file's partition request, read without building its mesh."""
+    return _partition(_read(pathlib.Path(path)))

@@ -66,9 +66,11 @@ class ScatterBuckets:
         return caps or [1]
 
     @staticmethod
-    def host_build(flat: np.ndarray, n_nodes: int, caps: list):
+    def host_build(flat: np.ndarray, n_nodes: int, caps: list, nb_min: list | None = None):
         """(idx list, mask list, inv) in numpy, one entry per cap (possibly
-        0-row); the reference's host build."""
+        0-row); the reference's host build. `nb_min[b]` pads bucket b with
+        dummy rows (idx 0, mask 0) up to that many, so that per-shard
+        buckets stack on a shard axis (`build_stacked`)."""
         counts = np.bincount(flat, minlength=n_nodes)
         order = np.argsort(flat, kind="stable").astype(np.int64)
         starts = np.zeros(n_nodes + 1, np.int64)
@@ -83,10 +85,16 @@ class ScatterBuckets:
             c = counts[sel]
             span = np.minimum(np.arange(cap)[None, :], np.maximum(c - 1, 0)[:, None])
             pos = np.minimum(starts[sel][:, None] + span, max(len(order) - 1, 0))
-            idx_t.append(order[pos])
-            mask_t.append((np.arange(cap)[None, :] < c[:, None]).astype(np.float32))
+            idx = order[pos]
+            mask = (np.arange(cap)[None, :] < c[:, None]).astype(np.float32)
             inv[sel] = off + np.arange(len(sel))
-            off += len(sel)
+            if nb_min is not None and len(sel) < nb_min[len(idx_t)]:
+                pad = nb_min[len(idx_t)] - len(sel)
+                idx = np.concatenate([idx, np.zeros((pad, cap), np.int64)])
+                mask = np.concatenate([mask, np.zeros((pad, cap), np.float32)])
+            off += idx.shape[0]
+            idx_t.append(idx)
+            mask_t.append(mask)
         return idx_t, mask_t, inv
 
     @staticmethod
@@ -107,6 +115,45 @@ class ScatterBuckets:
             idx=tuple(torch.as_tensor(idx_t[b], device=device) for b in keep),
             mask=tuple(torch.as_tensor(mask_t[b], device=device) for b in keep),
             inv=torch.as_tensor(inv, device=device),
+        )
+
+    @staticmethod
+    def build_stacked(conn_T_shards: np.ndarray, n_nodes: int, device="cpu") -> "ScatterBuckets":
+        """Buckets of every shard's local connectivity conn_T_shards [S, npe,
+        El] (padded elements included: they sum zero data), with a leading
+        shard axis: idx and mask [S, nb, cap], inv [S, N]. The cap list and
+        the rows per bucket are unified across shards, so that the shards'
+        tables have one shape; `shard(p)` is shard p's ScatterBuckets."""
+        conn_T_shards = np.asarray(conn_T_shards)
+        S = conn_T_shards.shape[0]
+        flats = [conn_T_shards[p].reshape(-1) for p in range(S)]
+        cmax = max(int(np.bincount(f, minlength=n_nodes).max()) for f in flats) if n_nodes else 1
+        caps = ScatterBuckets.caps_for(cmax)
+        nb = [0] * len(caps)
+        for f in flats:
+            counts = np.bincount(f, minlength=n_nodes)
+            lo = -1
+            for bi, cap in enumerate(caps):
+                nb[bi] = max(nb[bi], int(((counts > lo) & (counts <= cap)).sum()))
+                lo = cap
+        keep = [b for b in range(len(caps)) if nb[b] > 0]
+        per = [ScatterBuckets.host_build(f, n_nodes, caps, nb_min=nb) for f in flats]
+        return ScatterBuckets(
+            idx=tuple(torch.as_tensor(np.stack([per[p][0][b] for p in range(S)]), device=device)
+                      for b in keep),
+            mask=tuple(torch.as_tensor(np.stack([per[p][1][b] for p in range(S)]), device=device)
+                       for b in keep),
+            inv=torch.as_tensor(np.stack([per[p][2] for p in range(S)]), device=device),
+        )
+
+    def shard(self, p: int, device=None) -> "ScatterBuckets":
+        """Shard p of stacked buckets (`build_stacked`), on `device` (default:
+        where they are)."""
+        dev = self.inv.device if device is None else device
+        return ScatterBuckets(
+            idx=tuple(x[p].to(dev) for x in self.idx),
+            mask=tuple(x[p].to(dev) for x in self.mask),
+            inv=self.inv[p].to(dev),
         )
 
     def apply(self, d: torch.Tensor) -> torch.Tensor:

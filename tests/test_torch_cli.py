@@ -10,8 +10,10 @@ the I/O, loads and post-processing it runs on).
     same file. (The mixed Kuhn task takes the reference's CPU backend many
     minutes to compile; it runs on the card in chip_smoke.py, against an
     f64 solve of the same file.)
-  * a task with `partition.n_shards > 1` raises NotImplementedError, and
-    without CUDA and without FEA_PLATFORM=cpu the command fails.
+  * a task with `partition.n_shards > 1` on a machine with fewer cards than
+    shards exits 2 with the reference's message (tests/test_torch_dist.py
+    runs such a task on gloo ranks), and without CUDA and without
+    FEA_PLATFORM=cpu the command fails.
 """
 
 import contextlib
@@ -133,9 +135,20 @@ def test_run_task_file_matches_reference_run(name, tmp_path, cpu_platform):
 
 
 @pytest.mark.parametrize("command", ["run", "bench"])
-def test_sharded_task_is_not_ported(command, cpu_platform):
-    with pytest.raises(NotImplementedError, match="A7"):
-        cli.main([command, str(TASKS / "distributed_compression.json")])
+def test_sharded_task_is_not_ported(command, monkeypatch):
+    """An 8-shard task on the card with one card visible: exit 2 and the
+    reference's message, with no fallback to the CPU or to fewer shards."""
+    monkeypatch.delenv("FEA_PLATFORM", raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    rc, text = _run(cli.main, [command, str(TASKS / "distributed_compression.json")])
+    assert rc == 2
+    if command == "run":
+        assert ("[distributed_compression] ERROR: task requests 8 shards but only 1 devices "
+                "are visible") in text
+    else:
+        assert json.loads(text) == {"task": "distributed_compression",
+                                    "error": "needs 8 devices, have 1"}
 
 
 def test_module_entry_point_runs_on_the_card_or_fails(tmp_path):

@@ -1,0 +1,315 @@
+"""PyTorch port: the sharded solvers on gloo ranks on the CPU, one process
+per shard (`dist.launch.run_sharded`), against the JAX reference's sharded
+solvers on the suite's virtual CPU devices and against the port's own
+single-device solver (tests/test_torch_dist_partition.py holds the host and
+per-shard pieces).
+
+Bounds, relative to max |u|: 1e-10 for the f64 solves (the reference
+tests' own), 1e-7 for the mixed two-level solve against the reference's
+sharded mixed solve (tests/test_dist.py's), 1e-12 for one shard against
+the single-device f64 solve. Newton counts are equal; the PCG lists are
+equal on the f64 paths and within one iteration per Newton step on the
+mixed path (f32 sums in another order); the probed coarse matrix is within
+5e-6 of the host Galerkin product's largest entry (tests/test_dist.py's
+bound). Repeated solves are bitwise equal.
+
+The CLI's sharded `run` of tasks/distributed_compression_kuhn.json cut to
+2 shards is held against the reference's `run` of that copy, recorded
+below (the reference's sharded mixed program takes 55-75 s to compile on
+the CPU with a cold compile cache, more than this file's time allows): its
+Newton counts, PCG lists, first residual, and the norm and per-component
+sums of u; and its u against the port's single-device solve of the same
+file (1e-6: the file's newton_rtol is 1e-8).
+"""
+
+import json
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from fea_large_tpu import NeoHookean as RefNH
+from fea_large_tpu import StVenantKirchhoff as RefSVK
+from fea_large_tpu.bc import DirichletBuilder as RefDirichletBuilder
+from fea_large_tpu.dist.sharded import ShardedNewtonSolver as RefSharded
+from fea_large_tpu.dist.structured_solver import StructuredShardedSolver as RefStructured
+from fea_large_tpu.mesh.generators import box_mesh as ref_box_mesh
+from fea_large_tpu.mesh.generators import box_mesh_kuhn as ref_box_mesh_kuhn
+from fea_large_tpu.solvers import multilevel as ref_ml
+from fea_large_tpu.solvers.newton import SolverOptions as RefOptions
+
+from fea_large_tpu_torch import NeoHookean, StVenantKirchhoff, cli
+from fea_large_tpu_torch.bc import DirichletBuilder
+from fea_large_tpu_torch.dist import ShardedNewtonSolver, StructuredShardedSolver
+from fea_large_tpu_torch.dist.launch import Problem, run_jobs, run_sharded, solve_rank, step_rank
+from fea_large_tpu_torch.io import export
+from fea_large_tpu_torch.io.task import load_task
+from fea_large_tpu_torch.mesh.generators import box_mesh, box_mesh_kuhn
+from fea_large_tpu_torch.solvers import multilevel as ml
+from fea_large_tpu_torch.solvers.newton import NewtonSolver, SolverOptions
+
+torch.set_num_threads(2)
+
+TASKS = pathlib.Path(__file__).resolve().parent.parent / "tasks"
+
+F64 = dict(linear="pcg", n_steps=1, pcg_tol=1e-13)
+MIXED = dict(linear="pcg", n_steps=1, precision="mixed", preconditioner="two_level",
+             agg_size=32, forcing="ew", pcg_tol=1e-6, newton_rtol=1e-9, max_newton=60)
+PROBE = dict(linear="pcg", precision="mixed", preconditioner="two_level", agg_size=16)
+MAXITER = dict(linear="pcg", precision="mixed", preconditioner="jacobi", pcg_tol=1e-30,
+               pcg_maxiter=7, pcg_chunk=5)
+
+#: the reference's `run` of tasks/distributed_compression_kuhn.json with
+#: partition.n_shards = 2, written to kuhn2.json: `FEA_PLATFORM=cpu
+#: XLA_FLAGS=--xla_force_host_platform_device_count=8 python -m fea_large_tpu
+#: run kuhn2.json`, with the reference package of commit 63c0e66 (the same
+#: numbers with a cold and a warm compile cache): per increment (load
+#: factor, Newton count, PCG list, first residual) ...
+REFERENCE_KUHN_TASK_2 = [(0.5, 5, [1, 3, 12, 24, 35], 1.858e-01),
+                         (1.0, 5, [1, 3, 11, 27, 40], 1.925e-01)]
+#: ... and of the final u [N, 3] of kuhn2_final.npz: ||u||_2, the sums of
+#: its x, y and z components, and the sums of their absolute values
+REFERENCE_KUHN_TASK_2_U = (4.3346912568004745,
+                           (-276.6597786850352, -0.6566188842854337, -0.6566189894672887),
+                           (276.65977869, 11.43321983, 11.43321984))
+
+
+def _case(name):
+    """(port mesh, material, bc) and the same on the reference."""
+    if name == "tet4":
+        mesh = box_mesh(4, 2, 2, lx=4.0, element_type="tet4", device="cpu")
+        ref = ref_box_mesh(4, 2, 2, lx=4.0, element_type="tet4")
+        mats, comp, val = (StVenantKirchhoff(1.0, 1.0), RefSVK(jnp.asarray(1.0), jnp.asarray(1.0))), "x", 0.2
+    elif name == "kuhn":
+        mesh = box_mesh_kuhn(4, 2, 2, lx=4.0, element_type="tet4", device="cpu")
+        ref = ref_box_mesh_kuhn(4, 2, 2, lx=4.0, element_type="tet4")
+        mats, comp, val = (StVenantKirchhoff(1.0, 1.0), RefSVK(jnp.asarray(1.0), jnp.asarray(1.0))), "x", 0.15
+    elif name == "tet4nh":
+        mesh = box_mesh(4, 2, 2, lx=4.0, element_type="tet4", device="cpu")
+        ref = ref_box_mesh(4, 2, 2, lx=4.0, element_type="tet4")
+        mats, comp, val = (NeoHookean(1.0, 0.6), RefNH(jnp.asarray(1.0), jnp.asarray(0.6))), "x", -0.08
+    else:  # "tet10"
+        mesh = box_mesh(3, 2, 2, lx=3.0, element_type="tet10", device="cpu")
+        ref = ref_box_mesh(3, 2, 2, lx=3.0, element_type="tet10")
+        mats, comp, val = (NeoHookean(1.0, 0.6), RefNH(jnp.asarray(1.0), jnp.asarray(0.6))), "x", -0.08
+    bc = DirichletBuilder(mesh).fix("xmin").prescribe("xmax", comp, val).build()
+    ref_bc = RefDirichletBuilder(ref).fix("xmin").prescribe("xmax", comp, val).build()
+    return (mesh, mats[0], bc), (ref, mats[1], ref_bc)
+
+
+def _unstructured(problem):
+    """The same problem without its lattice structure: the generic path."""
+    import dataclasses
+
+    return dataclasses.replace(problem, structure=None)
+
+
+@pytest.fixture(scope="module")
+def runs():
+    """The port's sharded runs, two process groups: 2 ranks (TET4 box) and
+    4 ranks (Kuhn box on both paths, TET4 box mixed, TET10 box coarse
+    probes)."""
+    tet4 = _case("tet4")[0]
+    p4, pk, pnh, p10 = (Problem.of(*_case(c)[0]) for c in ("tet4", "kuhn", "tet4nh", "tet10"))
+    jobs2 = [
+        (solve_rank, dict(problem=p4, options=SolverOptions(**F64), solves=2)),
+        (step_rank, dict(problem=p4, options=SolverOptions(**MAXITER),
+                         u0=np.zeros((tet4[0].n_nodes, 3)))),
+    ]
+    jobs4 = [
+        (solve_rank, dict(problem=pk, options=SolverOptions(**F64), solves=2)),
+        (solve_rank, dict(problem=_unstructured(pk), options=SolverOptions(**F64))),
+        (solve_rank, dict(problem=pnh, options=SolverOptions(**MIXED), solves=2)),
+        (solve_rank, dict(problem=p10, options=SolverOptions(**PROBE, coarse_modes=3),
+                          solves=0, probe_coarse=True)),
+        (solve_rank, dict(problem=p10, options=SolverOptions(**PROBE, coarse_modes=6),
+                          solves=0, probe_coarse=True)),
+    ]
+    r2 = run_sharded(run_jobs, ["cpu"] * 2, jobs2, threads=1)
+    r4 = run_sharded(run_jobs, ["cpu"] * 4, jobs4, threads=1)
+    assert r2.backend == r4.backend == "gloo"
+    return {"tet4": r2.result[0], "maxiter": r2.result[1], "kuhn": r4.result[0],
+            "kuhn_generic": r4.result[1], "mixed": r4.result[2], "probe3": r4.result[3],
+            "probe6": r4.result[4]}
+
+
+def _single(case, opts):
+    mesh, mat, bc = _case(case)[0]
+    return NewtonSolver(mesh, mat, bc, options=SolverOptions(**opts)).solve()
+
+
+def _ref_sharded(case, cls, opts, n):
+    ref, mat, bc = _case(case)[1]
+    s = cls(ref, mat, bc, options=RefOptions(**opts), devices=jax.devices()[:n])
+    res = s.solve()
+    assert res.converged
+    return s.u_global(res.u), res.history
+
+
+def _close(u, v, bound):
+    scale = np.abs(v).max()
+    assert np.abs(u - v).max() <= bound * scale, np.abs(u - v).max() / scale
+
+
+def _same_records(a, b):
+    """Equal increment records, wall times aside."""
+    def strip(run):
+        return [{k: v for k, v in h.items() if k != "wall_time"} for h in run["history"]]
+
+    return strip(a) == strip(b)
+
+
+def _pcg(history):
+    return [h["pcg_iters"] if isinstance(h, dict) else h.pcg_iters for h in history]
+
+
+@pytest.mark.parametrize("case,key,n", [("tet4", "tet4", 2), ("kuhn", "kuhn", 4)])
+def test_sharded_f64_matches_reference_and_single_device(runs, case, key, n):
+    """The generic (TET4 box, 2 shards) and structured (Kuhn box, 4 shards)
+    f64 solves: the reference's sharded solve and the port's single-device
+    solve within 1e-10, equal Newton counts and PCG lists, and two solves
+    bitwise equal."""
+    out = runs[key]
+    assert out["kind"] == ("StructuredShardedSolver" if case == "kuhn" else "ShardedNewtonSolver")
+    a, b = out["runs"]
+    assert a["converged"] and np.array_equal(a["u"], b["u"]) and _same_records(a, b)
+    cls = RefStructured if case == "kuhn" else RefSharded
+    u_ref, hist_ref = _ref_sharded(case, cls, F64, n)
+    _close(a["u"], u_ref, 1e-10)
+    assert [h["newton_iters"] for h in a["history"]] == [h.newton_iters for h in hist_ref]
+    assert _pcg(a["history"]) == _pcg(hist_ref)
+    single = _single(case, F64)
+    _close(a["u"], single.u.numpy(), 1e-10)
+    assert [h["newton_iters"] for h in a["history"]] == [h.newton_iters for h in single.history]
+
+
+def test_structured_matches_generic(runs):
+    """The two sharded paths (boundary-plane hops, indexed halo maps) solve
+    the Kuhn box to the same u."""
+    assert runs["kuhn_generic"]["kind"] == "ShardedNewtonSolver"
+    _close(runs["kuhn"]["runs"][0]["u"], runs["kuhn_generic"]["runs"][0]["u"], 1e-10)
+
+
+def test_sharded_mixed_two_level_matches_reference(runs):
+    """Mixed precision, two-level (3 modes), Eisenstat-Walker forcing on the
+    neo-Hookean TET4 box over 4 shards: the reference's sharded mixed solve
+    within 1e-7 and the single-device f64 solve within 1e-7, the same
+    Newton count, PCG lists within one iteration per Newton step, bitwise
+    repeats."""
+    out = runs["mixed"]
+    a, b = out["runs"]
+    assert a["converged"] and np.array_equal(a["u"], b["u"]) and _same_records(a, b)
+    u_ref, hist_ref = _ref_sharded("tet4nh", RefSharded, MIXED, 4)
+    _close(a["u"], u_ref, 1e-7)
+    assert [h["newton_iters"] for h in a["history"]] == [h.newton_iters for h in hist_ref]
+    for got, want in zip(_pcg(a["history"]), _pcg(hist_ref)):
+        assert len(got) == len(want) and all(abs(x - y) <= 1 for x, y in zip(got, want))
+    _close(a["u"], _single("tet4nh", F64).u.numpy(), 1e-7)
+
+
+@pytest.mark.parametrize("modes", [3, 6])
+def test_sharded_probed_coarse_matches_host(runs, modes):
+    """The coarse matrix probed through the sharded tangent action (4
+    shards) against the reference's host f64 Galerkin product
+    (`_host_coarse_matrix[_rbm]` of fea_large_tpu.solvers.multilevel) on
+    the same aggregation, and the port's host product against it."""
+    out = runs[f"probe{modes}"]
+    mesh, _, bc = _case("tet10")[0]
+    ref_mesh, _, ref_bc = _case("tet10")[1]
+    free, ref_free = bc.free_mask.numpy(), np.asarray(ref_bc.free_mask)
+    if modes == 3:
+        ref = ref_ml._host_coarse_matrix(ref_mesh, 1.0, 0.6, out["agg"], out["n_agg"], ref_free)
+        host = ml._host_coarse_matrix(mesh, 1.0, 0.6, out["agg"], out["n_agg"], free)
+    else:
+        ref = ref_ml._host_coarse_matrix_rbm(ref_mesh, 1.0, 0.6, out["agg"], out["dvec"],
+                                             out["n_agg"], ref_free)
+        host = ml._host_coarse_matrix_rbm(mesh, 1.0, 0.6, out["agg"], out["dvec"], out["n_agg"],
+                                          free)
+    assert np.abs(out["coarse_matrix"] - ref).max() < 5e-6 * np.abs(ref).max()
+    assert np.abs(host - ref).max() <= 1e-12 * np.abs(ref).max()
+
+
+def test_sharded_pcg_maxiter_is_a_hard_bound(runs):
+    """With an unreachable tolerance and pcg_maxiter 7, not a multiple of
+    pcg_chunk 5, the sharded PCG stops after exactly 7 iterations."""
+    out = runs["maxiter"]
+    assert out["pcg_iters"] == 7 and not out["pcg_ok"]
+
+
+@pytest.mark.parametrize("case", ["tet4", "kuhn"])
+def test_single_shard_matches_single_device(case):
+    """One shard in this process (LocalComm): the single-device f64 solve
+    within 1e-12."""
+    mesh, mat, bc = _case(case)[0]
+    cls = StructuredShardedSolver if case == "kuhn" else ShardedNewtonSolver
+    s = cls(mesh, mat, bc, options=SolverOptions(**F64))
+    res = s.solve()
+    assert res.converged
+    _close(s.u_global(res.u), _single(case, F64).u.numpy(), 1e-12)
+
+
+def test_structured_shards_keep_the_quadrature_rule():
+    """The structured solver builds its shards' local box with the mesh's
+    quadrature override (the reference builds it with the default rule):
+    a TET10 Kuhn box with the 5-point rule, one shard, against the
+    single-device f64 solve of the same mesh within 1e-10 (the two f64
+    routes converge ~1e-12 apart; the 4-point rule moves u by 1.6e-5)."""
+    mesh = box_mesh_kuhn(4, 2, 2, lx=4.0, element_type="tet10", device="cpu", n_quad=5)
+    bc = DirichletBuilder(mesh).fix("xmin").prescribe("xmax", "x", -0.08).build()
+    mat = NeoHookean(1.0, 0.6)
+    s = StructuredShardedSolver(mesh, mat, bc, options=SolverOptions(**F64))
+    res = s.solve()
+    single = NewtonSolver(mesh, mat, bc, options=SolverOptions(**F64)).solve()
+    assert res.converged and single.converged
+    _close(s.u_global(res.u), single.u.numpy(), 1e-10)
+
+
+def test_sharded_rejects_three_level():
+    mesh, mat, bc = _case("tet4")[0]
+    with pytest.raises(ValueError, match="two_level"):
+        ShardedNewtonSolver(mesh, mat, bc, options=SolverOptions(
+            linear="pcg", precision="mixed", preconditioner="three_level"))
+
+
+def test_a_failing_rank_reaches_the_caller():
+    """Rank 1 raises (its device, `meta`, holds no data) while rank 0 waits
+    for it in a collective: run_sharded raises instead of hanging."""
+    import torch.multiprocessing as mp
+
+    problem = Problem.of(*_case("tet4")[0])
+    with pytest.raises(mp.ProcessRaisedException, match="(?i)process 1 terminated"):
+        run_sharded(solve_rank, ["cpu", "meta"], problem, SolverOptions(**F64), timeout_s=60)
+
+
+def test_cli_sharded_run_matches_reference(tmp_path, monkeypatch):
+    """`run` of tasks/distributed_compression_kuhn.json cut to 2 shards, on 2
+    gloo ranks (FEA_PLATFORM=cpu): the reference's increments, Newton
+    counts, PCG lists within one iteration and first residual; the
+    reference's ||u|| and component sums within 1e-6 (relative to ||u||
+    and to each component's sum of |u|); and u within 1e-6 of the
+    single-device solve of the same file."""
+    monkeypatch.setenv("FEA_PLATFORM", "cpu")
+    data = json.loads((TASKS / "distributed_compression_kuhn.json").read_text())
+    data["partition"]["n_shards"] = 2
+    task_file = tmp_path / "kuhn2.json"
+    task_file.write_text(json.dumps(data))
+    assert cli.main(["run", str(task_file), "--out", str(tmp_path / "out")]) == 0
+    conv = json.loads((tmp_path / "out" / "kuhn2_convergence.json").read_text())
+    assert conv["converged"] and len(conv["steps"]) == len(REFERENCE_KUHN_TASK_2)
+    for step, (lf, newton, pcg, r0) in zip(conv["steps"], REFERENCE_KUHN_TASK_2):
+        assert step["load_factor"] == lf and step["newton_iters"] == newton
+        assert len(step["pcg_iters"]) == len(pcg)
+        assert all(abs(a - b) <= 1 for a, b in zip(step["pcg_iters"], pcg))
+    assert abs(conv["steps"][0]["residual_norms"][0] - 1.858e-01) <= 5e-4
+    u = export.load_checkpoint(tmp_path / "out" / "kuhn2_final.npz")["u"]
+    norm, sums, abs_sums = REFERENCE_KUHN_TASK_2_U
+    assert abs(np.linalg.norm(u) - norm) <= 1e-6 * norm
+    assert np.all(np.abs(u.sum(axis=0) - sums) <= 1e-6 * np.asarray(abs_sums))
+    task = load_task(task_file, device="cpu")
+    ref = NewtonSolver(task.mesh, task.material, task.build_bc(), options=task.solver).solve()
+    assert ref.converged
+    _close(u, ref.u.numpy(), 1e-6)
