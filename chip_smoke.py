@@ -10,9 +10,11 @@ preconditioners, the host coarse builders, an autodiff material on the
 f64 paths, the examples and the sharded paths, and checks them:
 
   * the Kuhn path, bench.py's default (mixed precision, two-level PCG with
-    6 coarse modes, device_loop=False): TET10 Kuhn lattice n=35, 1,073,733
-    DOF, the lattice kernels B1-B4 and, with resid_df=None, the fused f64
-    residual B5 (csrc/struct_kernels.cu);
+    6 coarse modes, device_loop=True: the device-resident Newton loop,
+    replayed CUDA graphs with IF nodes, solvers/device_loop.py), with the
+    host Newton loop (device_loop=False) beside it: TET10 Kuhn lattice
+    n=35, 1,073,733 DOF, the lattice kernels B1-B4 and, with
+    resid_df=None, the fused f64 residual B5 (csrc/struct_kernels.cu);
   * the 5-tet path, `FEA_BENCH_MESH=5tet FEA_BENCH_PALLAS=1` (mixed):
     TET10 5-tet box n=36, 1,027,083 DOF, aggregates of 100 nodes, the
     element-block kernels B6-B8 (csrc/elem_kernels.cu), which every f32
@@ -30,8 +32,10 @@ f64 paths, the examples and the sharded paths, and checks them:
 
 Phases:
 
-  0. card: nvidia-smi name and power limit, torch and CUDA versions;
-  1. build: every kernel source with nvcc, all at once, and ptxas's
+  0. card: nvidia-smi name and power limit, torch, CUDA and driver
+     versions (the device loop's IF nodes need CUDA >= 12.4);
+  1. build: every kernel source with nvcc, all at once (and
+     csrc/graph_kernels.cu, the device loop's IF nodes), and ptxas's
      registers, spills and static shared memory per kernel (for the
      lattice kernels also the blocks an SM holds);
   2. kernel checks, each kernel against its plain PyTorch version on the
@@ -50,18 +54,28 @@ Phases:
      and B10 (f64 and f32), whose sums cross threads, and B2 (all three
      materials) are launched twice on the same inputs and must give
      bitwise-equal outputs;
-  3. the Kuhn path: n=4 with resid_df=False and with resid_df=None against
-     the JAX reference's counts (measured on CPU), then full width with
+  3. the Kuhn path: n=4 on the host loop (resid_df=False) and on the
+     device loop (resid_df=False and None) against the JAX reference's
+     counts of each loop (measured on CPU), then full width with
      resid_df=None;
-  4. the 5-tet path: n=4 with resid_df=False and None against the
-     reference's counts, then full width with resid_df=None.
-     At full width each path runs setup, one warm-up and two timed solves
-     (bitwise-equal u and equal PCG lists required), prints s/step, peak
-     memory and setup seconds, requires every kernel of the path launched
-     (counts set to 0 before the path, read after), the fused f64 residual
-     launched once per f64 residual and the freeze and tangent-action
-     kernels launched by the setup's probes already, and recomputes the
-     converged u's f64 residual on the host CPU (reduction <= 1e-6);
+  4. the 5-tet path: n=4 the same way, then full width with resid_df=None.
+     At full width each path runs setup, then the device loop (the first
+     solve captures its graphs, then 5 timed solves) and the host loop on
+     the same setup (a warm-up and 5 timed solves): all bitwise equal
+     within a loop, the same Newton count in both, the device loop's u
+     within 1e-7 of max |u| of the host loop's, both PCG lists beside the
+     TPU's; s/step (median and range of each loop), host fetches per
+     solve, capture seconds, graph nodes, peak memory and setup seconds.
+     Counts set to 0 before the setup and read after the device-loop
+     solves: every kernel of the path launched (the setup's probes and the
+     loop's warm-up eagerly, the rest by the replays: launches per capture
+     times the body's runs), no kernel wrapper called during a replayed
+     solve, the fused f64 residual replayed once per f64 residual, the
+     freeze and tangent-action kernels launched by the setup's probes
+     already; the device loop's u's f64 residual recomputed on the host CPU
+     (reduction <= 1e-6). Phase 3 then runs the device loop with a CG
+     budget of 20 on the same setup, which must hand over to the host loop
+     and converge (u within 1e-7);
   5. the f64 BCSR path: config 2 of tests/test_parity.py (TET10 box 2^3,
      zmax -0.2, two increments, pcg_tol 1e-13) against the reference's
      counts, then full width: one warm-up and one timed solve (bitwise-equal
@@ -78,7 +92,9 @@ Phases:
      rate (csrc/probe_kernels.cu, a yardstick outside the port) beside the
      data sheet's, which the bounds use; B10 beside cuSPARSE's BSR product
      (`torch.sparse_bsr_tensor @ x`), the passes of one Newton and one PCG
-     iteration on every path, and the Kuhn and the 5-tet solves with the
+     iteration on every path, the pieces of a replayed PCG iteration
+     (Kuhn and 5-tet), each captured into a CUDA graph of its own and
+     replayed, and the Kuhn and the 5-tet solves with the
      plain and the fused f64 residual in turns; with `--against CHECKOUT
      ...` (other checkouts of this repository: an earlier commit, or a
      variant of a kernel source, e.g. unpacked by `git archive` into
@@ -102,7 +118,9 @@ Phases:
   8. (a) bench.py's problem at full width with preconditioner="three_level"
      (levels of 21,952 and 2,744 aggregates) and (b) with the 12-mode
      two-level space: setup seconds on the host and on the card, three
-     solves as in phases 3-4, the lattice kernels launched (B1-B5), the
+     host-loop solves, then two device-loop solves on the same setup (the
+     Newton count of the host loop, u within 1e-7), the lattice kernels
+     launched (B1-B5, counted over the host-loop solves), the
      Newton count and PCG list beside phase 3's, and phase 6's passes of
      one Newton and one PCG iteration (the preconditioner and its coarse
      apply among them); (c) the host coarse
@@ -140,8 +158,10 @@ Phases:
      run` of an 8-shard task, which exits 2 on fewer than 8 cards; (e)
      where there are 4 cards, (a) again with one NCCL rank per card,
      bitwise equal to (a)'s gloo run;
-  10. a JSON line of the kernels (with each kernel's launches on phase 8's
-     paths and, summed over the ranks, on phase 9's), then the result line.
+  10. a JSON line of the kernels (`launches`: on the main path of phases
+     3-5, the device loop's replays included; beside it each kernel's
+     launches on phase 8's paths and, summed over the ranks, on phase
+     9's), then the result line.
 
 `--lattice-only` runs phases 0-2 and the lattice kernels' part of phase 6
 (with `--against`) and stops: a short call that checks and times a change
@@ -157,7 +177,9 @@ is printed. Without a CUDA device it stops in phase 0.
 """
 
 import argparse
+import copy
 import ctypes
+import dataclasses
 import json
 import os
 import pathlib
@@ -193,12 +215,15 @@ from fea_large_tpu_torch.materials import (
 )
 from fea_large_tpu_torch.mesh.generators import box_mesh, box_mesh_kuhn
 from fea_large_tpu_torch.ops import bcsr_kernels as bk
-from fea_large_tpu_torch.ops import cuda_build, elem_kernels as ek, soa, struct_kernels as sk
+from fea_large_tpu_torch.ops import cuda_build, cuda_graphs, soa
+from fea_large_tpu_torch.ops import elem_kernels as ek, struct_kernels as sk
 from fea_large_tpu_torch.ops.pooling import make_lattice_pool
-from fea_large_tpu_torch.solvers import multilevel as ml
+from fea_large_tpu_torch.solvers import device_loop as dl, multilevel as ml
 from fea_large_tpu_torch.solvers.linear import (
+    apply_block_jacobi,
     block_jacobi_preconditioner,
     dense_cholesky_solve,
+    device_pcg_step,
     jacobi_inverse_blocks,
     pcg_chunk,
     pcg_init,
@@ -225,11 +250,27 @@ HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 
 #: the JAX reference's n=4 runs (fea_large_tpu, resid_df=False,
-#: device_loop=False, pallas=False, bench settings), measured on CPU
+#: pallas=False, bench settings), measured on CPU: the host loop
+#: (device_loop=False) and the device loop (device_loop=True,
+#: `_mixed_solve_fn`, bench.py's route)
 REFERENCE_N4 = {"newton_iters": 5, "pcg_iters": [5, 7, 15, 21, 14],
                 "residual0": 0.014014692693970307}
+REFERENCE_N4_DEVICE_LOOP = {"newton_iters": 5, "pcg_iters": [5, 7, 15, 21, 14],
+                            "residual0": 0.014014692693970307}
 REFERENCE_5TET_N4 = {"newton_iters": 5, "pcg_iters": [4, 4, 11, 15, 16],
                      "residual0": 0.014014692693970307}
+REFERENCE_5TET_N4_DEVICE_LOOP = {"newton_iters": 5, "pcg_iters": [4, 4, 11, 15, 16],
+                                 "residual0": 0.014014692693970307}
+#: the TPU's PCG list of bench.py's default route (BENCH_r05.json: the
+#: reference's device loop on a TPU v5e)
+TPU_PCG = [10, 8, 17, 28, 28]
+#: phases 3-4: timed solves of each loop (s/step: their median and range),
+#: u of the device loop against the host loop relative to max |u| (the
+#: reference's bound for its budget hand-over, tests/test_solvers.py), and
+#: the CG budget of the Kuhn hand-over run (its solve needs 89)
+LOOP_REPS = 5
+LOOP_BOUND = 1e-7
+HANDOVER_BUDGET = 20
 #: the JAX reference's config 2 (tests/test_parity.py: TET10 5-tet box 2^3,
 #: zmin fixed, zmax -0.2, linear="pcg_bcsr", f64, n_steps=2, pcg_tol
 #: 1e-13), measured on CPU: per increment (load factor, Newton count, PCG
@@ -237,11 +278,14 @@ REFERENCE_5TET_N4 = {"newton_iters": 5, "pcg_iters": [4, 4, 11, 15, 16],
 REFERENCE_CONFIG2 = [(0.5, 5, [41, 40, 40, 37, 30], 0.5840485492109236),
                      (1.0, 5, [41, 40, 40, 37, 34], 0.8107087021552396)]
 
+#: bench.py's solver options (its SolverOptions leave device_loop at the
+#: default, True: the device-resident Newton loop)
 BENCH = dict(
     linear="pcg", precision="mixed", preconditioner="two_level", coarse_modes=6,
     forcing="ew", ew_eta_min=1e-2, newton_rtol=1e-6, pcg_tol=1e-6, pcg_maxiter=2000,
-    device_loop=False,
 )
+#: the host Newton loop, run beside the device loop on the same setup
+HOST_LOOP = dict(device_loop=False)
 KUHN = dict(BENCH, resid_df=None)
 FIVE_TET = dict(BENCH, pallas=True, agg_size=100, resid_df=None)
 #: config 2's assembled system (linear="pcg_bcsr") with the tolerances of
@@ -277,8 +321,8 @@ MIXED_TASK_BOUND = 1e-6
 
 #: phase 8: bench.py's problem with the three-level space (aggregates of
 #: 16 nodes) and with the 12-mode two-level space; phase 3's resid_df=None
-THREE_LEVEL = dict(KUHN, preconditioner="three_level")
-TWELVE_MODES = dict(KUHN, coarse_modes=12)
+THREE_LEVEL = dict(KUHN, preconditioner="three_level", **HOST_LOOP)
+TWELVE_MODES = dict(KUHN, coarse_modes=12, **HOST_LOOP)
 #: phase 8c: the host Galerkin product against the probed Ac
 #: (tests/test_multilevel.py's bound), and the host inverse against the
 #: device one: the reference test's bound on a 3^3 box, or, where the two
@@ -378,9 +422,14 @@ def nbytes(*tensors):
 
 
 def reset_launches():
-    for counts in (sk.LAUNCHES, ek.LAUNCHES, bk.LAUNCHES):
+    for counts in (sk.LAUNCHES, ek.LAUNCHES, bk.LAUNCHES, dl.REPLAYED):
         for key in counts:
             counts[key] = 0
+
+
+def wrapper_counts(names):
+    """The kernel wrappers' launch counts of `names` (KERNELS keys)."""
+    return {k: KERNELS[k][0][KERNELS[k][1]] for k in names}
 
 
 def smooth_fields(coords_host, device, dtype=torch.float32):
@@ -409,10 +458,19 @@ def phase_card():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip()
+    driver = subprocess.run(
+        ["nvidia-smi", "--query-gpu=driver_version", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.split()[0]
     print("== phase 0: card")
     print(smi)
-    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, driver {driver}, "
           f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} device(s)")
+    # the device loop's IF nodes (csrc/graph_kernels.cu): CUDA 12.4 or later,
+    # whose drivers are 550 or later
+    check(tuple(int(x) for x in torch.version.cuda.split(".")[:2]) >= (12, 4),
+          f"conditional graph nodes need CUDA >= 12.4, torch has {torch.version.cuda}")
+    check(int(driver.split(".")[0]) >= 550, f"CUDA 12.4 needs a driver >= 550, got {driver}")
     return smi
 
 
@@ -433,12 +491,13 @@ def resident_blocks(registers, smem, threads):
 
 def phase_build():
     print("== phase 1: build (one nvcc per source, started together)")
-    sources = (sk.SOURCE, ek.SOURCE, bk.SOURCE, PROBE_SOURCE)
+    sources = (sk.SOURCE, ek.SOURCE, bk.SOURCE, cuda_graphs.SOURCE, PROBE_SOURCE)
     with ThreadPoolExecutor(len(sources)) as pool:
         builds = list(pool.map(cuda_build.build_library, sources))
     sk._library()
     ek._library()
     bk._library()
+    cuda_graphs._library()
     for src, (path, seconds, log) in zip(sources, builds):
         print(f"{src.name}: {path.name} (nvcc {seconds:.1f} s{'' if seconds else ', reused'})")
         name = None
@@ -664,6 +723,7 @@ def phase_kernel_checks(device):
 
 
 def solve_n4(build, opts, reference, label, device):
+    label = f"{label} {'device' if opts.get('device_loop', True) else 'host'} loop"
     mesh = build(4, 4, 4, element_type="tet10", device=device)
     bc = bench_bc(mesh)
     solver = NewtonSolver(mesh, NeoHookean(1.0, 0.6), bc, options=SolverOptions(**opts))
@@ -689,12 +749,50 @@ def f64_residuals(rec):
     return sum(1 for it in range(len(norms)) if it == 0 or norms[it - 1] <= 3e-2 * norms[0])
 
 
+def with_options(solver, **changes):
+    """The same setup (meshes, SoA tables, coarse space) under other
+    options: a shallow copy of `solver` with its own device loop."""
+    other = copy.copy(solver)
+    other.options = dataclasses.replace(solver.options, **changes)
+    other._device_loop = None
+    return other
+
+
+def timed_solves(label, run, reps):
+    """`reps` solves of `run()` -> (u, ok, record), each ending in a
+    synchronise: [(u, record, seconds)]; every one converged to a reduction
+    <= 1e-6 and bitwise equal to the first in u, PCG list and norms."""
+    runs = []
+    for rep in range(reps):
+        t0 = time.perf_counter()
+        u, ok, rec = run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        red = rec.residual_norms[-1] / rec.residual_norms[0]
+        check(ok and red <= 1e-6, f"{label} solve {rep} converged to reduction <= 1e-6")
+        runs.append((u, rec, dt))
+    ua, reca, _ = runs[0]
+    for u, rec, _ in runs[1:]:
+        check(torch.equal(ua, u), f"{label}: repeat solves give bitwise-equal u")
+        check(rec.pcg_iters == reca.pcg_iters and rec.residual_norms == reca.residual_norms,
+              f"{label}: repeat solves give identical PCG lists and residual norms")
+    steps = [dt / r.newton_iters for _, r, dt in runs]
+    print(f"{label}: {reps} solves, newton {reca.newton_iters}, pcg {reca.pcg_iters} "
+          f"(total {sum(reca.pcg_iters)}), |R| {reca.residual_norms[0]:.6e} -> "
+          f"{reca.residual_norms[-1]:.6e} (reduction {red:.3e}); s/step median "
+          f"{statistics.median(steps):.5f}, range {min(steps):.5f}-{max(steps):.5f}")
+    return runs
+
+
 def full_width(label, build, opts, keys, device, card):
-    """Setup, warm-up and two timed solves at full width; launch counts of
-    the path's kernels `keys` (names in KERNELS) over the whole run. The
-    setup's coarse-space probes must already launch the path's freeze and
-    tangent-action kernels, and the path's fused residual kernel must
-    launch once per f64 residual of the solves."""
+    """bench.py's default route at full width: setup, then the device loop
+    (the first solve captures its graphs; then LOOP_REPS timed solves), then
+    the host loop on the same setup (a warm-up and LOOP_REPS timed solves).
+    Counts are set to 0 before the setup and read after the device-loop
+    solves: the main path's launches are the wrappers' eager launches (the
+    setup's probes, the loop's warm-up) plus what the replayed graphs
+    launched (per capture x body runs), and no wrapper may be called during
+    a replayed solve. `keys`: the path's kernels (names in KERNELS)."""
     n, n_dof = FULL[label]
     t0 = time.perf_counter()
     mesh = build(n, n, n, element_type="tet10", device=device)
@@ -709,7 +807,8 @@ def full_width(label, build, opts, keys, device, card):
     solver = NewtonSolver(mesh, NeoHookean(1.0, 0.6), bc, options=SolverOptions(**opts))
     torch.cuda.synchronize()
     t_setup = time.perf_counter() - t1
-    in_setup = {name: KERNELS[name][0][KERNELS[name][1]] for name in keys}
+    check(solver.options.device_loop, f"the {label} path runs bench.py's default, the device loop")
+    in_setup = wrapper_counts(keys)
     print(f"kernel launches in setup: {in_setup}; coarse setup {solver._coarse.setup}")
     check(solver._coarse.setup["invert"] == "device", "the coarse inverse was built on the card")
     check(all(in_setup[k] > 0 for k in keys if k.endswith(("_freeze", "_apply"))),
@@ -717,63 +816,117 @@ def full_width(label, build, opts, keys, device, card):
     print(f"{label} n={n}: {mesh.n_nodes} nodes, {mesh.n_elements} tets, {mesh.n_dof} DOF; "
           f"mesh {t_mesh:.2f} s, solver setup {t_setup:.2f} s "
           f"(coarse: {solver._coarse.n_agg} aggregates, dim {solver._coarse.acinv.shape[0]})")
+    # the device loop: the first solve builds and captures it
+    setup_peak, held = torch.cuda.max_memory_allocated(), torch.cuda.memory_allocated()
     t2 = time.perf_counter()
-    _, ok, rec = solver._newton(u0, 1.0)
+    u1, ok, rec1 = solver._newton(u0, 1.0)
     torch.cuda.synchronize()
-    print(f"warm-up solve: {time.perf_counter() - t2:.3f} s, ok={ok}, newton {rec.newton_iters}, "
-          f"pcg {rec.pcg_iters}")
-    n_f64 = f64_residuals(rec)
-    runs = []
-    for rep in range(2):
-        t3 = time.perf_counter()
-        u, ok, rec = solver._newton(u0, 1.0)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t3
-        red = rec.residual_norms[-1] / rec.residual_norms[0]
-        print(f"timed solve {rep}: {dt:.4f} s, newton {rec.newton_iters}, pcg {rec.pcg_iters}, "
-              f"|R| {rec.residual_norms[0]:.6e} -> {rec.residual_norms[-1]:.6e} "
-              f"(reduction {red:.3e}), {dt / max(rec.newton_iters, 1):.5f} s/step")
-        check(ok and red <= 1e-6, f"{label} solve {rep} converged to reduction <= 1e-6")
-        runs.append((u, rec, dt))
-        n_f64 += f64_residuals(rec)
-    launches = {name: KERNELS[name][0][KERNELS[name][1]] for name in keys}
+    loop = solver._device_loop
+    held = torch.cuda.memory_allocated() - held
+    print(f"device loop holds {held} B ({held / 2**30:.2f} GiB: its state and the bodies' graph "
+          f"pools); peak of the setup {setup_peak} B ({setup_peak / 2**30:.2f} GiB)")
+    print(f"device loop, first solve (with the capture): {time.perf_counter() - t2:.3f} s, "
+          f"capture {loop.capture_s:.3f} s, ok={ok}, newton {rec1.newton_iters}, "
+          f"pcg {rec1.pcg_iters}; graph nodes {loop.graph_nodes} (cg: {dl.CG_UNROLL} iterations)")
+    ticks = wrapper_counts(keys)
+    dev_runs = timed_solves(f"{label} device loop", lambda: solver._newton(u0, 1.0), LOOP_REPS)
+    check(wrapper_counts(keys) == ticks,
+          f"no kernel wrapper called during the {label} device loop's replayed solves")
+    captured = {k: sum(c.get(k, 0) for c in loop.per_capture.values()) for k in keys}
+    replayed = {k: dl.REPLAYED[k] for k in keys}
+    launches = {k: ticks[k] - captured[k] + replayed[k] for k in keys}
     peak = torch.cuda.max_memory_allocated()
-    print(f"kernel launches (setup + 3 solves): {launches}")
-    print(f"peak device memory: {peak} B ({peak / 2**30:.2f} GiB)")
+    fetches, runs = loop.last.fetches, dict(loop.runs)
+    ud, recd, _ = dev_runs[0]
+    check(torch.equal(u1, ud) and rec1.pcg_iters == recd.pcg_iters,
+          "the capturing solve and the replayed ones give bitwise-equal u")
+    print(f"kernel launches of the main path (setup + warm-up + the replays of {1 + LOOP_REPS} "
+          f"solves): {launches}; by the replays: {replayed}; per capture: {loop.per_capture}")
+    print(f"device loop: body runs per solve {runs}, host fetches per solve {fetches}, peak device "
+          f"memory {peak} B ({peak / 2**30:.2f} GiB)")
+    check(all(replayed[k] > 0 for k in keys if k in captured and captured[k]),
+          f"every kernel of the {label} loop's bodies launched by the replays")
     check(all(v > 0 for v in launches.values()), f"every kernel of the {label} path launched")
     resid = next(k for k in keys if k.endswith("_resid"))
-    print(f"f64 residuals in the 3 solves: {n_f64}, {resid} launches: {launches[resid]}")
-    check(launches[resid] == n_f64, f"{resid} launched once per f64 residual")
-    (ua, reca, _), (ub, recb, _) = runs
-    check(torch.equal(ua, ub), "two timed solves give bitwise-equal u")
-    check(reca.pcg_iters == recb.pcg_iters and reca.residual_norms == recb.residual_norms,
-          "two timed solves give identical PCG lists and residual norms")
-    check(bool(torch.isfinite(ua).all()) and tuple(ua.shape) == (mesh.n_nodes, 3), "finite u [N, 3]")
+    n_f64 = f64_residuals(recd) * (1 + LOOP_REPS)
+    print(f"f64 residuals in the device-loop solves: {n_f64}, {resid} replays: {replayed[resid]}")
+    check(replayed[resid] == n_f64, f"{resid} launched once per f64 residual")
+    # the host loop on the same setup
+    host_before = wrapper_counts(keys)
+    host_runs = timed_solves(f"{label} host loop", lambda: solver._newton_mixed_host(u0, 1.0),
+                             1 + LOOP_REPS)[1:]
+    uh, rech, _ = host_runs[0]
+    host_launches = {k: v - host_before[k] for k, v in wrapper_counts(keys).items()}
+    check(recd.newton_iters == rech.newton_iters,
+          f"{label}: the device loop takes the host loop's Newton count")
+    du = float((ud - uh).abs().max() / uh.abs().max())
+    tpu = f", TPU (device loop, BENCH_r05.json) {TPU_PCG}" if label == "kuhn" else ""
+    print(f"{label} PCG: device loop {recd.pcg_iters}, host loop {rech.pcg_iters}{tpu}; u device "
+          f"vs host: {du:.3e} of max |u|; host-loop launches over {1 + LOOP_REPS} solves "
+          f"{host_launches}")
+    check(du <= LOOP_BOUND, f"{label}: device-loop u within {LOOP_BOUND} of the host loop's")
+    check(bool(torch.isfinite(ud).all()) and tuple(ud.shape) == (mesh.n_nodes, 3),
+          "finite u [N, 3]")
     # the converged u's residual, recomputed by the plain f64 pass on the host CPU
-    mesh_cpu = build(n, n, n, element_type="tet10", device="cpu")
-    p64 = soa.SoAProblem.build(mesh_cpu, torch.float64)
-    _, r_cpu = _residual_soa_fn(ua.cpu(), 1.0, p64, NeoHookean(1.0, 0.6), bench_bc(mesh_cpu),
-                                torch.zeros((mesh.n_nodes, 3), dtype=torch.float64))
-    red_cpu = float(r_cpu) / reca.residual_norms[0]
-    print(f"host CPU f64 residual of the converged u: {float(r_cpu):.6e} (reduction {red_cpu:.3e})")
+    r_cpu, red_cpu = host_reduction(lambda: build(n, n, n, element_type="tet10", device="cpu"),
+                                    NeoHookean(1.0, 0.6), bench_bc, ud, None, 1.0,
+                                    recd.residual_norms[0])
+    print(f"host CPU f64 residual of the device loop's u: {r_cpu:.6e} (reduction {red_cpu:.3e})")
     check(red_cpu <= 1e-6, "host-recomputed residual reduction <= 1e-6")
+    dsteps = [dt / r.newton_iters for _, r, dt in dev_runs]
+    hsteps = [dt / r.newton_iters for _, r, dt in host_runs]
     summary = {
-        "path": label, "n_dof": mesh.n_dof, "newton_iters": reca.newton_iters,
-        "pcg_iters": reca.pcg_iters,
-        "residual_reduction": reca.residual_norms[-1] / reca.residual_norms[0],
-        "s_per_step": [dt / r.newton_iters for _, r, dt in runs],
-        "solve_s": [dt for _, _, dt in runs], "setup_s": t_setup, "peak_bytes": peak,
-        "launches": launches, "setup_launches": in_setup, "card": card,
+        "path": label, "n_dof": mesh.n_dof, "newton_iters": recd.newton_iters,
+        "pcg_iters": recd.pcg_iters, "pcg_iters_host_loop": rech.pcg_iters,
+        "residual_reduction": recd.residual_norms[-1] / recd.residual_norms[0],
+        "host_reduction": red_cpu, "u_vs_host_loop": du,
+        "s_per_step": dsteps, "s_per_step_median": statistics.median(dsteps),
+        "s_per_step_host_loop": hsteps, "s_per_step_host_loop_median": statistics.median(hsteps),
+        "fetches_per_solve": fetches, "capture_s": loop.capture_s, "graph_nodes": loop.graph_nodes,
+        "body_runs_per_solve": runs, "setup_s": t_setup, "peak_bytes": peak,
+        "setup_peak_bytes": setup_peak, "device_loop_bytes": held,
+        "launches": launches, "setup_launches": in_setup, "host_loop_launches": host_launches,
+        "card": card,
     }
+    if label == "kuhn":
+        summary["pcg_iters_tpu"] = TPU_PCG
+        summary["handover"] = handover(solver, u0, ud)
     print("slice: " + json.dumps(summary))
-    return solver, u0, launches, reca.pcg_iters
+    return solver, u0, launches, recd.pcg_iters
+
+
+def handover(solver, u0, u_full):
+    """The device loop with a CG budget of HANDOVER_BUDGET on the same
+    setup: it must run out, hand the solve to the host loop, and converge,
+    within LOOP_BOUND of the unbudgeted device loop's u."""
+    other = with_options(solver, device_loop_budget=HANDOVER_BUDGET)
+    t0 = time.perf_counter()
+    u, ok, rec = other._newton(u0, 1.0)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    out = other._device_loop.last
+    du = float((u - u_full).abs().max() / u_full.abs().max())
+    red = rec.residual_norms[-1] / rec.residual_norms[0]
+    print(f"hand-over, device_loop_budget={HANDOVER_BUDGET}: the device loop ran {out.n_iters} "
+          f"Newton iterations, {out.total_cg} CG, exhausted={out.exhausted}; the host loop "
+          f"finished: newton {rec.newton_iters}, pcg {rec.pcg_iters}, reduction {red:.3e}, "
+          f"{dt:.3f} s (with the capture); u within {du:.3e} of the unbudgeted loop's")
+    check(out.exhausted and not out.converged, "the budgeted device loop handed the solve over")
+    check(ok and red <= 1e-6, "the handed-over solve converged")
+    check(du <= LOOP_BOUND, f"the handed-over u within {LOOP_BOUND} of the device loop's")
+    return {"device_newton": out.n_iters, "device_cg": out.total_cg,
+            "newton_iters": rec.newton_iters,
+            "pcg_iters": rec.pcg_iters, "u_vs_device_loop": du}
 
 
 def phase_kuhn(device, card):
     print(f"== phase 3: Kuhn path ({card})")
     t0 = time.perf_counter()
-    solve_n4(box_mesh_kuhn, dict(BENCH, resid_df=False), REFERENCE_N4, "kuhn resid_df=False", device)
-    solver = solve_n4(box_mesh_kuhn, KUHN, REFERENCE_N4, "kuhn resid_df=None", device)
+    solve_n4(box_mesh_kuhn, dict(BENCH, resid_df=False, **HOST_LOOP), REFERENCE_N4,
+             "kuhn resid_df=False", device)
+    solve_n4(box_mesh_kuhn, dict(BENCH, resid_df=False), REFERENCE_N4_DEVICE_LOOP,
+             "kuhn resid_df=False", device)
+    solver = solve_n4(box_mesh_kuhn, KUHN, REFERENCE_N4_DEVICE_LOOP, "kuhn resid_df=None", device)
     check(solver._resid_df, "resid_df=None routes the fused residual on the card")
     out = full_width("kuhn", box_mesh_kuhn, KUHN,
                      [k for k in KERNELS if k.startswith("struct_")], device, card)
@@ -784,9 +937,12 @@ def phase_kuhn(device, card):
 def phase_5tet(device, card):
     print(f"== phase 4: 5-tet path ({card})")
     t0 = time.perf_counter()
-    solve_n4(box_mesh, dict(FIVE_TET, resid_df=False), REFERENCE_5TET_N4, "5tet resid_df=False",
-             device)
-    solver = solve_n4(box_mesh, FIVE_TET, REFERENCE_5TET_N4, "5tet resid_df=None", device)
+    solve_n4(box_mesh, dict(FIVE_TET, resid_df=False, **HOST_LOOP), REFERENCE_5TET_N4,
+             "5tet resid_df=False", device)
+    solve_n4(box_mesh, dict(FIVE_TET, resid_df=False), REFERENCE_5TET_N4_DEVICE_LOOP,
+             "5tet resid_df=False", device)
+    solver = solve_n4(box_mesh, FIVE_TET, REFERENCE_5TET_N4_DEVICE_LOOP, "5tet resid_df=None",
+                      device)
     check(solver._resid_df, "resid_df=None routes the fused residual B9 on the card")
     out = full_width("5tet", box_mesh, FIVE_TET,
                      [k for k in KERNELS if k.startswith("elem_")], device, card)
@@ -938,6 +1094,111 @@ def time_calls(calls, points, npe, table):
               f"of it)   plain {plain_ms:9.4f} ms   host {host_us(kern):6.1f} us/launch")
 
 
+def loop_iteration_ms(solver, label):
+    """Phase 6: one PCG iteration of each loop, on the state the device
+    loop's last solve left: the replayed `cg` program with its CG_UNROLL IF
+    nodes all taken (stop 0; CUDA events around each launch, median of 5,
+    over CG_UNROLL), and the host loop's `pcg_chunk` of CG_UNROLL iterations
+    on the same frozen state and right-hand side (host clock ending in a
+    synchronise, median of 5); then one replayed `head` (x set to 0, so u
+    stays). The next solve resets the state."""
+    loop = solver._device_loop
+    st, k = loop.state, dl.CG_UNROLL
+
+    def armed_cg():
+        st.pcg.stop.zero_()
+        st.pcg.cap.fill_(2**62)
+        st.pcg.ok.fill_(True)
+        st.pcg.active.fill_(True)
+        loop.replay("cg")
+
+    dev_ms = cuda_ms(armed_cg, n=5) / k
+    free32 = solver.bc.free_mask.to(torch.float32)
+    free32_T = free32.T.contiguous()
+
+    def matvec(v):
+        return _mixed_matvec(solver._soa, st.frozen, free32_T, v)
+
+    precond = _mixed_precond(st.inv_blocks, free32, solver._coarse)
+    host = []
+    for _ in range(6):
+        pst = pcg_init(matvec, st.b, precond, tol=0.0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pst = pcg_chunk(matvec, pst, precond, maxiter=k)
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3 / max(pst.k, 1))
+    host_ms = statistics.median(host[1:])
+    split = cg_iteration_split(solver, matvec, precond, dev_ms, label)
+    st.pcg.x.zero_()
+    head_ms = cuda_ms(lambda: loop.replay("head"), n=5)
+    print(f"  {label} PCG iteration: device loop {dev_ms:.4f} ms (replayed, {k} a launch), host "
+          f"loop {host_ms:.4f} ms; device loop head (u += x, freeze, f64 residual, forcing, "
+          f"block-Jacobi, pcg_init) {head_ms:.4f} ms")
+    return {"pcg_iteration_ms_device_loop": dev_ms, "pcg_iteration_ms_host_loop": host_ms,
+            "head_ms_device_loop": head_ms, "pcg_iteration_split_ms": split}
+
+
+def graph_ms(fn, n=10):
+    """Device time of `fn` as a replayed body runs it: `fn` warmed up on a
+    side stream, captured into a CUDA graph of its own, and the graph's
+    replays timed with CUDA events (median of n). Its nodes run back to
+    back, as inside the device loop's graphs."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        fn()
+    ms = cuda_ms(g.replay, n)
+    del g
+    return ms
+
+
+def cg_iteration_split(solver, matvec, precond, iteration_ms, label):
+    """Where a replayed PCG iteration's device time goes: its pieces on the
+    device loop's state, each captured and replayed alone (`graph_ms`): one
+    CG step (`device_pcg_step`, the `cg` body without its IF node), the
+    masked matvec (gather, B1 or B6, scatter), the preconditioner, its
+    block-Jacobi and coarse parts, and the coarse part's restrict, dense
+    gemv and prolong. Derived, not timed: the replayed iteration less the
+    step (the IF node's share and a graph's own start; it has come out
+    negative, the step alone slower than inside `cg`) and the step's dots,
+    axpys and flags (the step less the matvec and the preconditioner). The
+    step's replays advance the state's CG; the next solve resets it."""
+    st = solver._device_loop.state
+    free32 = solver.bc.free_mask.to(torch.float32)
+    coarse = solver._coarse
+    r = st.pcg.r.clone()
+    rc = coarse.restrict(r)
+    xc = coarse.coarse_solve(rc)
+    pieces = {
+        "masked matvec": lambda: matvec(st.pcg.p),
+        "preconditioner": lambda: precond(r),
+        "block-Jacobi": lambda: apply_block_jacobi(st.inv_blocks, free32, r),
+        "coarse apply": lambda: coarse.apply(r),
+        "coarse restrict": lambda: coarse.restrict(r),
+        f"coarse gemv ({coarse.acinv.shape[0]}^2)": lambda: coarse.coarse_solve(rc),
+        "coarse prolong": lambda: coarse.prolong(xc),
+    }
+    out = {name: graph_ms(fn) for name, fn in pieces.items()}
+    st.pcg.stop.zero_()
+    st.pcg.cap.fill_(2**62)
+    st.pcg.ok.fill_(True)
+    out["cg step"] = graph_ms(lambda: device_pcg_step(st.pcg, matvec, precond))
+    out["iteration less cg step (derived)"] = iteration_ms - out["cg step"]
+    out["dots, axpys, flags (derived)"] = (out["cg step"] - out["masked matvec"]
+                                           - out["preconditioner"])
+    gemv_bytes = coarse.acinv.numel() * coarse.acinv.element_size()
+    print(f"  {label} replayed PCG iteration {iteration_ms:.4f} ms, its pieces each captured "
+          f"alone (ms): " + ", ".join(f"{k} {v:.4f}" for k, v in out.items())
+          + f"; the gemv's bytes bound {1e3 * gemv_bytes / HBM_BYTES_S:.4f} ms")
+    return out
+
+
 def time_passes(passes):
     for name, fn in passes.items():
         print(f"  pass {name:30s} {cuda_ms(fn):9.4f} ms")
@@ -963,21 +1224,24 @@ def newton_pcg_passes(solver, u0, mat, freeze, f64_resid):
 
 
 def resid_df_turns(solver, u0, label, rounds=3):
-    """A mixed solve with its f64 residual as the plain pass (resid_df
-    False) and as the fused kernel, in turns on one solver and one card
-    (rounds of plain, fused, fused, plain): seconds per Newton step of
-    each, and their medians."""
-    per_step = {False: [], True: []}
+    """A mixed solve on the host loop with its f64 residual as the plain
+    pass (resid_df False) and as the fused kernel, in turns on one solver
+    and one card (rounds of plain, fused, fused, plain): seconds per Newton
+    step of each, and their medians, then the solver's own route again.
+    (The device loop fixes its residual when it is built, and refuses to
+    solve after a change.)"""
+    per_step, route = {False: [], True: []}, solver._resid_df
     for fused in (False, True, True, False) * rounds:
         solver._resid_df = fused
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        _, ok, rec = solver._newton(u0, 1.0)
+        _, ok, rec = solver._newton_mixed_host(u0, 1.0)
         torch.cuda.synchronize()
         check(ok, f"{label} solve converged")
         per_step[fused].append((time.perf_counter() - t0) / rec.newton_iters)
-    solver._resid_df = True
-    print(f"  {label} s/step, f64 residual plain: {per_step[False]}, fused: {per_step[True]}; "
+    solver._resid_df = route
+    print(f"  {label} host loop s/step, f64 residual plain: {per_step[False]}, "
+          f"fused: {per_step[True]}; "
           f"medians {statistics.median(per_step[False]):.5f} plain, "
           f"{statistics.median(per_step[True]):.5f} fused")
 
@@ -1261,7 +1525,7 @@ def cli_runs(device, card):
     check(f64.converged, "the f64 solve of the Kuhn task converged")
     u64 = f64.u.cpu().numpy()
     err = float(np.abs(u - u64).max() / np.abs(u64).max())
-    print(f"  {name} (mixed, host loop) against its f64 solve: max |du| / max |u| {err:.3e} "
+    print(f"  {name} (mixed, device loop) against its f64 solve: max |du| / max |u| {err:.3e} "
           f"(bound {MIXED_TASK_BOUND})")
     check(err <= MIXED_TASK_BOUND, "the mixed Kuhn task agrees with its f64 solve")
     bench = module_cli("bench", f"tasks/{name}", "--reps", "3")
@@ -1341,6 +1605,19 @@ def mixed_phase8(label, mesh, bc, opts, mesh_cpu, card):
           f"{peak} B ({peak / 2**30:.2f} GiB)")
     check(all(v > 0 for v in launches.values()), f"every lattice kernel launched on the {label} path")
     u, rec, _ = runs[0]
+    # the device loop on the same setup: its graphs over this preconditioner
+    dev = with_options(solver, device_loop=True)
+    dev_runs = timed_solves(f"  {label} device loop (first solve with the capture)",
+                            lambda: dev._newton(u0, 1.0), 2)
+    ud, recd, _ = dev_runs[1]
+    du = float((ud - u).abs().max() / u.abs().max())
+    print(f"  {label} device loop: capture {dev._device_loop.capture_s:.3f} s, graph nodes "
+          f"{dev._device_loop.graph_nodes}, fetches {dev._device_loop.last.fetches}, "
+          f"{dev_runs[1][2] / recd.newton_iters:.5f} s/step; pcg {recd.pcg_iters} (host loop "
+          f"{rec.pcg_iters}); u within {du:.3e} of the host loop's")
+    check(recd.newton_iters == rec.newton_iters, f"{label}: the device loop's Newton count")
+    check(du <= LOOP_BOUND, f"{label}: device-loop u within {LOOP_BOUND} of the host loop's")
+    del dev
     r_cpu, red_cpu = host_reduction(lambda: mesh_cpu, NeoHookean(1.0, 0.6), bench_bc, u, None, 1.0,
                                     rec.residual_norms[0])
     print(f"  host CPU f64 residual of the converged u: {r_cpu:.6e} (reduction {red_cpu:.3e})")
@@ -1353,6 +1630,8 @@ def mixed_phase8(label, mesh, bc, opts, mesh_cpu, card):
         "s_per_step": [dt / r.newton_iters for _, r, dt in runs[1:]],
         "solve_s": [dt for _, _, dt in runs], "setup_s": t_setup, "setup": setup,
         "peak_bytes": peak, "launches": launches, "setup_launches": in_setup, "card": card,
+        "device_loop": {"pcg_iters": recd.pcg_iters, "u_vs_host_loop": du,
+                        "s_per_step": dev_runs[1][2] / recd.newton_iters},
     }
     return solver, summary
 
@@ -2050,6 +2329,9 @@ def phase_timings(kuhn, five_tet, bcsr, card, against=()):
     mat = NeoHookean(1.0, 0.6)
     table = {}
     solver, u0 = kuhn[:2]
+    loops = {"kuhn": loop_iteration_ms(solver, "Kuhn"),
+             "5tet": loop_iteration_ms(five_tet[0], "5-tet")}
+    print("slice: " + json.dumps({"path": "loop iterations", **loops, "card": card}))
     errs = lattice_timings(solver.mesh, table, against)
     time_passes(newton_pcg_passes(solver, u0, mat, soa.soa_freeze, _residual_df_fn))
     time_passes({"f64 residual (_residual_soa_fn)": lambda: _residual_soa_fn(

@@ -37,7 +37,7 @@ def main(n_shards=None, device=None):
     bc = DirichletBuilder(mesh).fix("xmin").prescribe("xmax", "x", -0.15).build()
     opts = SolverOptions(
         linear="pcg", n_steps=2, precision="mixed", preconditioner="two_level",
-        agg_size=64, pcg_tol=1e-6, newton_rtol=1e-9, max_newton=60, device_loop=False,
+        agg_size=64, pcg_tol=1e-6, newton_rtol=1e-9, max_newton=60,
     )
     run = run_sharded(solve_rank, devices, Problem.of(mesh, mat, bc), opts)
     out = run.result

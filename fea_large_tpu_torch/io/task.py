@@ -6,15 +6,9 @@ constants, boundary conditions, loads, load steps, solver tolerances) as
 JSON, TOML or S-expressions; it loads into typed dataclasses, keeping
 config an explicit argument through the stack: no global flags.
 
-The port differs from the reference in two places:
-  * `load_task(path, device=...)` builds the mesh, BCs and loads on
-    `device`, the card unless the caller asks for the CPU (no fallback);
-  * the solver keys `device_loop` and `device_loop_budget` are read and
-    dropped: the reference's device-resident Newton loop is not ported, and
-    the port runs its host loop, whose trajectory the reference pins the
-    device loop to (tests/test_solvers.py::test_device_loop_matches_host_loop).
-    So `solver.device_loop` is False on every loaded task, and a mixed task
-    file (device_loop defaults to true there) runs unchanged.
+The port differs from the reference in one place: `load_task(path,
+device=...)` builds the mesh, BCs and loads on `device`, the card unless
+the caller asks for the CPU (no fallback).
 
 Schema (JSON):
 {
@@ -269,7 +263,8 @@ def _parse(data: dict, base: pathlib.Path, name: str, device) -> Task:
         forcing=sv.get("forcing", "fixed"),
         ew_eta_min=float(sv.get("ew_eta_min", 0.0)),
         pallas=bool(sv.get("pallas", False)),
-        device_loop=False,  # "device_loop" and "device_loop_budget": the host loop
+        device_loop=bool(sv.get("device_loop", True)),
+        device_loop_budget=sv.get("device_loop_budget"),
     )
     out = data.get("output", {})
     output = OutputSpec(

@@ -1,9 +1,18 @@
 """Dense Cholesky, preconditioned conjugate gradients and block-Jacobi
 (counterpart of `fea_large_tpu/solvers/linear.py`).
 
-PCG runs as a host loop over device tensors, resumable across chunks
-(`PCGState`). The vector arithmetic stays on the device; the loop fetches
-(p.q, r.r) once per iteration to test the stop and breakdown conditions.
+Two forms of PCG:
+  * `PCGState`, `pcg_init`, `pcg_chunk`: a host loop over device tensors,
+    resumable across chunks. The vector arithmetic stays on the device; the
+    loop fetches (p.q, r.r) once per iteration and tests the stop and
+    breakdown conditions in Python f64. The host Newton loop, the f64
+    paths and the sharded solvers run it.
+  * `DevicePCG`, `device_pcg_init`, `device_pcg_step`: every scalar of the
+    recurrence, the stop test and the flags in 0-d device tensors, updated
+    in place, so that an iteration can be captured in a CUDA graph and
+    replayed under an IF node on `active` (solvers/device_loop.py). The
+    stop test runs on the device in the vectors' dtype, as the reference's
+    `pcg_chunk` while-loop condition does.
 Self-dots are clamped at zero at the source (r.r, r.z and ||b|| are
 non-negative by mathematics; a rounded negative would turn sqrt into NaN).
 """
@@ -138,6 +147,89 @@ def pcg(matvec, b, preconditioner=None, x0=None, tol=1e-10, atol=0.0, maxiter=10
     r_norm = math.sqrt(state.rr)
     return PCGResult(x=state.x, iterations=state.k, residual_norm=r_norm,
                      converged=state.ok and r_norm <= state.stop)
+
+
+@dataclasses.dataclass
+class DevicePCG:
+    """CG state of the device-resident Newton loop: vectors [N, 3] and 0-d
+    tensors, all on one device, written in place by `device_pcg_init` and
+    `device_pcg_step` (the addresses a captured graph reads stay fixed).
+
+    rz, rr   clamped r.z and r.r            bnorm   clamped ||b||
+    stop     max(tol ||b||, 0)               k, cap  iterations, their cap
+    ok       no breakdown (p.Kp > 0)         active  the loop condition"""
+
+    x: torch.Tensor
+    r: torch.Tensor
+    z: torch.Tensor
+    p: torch.Tensor
+    rz: torch.Tensor
+    rr: torch.Tensor
+    bnorm: torch.Tensor
+    stop: torch.Tensor
+    k: torch.Tensor
+    cap: torch.Tensor
+    ok: torch.Tensor
+    active: torch.Tensor
+
+    @staticmethod
+    def zeros(shape, dtype, device) -> "DevicePCG":
+        def vec():
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        def scalar(dt=dtype):
+            return torch.zeros((), dtype=dt, device=device)
+
+        return DevicePCG(x=vec(), r=vec(), z=vec(), p=vec(), rz=scalar(), rr=scalar(),
+                         bnorm=scalar(), stop=scalar(), k=scalar(torch.int64),
+                         cap=scalar(torch.int64), ok=scalar(torch.bool),
+                         active=scalar(torch.bool))
+
+
+def _set_active(s: DevicePCG) -> None:
+    """The reference's `pcg_chunk` loop condition: no breakdown, under the
+    cap, ||r|| above the stop and r.r finite, all on the device."""
+    s.active.copy_(s.ok & (s.k < s.cap) & (torch.sqrt(s.rr) > s.stop) & torch.isfinite(s.rr))
+
+
+def device_pcg_init(s: DevicePCG, b, preconditioner, tol, cap) -> None:
+    """`pcg_init` from x0 = 0 into `s`: r0 = b, z0 = p0 = M^-1 b, with the
+    stop max(tol ||b||, 0) in b's dtype; `tol` and `cap` are 0-d tensors
+    (the forcing term and the iteration cap of this solve)."""
+    s.x.zero_()
+    s.r.copy_(b)
+    s.z.copy_(preconditioner(b))
+    s.p.copy_(s.z)
+    s.rz.copy_(torch.clamp_min(_dot(s.r, s.z), 0.0))
+    rr = torch.clamp_min(_dot(b, b), 0.0)
+    s.rr.copy_(rr)
+    s.bnorm.copy_(torch.sqrt(rr))
+    s.stop.copy_(torch.clamp_min(tol * s.bnorm, 0.0))
+    s.k.zero_()
+    s.cap.copy_(cap)
+    s.ok.fill_(True)
+    _set_active(s)
+
+
+def device_pcg_step(s: DevicePCG, matvec, preconditioner) -> None:
+    """One CG iteration of `pcg_chunk`'s body on `s`, in place, then the
+    loop condition for the next. The caller runs it only while `s.active`
+    (an IF node in a graph, a Python `if` on the CPU)."""
+    q = matvec(s.p)
+    pq = _dot(s.p, q)
+    pos = pq > 0.0  # breakdown guard: K must be SPD
+    alpha = torch.where(pos, s.rz / pq, torch.zeros_like(pq))
+    s.x.add_(alpha * s.p)
+    s.r.sub_(alpha * q)
+    s.z.copy_(preconditioner(s.r))
+    rz_new = torch.clamp_min(_dot(s.r, s.z), 0.0)
+    beta = torch.where(s.rz != 0.0, rz_new / s.rz, torch.zeros_like(rz_new))
+    s.p.mul_(beta).add_(s.z)
+    s.rz.copy_(rz_new)
+    s.rr.copy_(torch.clamp_min(_dot(s.r, s.r), 0.0))
+    s.k.add_(1)
+    s.ok.logical_and_(pos)
+    _set_active(s)
 
 
 def drive_chunked_pcg(prepare, chunk, *, tol, chunk_iters, maxiter):

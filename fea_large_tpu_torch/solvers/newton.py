@@ -3,7 +3,7 @@
 the three f64 paths (assembled BCSR, matrix-free, dense direct).
 
 Mixed precision (`precision="mixed"`, `linear="pcg"`), per Newton
-iteration (`NewtonSolver._newton_mixed`):
+iteration:
   * the residual R = M (scale f_ext - f_int(u)): in f64, or, while
     ||R|| > 3e-2 ||R0|| under Eisenstat-Walker forcing, in f32 from the
     frozen tangent state (the `resid32` gate); the converging iterations
@@ -12,15 +12,25 @@ iteration (`NewtonSolver._newton_mixed`):
     (`_residual_df_fn`), else the plain f64 element pass
     (`_residual_soa_fn`);
   * the f32 tangent state (freeze), the block-Jacobi blocks (diag), and a
-    chunked PCG solve of the masked f32 tangent system (tangent action),
+    PCG solve of the masked f32 tangent system (tangent action),
     preconditioned by block-Jacobi plus the optional two- or three-level
-    coarse correction (solvers/multilevel.py); a solve with a coarse
-    correction that breaks down is retried with block-Jacobi alone. On the
-    card the f32 freeze, tangent action and force are the lattice kernels
-    on Kuhn lattices and the element-block kernels (ops/elem_kernels.py)
-    on unstructured meshes;
-  * the forcing term `newton_lin_tol` (Eisenstat-Walker choice 2 with the
-    lower cap `ew_eta_min`, the termination safeguard and the f32 floor).
+    coarse correction (solvers/multilevel.py). On the card the f32 freeze,
+    tangent action and force are the lattice kernels on Kuhn lattices and
+    the element-block kernels (ops/elem_kernels.py) on unstructured
+    meshes;
+  * the forcing term (Eisenstat-Walker choice 2 with the lower cap
+    `ew_eta_min`, the termination safeguard and the f32 floor).
+Two loops run it. `device_loop=True` (the default, the reference's
+`_mixed_solve_fn`): the whole increment on the device
+(solvers/device_loop.py), the forcing by `device_forcing` and the CG stop
+test in f32 on the device; on the card, CUDA graphs captured once per
+solver and replayed, the host reading flags only. It hands a solve that
+runs out of its CG budget (`device_loop_budget`) or breaks down to the
+host loop, which continues the same Newton sequence. The host loop
+(`device_loop=False`, `NewtonSolver._newton_mixed_host`): the forcing by
+`newton_lin_tol`, chunked PCG with its stop test in Python f64 and
+rounding-breakdown restarts; a solve with a coarse correction that breaks
+down is retried with block-Jacobi alone.
 
 f64 (`precision="f64"`), per Newton iteration (`NewtonSolver._newton`):
 the f64 residual of the element pass (`_residual_fn`), then one step
@@ -75,22 +85,23 @@ from fea_large_tpu_torch.solvers.linear import (
 
 @dataclasses.dataclass(frozen=True)
 class SolverOptions:
-    """Solver configuration: the reference's fields and defaults, less the
-    device-loop budget. The port runs four routes; `NewtonSolver` raises on
-    any other combination:
-      * linear="pcg", precision="mixed", device_loop=False, preconditioner
-        "jacobi", "two_level" (coarse_modes 3, 6 or 12; any other value is
-        a ValueError, as in the reference) or "three_level" (aggregates of
+    """Solver configuration: the reference's fields and defaults. The port
+    runs four routes; `NewtonSolver` raises on any other combination:
+      * linear="pcg", precision="mixed", preconditioner "jacobi",
+        "two_level" (coarse_modes 3, 6 or 12; any other value is a
+        ValueError, as in the reference) or "three_level" (aggregates of
         agg_size or 16 nodes); any other name is block-Jacobi, as in the
-        reference. device_loop=True (the reference's default, its
-        device-resident Newton loop) is not ported: the task loader
-        (io/task.py) runs such tasks on the host loop, whose trajectory
-        the reference pins its device loop to;
+        reference. device_loop=True runs each increment on the device
+        loop, which hands over to the host loop after `device_loop_budget`
+        CG iterations in all (None: max(50, min(1000, 2.3e8 / elements)),
+        the reference's rule) or on a CG breakdown; device_loop=False runs
+        the host loop alone;
       * precision="f64" with linear="pcg_bcsr" (assembled BCSR),
         linear="pcg" (matrix-free) or linear="direct" (dense Cholesky).
         Block-Jacobi on the PCG routes; the mixed-path fields
-        preconditioner, coarse_modes, agg_size, device_loop and resid_df
-        have no effect there, as in the reference.
+        preconditioner, coarse_modes, agg_size, device_loop,
+        device_loop_budget and resid_df have no effect there, as in the
+        reference.
 
     pallas    accepted for parity with the reference, and without effect:
               there it picks the Pallas element-block passes over the XLA
@@ -121,6 +132,7 @@ class SolverOptions:
     ew_eta_min: float = 0.0
     pallas: bool = False
     device_loop: bool = True
+    device_loop_budget: int | None = None
     resid_df: bool | None = None
     precision: str = "f64"
 
@@ -162,8 +174,6 @@ def _unsupported(opts: SolverOptions) -> str | None:
         raise ValueError("precision='mixed' requires linear='pcg'")
     if opts.preconditioner == "two_level" and opts.coarse_modes not in (3, 6, 12):
         raise ValueError(f"coarse modes must be 3, 6 or 12, got {opts.coarse_modes}")
-    if opts.device_loop:
-        return "device_loop=True (the device-resident Newton loop)"
     return None
 
 
@@ -179,8 +189,12 @@ def newton_lin_tol(opts, it, norms, norm0, eta):
     lin_tol = opts.pcg_tol
     if opts.forcing == "ew":
         if it > 0:
-            cand = 0.9 * (norms[-1] / norms[-2]) ** 2
-            safe = 0.9 * eta**2
+            # squares as products: Python's ** goes through libm pow, which
+            # misrounds about one square in a thousand; a product is
+            # correctly rounded, as the device forcing's square is
+            ratio = norms[-1] / norms[-2]
+            cand = 0.9 * (ratio * ratio)
+            safe = 0.9 * (eta * eta)
             eta = max(cand, safe) if safe > 0.1 else cand
         eta = max(eta, opts.ew_eta_min)
         stop_n = max(opts.newton_rtol * norm0, opts.newton_atol)
@@ -192,6 +206,28 @@ def newton_lin_tol(opts, it, norms, norm0, eta):
     else:
         floor = min(2.2e-14 * norm0 / norms[-1], 0.1)
     return max(lin_tol, floor), eta
+
+
+def device_forcing(norm, prev_norm, eta_prev, first_it, pcg_tol, use_ew, floor,
+                   stop_newton, eta_min=0.0):
+    """`newton_lin_tol` on 0-d f64 tensors, for the device loop (the
+    reference's `device_forcing`): the same operations in the same order,
+    so bitwise the same (eta, lin_tol). `first_it` is a 0-d bool (it == 0:
+    eta 0.5), `use_ew` a Python bool, `floor` the precision floor (1.2e-6
+    on the mixed path), `stop_newton` the Newton stop target; `pcg_tol`
+    and `eta_min` are floats. Without EW forcing eta is 0.5 and lin_tol
+    max(pcg_tol, floor)."""
+    if not use_ew:
+        return torch.full_like(norm, 0.5), torch.clamp_min(torch.full_like(norm, pcg_tol), floor)
+    ratio = norm / torch.clamp_min(prev_norm, 1e-300)
+    cand = 0.9 * (ratio * ratio)
+    safe = 0.9 * (eta_prev * eta_prev)
+    eta = torch.where(safe > 0.1, torch.maximum(cand, safe), cand)
+    eta = torch.where(first_it, torch.full_like(eta, 0.5), eta)
+    eta = torch.clamp_min(eta, eta_min)
+    eta = torch.maximum(eta, 0.5 * stop_newton / torch.clamp_min(norm, 1e-300))
+    eta = torch.clamp(eta, pcg_tol, 0.5)
+    return eta, torch.clamp_min(eta, floor)
 
 
 def _residual_fn(u, scale, conn, geom, material, bc, f_ext, scatter):
@@ -317,6 +353,7 @@ class NewtonSolver:
         self.bcsr = None
         self._resid_df = False
         self._coarse = None
+        self._device_loop = None
         if self.options.precision == "f64":
             if self.options.linear in ("pcg_bcsr", "direct"):
                 self.bcsr = BCSRStructure.build(mesh.conn_host, mesh.n_nodes, mesh.device)
@@ -415,20 +452,68 @@ class NewtonSolver:
                 x = x_fb
         return x, iters, accept
 
+    def _device_solve(self, u, scale):
+        """One increment on the device loop (solvers/device_loop.py),
+        built at first use and kept: its graphs are captured once per
+        solver. Returns a `DeviceLoopResult`."""
+        if self._device_loop is None:
+            from fea_large_tpu_torch.solvers.device_loop import DeviceLoop
+
+            self._device_loop = DeviceLoop(self)
+        return self._device_loop.solve(u, scale)
+
     def _newton_mixed(self, u, scale):
+        """The mixed path's Newton loop at the load factor `scale`: the
+        device loop, with the host loop taking over where it hands back
+        (the reference's dispatch), or the host loop alone."""
         opts = self.options
+        if not opts.device_loop:
+            return self._newton_mixed_host(u, scale)
         t0 = time.perf_counter()
         scale = float(scale)
-        u = self.bc.impose(u, scale)
+        out = self._device_solve(u, scale)
+        n_it = out.n_iters
+        if out.converged or out.poisoned or not (out.exhausted or out.failed):
+            # terminal: converged, a non-finite residual (-> bisection) or
+            # max_newton reached; the last iteration's solve ran 0
+            # iterations (converged) or was never applied (max_newton)
+            pcg = out.pcg_iters[:n_it]
+            if out.converged or n_it >= opts.max_newton:
+                pcg = pcg[:-1]
+            rec = IncrementRecord(scale, n_it - 1 if out.converged else n_it,
+                                  out.residual_norms[:n_it], pcg, time.perf_counter() - t0)
+            return out.u, out.converged, rec
+        # out of the CG budget, or a CG breakdown: the host loop redoes the
+        # last device iteration (its partial solve is dropped; `eta` is the
+        # forcing value from before it) and continues the Newton sequence
+        n_use = max(n_it - 1, 0)
+        return self._newton_mixed_host(out.u, scale, handback=(
+            t0, out.residual_norms[:n_use], out.pcg_iters[:n_use], out.eta))
+
+    def _newton_mixed_host(self, u, scale, handback=None):
+        """The host loop from the start of the increment, or warm-started
+        by `handback` = (t0, norms, pcg_iters, eta) of a device-loop solve
+        that ran len(norms) accepted iterations (u is then the iterate
+        whose residual comes next, already under the increment's BCs)."""
+        opts = self.options
+        scale = float(scale)
+        if handback is None:
+            t0, norms, pcg_iters, eta = time.perf_counter(), [], [], 0.5
+            u = self.bc.impose(u, scale)
+        else:
+            t0, norms, pcg_iters, eta = handback
+            norms, pcg_iters = list(norms), list(pcg_iters)
+        it0 = len(norms)
         free32 = self.bc.free_mask.to(torch.float32)
         free32_T = free32.T.contiguous()
         f_ext32 = self.f_ext.to(torch.float32)
         use_ew = opts.forcing == "ew"
-        norms, pcg_iters = [], []
         norm0 = stop_n = None
-        eta = 0.5
+        if norms:
+            norm0 = max(norms[0], 1e-300)
+            stop_n = max(opts.newton_rtol * norm0, opts.newton_atol)
         x_prev = None
-        for it in range(opts.max_newton):
+        for it in range(it0, opts.max_newton):
             if x_prev is not None:
                 u = u + x_prev.to(u.dtype)
             state = None

@@ -5,8 +5,8 @@ entry point, and its post-processing, against the JAX reference.
     reference's;
   * `load_task` on every file of tasks/: the same mesh, node sets, BC mask
     and values, forces within 1e-14 of the largest entry (host numpy in
-    both packages), and the same options, output and partition, but for
-    `device_loop`, which the port drops (its host loop runs every task);
+    both packages), and the same options (`device_loop` and
+    `device_loop_budget` included), output and partition;
   * surface traction and pressure forces (1e-14), the RCM permutation of a
     shuffled mesh (equal), the Gmsh and TetGen readers and writers (equal
     arrays, the same bytes), the VTK and Gmsh exports (the same bytes),
@@ -106,11 +106,8 @@ def test_load_task_matches_reference(name):
     assert dataclasses.asdict(task.loading) == dataclasses.asdict(ref.loading)
     assert dataclasses.asdict(task.output) == dataclasses.asdict(ref.output)
     assert dataclasses.asdict(task.partition) == dataclasses.asdict(ref.partition)
-    opts, ref_opts = dataclasses.asdict(task.solver), dataclasses.asdict(ref.solver)
-    # dropped: the port runs its host Newton loop for every task
-    assert opts.pop("device_loop") is False
-    ref_opts.pop("device_loop"), ref_opts.pop("device_loop_budget")
-    assert opts == ref_opts
+    # every solver field, device_loop and device_loop_budget included
+    assert dataclasses.asdict(task.solver) == dataclasses.asdict(ref.solver)
     bc, ref_bc = task.build_bc(), ref.build_bc()
     np.testing.assert_array_equal(bc.free_mask.numpy(), np.asarray(ref_bc.free_mask))
     np.testing.assert_array_equal(bc.values.numpy(), np.asarray(ref_bc.values))

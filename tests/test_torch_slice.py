@@ -162,7 +162,7 @@ def test_pallas_option_changes_nothing():
     assert ok0 and ok1 and torch.equal(u0, u1) and rec0.pcg_iters == rec1.pcg_iters
 
 
-@pytest.mark.parametrize("bad", [dict(device_loop=True), dict(precision="f32")])
+@pytest.mark.parametrize("bad", [dict(precision="f32")])
 def test_newton_solver_rejects_unported_options(case, bad):
     with pytest.raises(NotImplementedError):
         NewtonSolver(case.mesh, NeoHookean(1.0, 0.6), case.bc, options=SolverOptions(**{**BENCH, **bad}))
