@@ -75,7 +75,18 @@ Phases:
      already; the device loop's u's f64 residual recomputed on the host CPU
      (reduction <= 1e-6). Phase 3 then runs the device loop with a CG
      budget of 20 on the same setup, which must hand over to the host loop
-     and converge (u within 1e-7);
+     and converge (u within 1e-7). Then, on the same setup of each path,
+     bench.py's step mode (FEA_BENCH_MODE=step: `NewtonSolver._step` with
+     forcing "fixed", the mixed step: the plain f64 residual, the freeze,
+     block-Jacobi plus the coarse correction, chunked f32 PCG at pcg_tol
+     1e-6): a warm-up and 3 timed steps (s/step median and range, PCG
+     iterations, ok, rel), all bitwise equal, counts set to 0 just before
+     and read just after (B1-B3 or B6-B7 launched, the tangent action at
+     least once per PCG iteration), the stepped u's f64 residual
+     recomputed on the host CPU under the start's; one `step_fn` (one PCG
+     chunk); phase 3 also `entry()`'s step (entry.py) on the card against
+     its CPU run (1e-10 of max |u|), and phase 5 one `step_fn` on its
+     route (the f64 step: B10 at least once per PCG iteration);
   5. the f64 BCSR path: config 2 of tests/test_parity.py (TET10 box 2^3,
      zmax -0.2, two increments, pcg_tol 1e-13) against the reference's
      counts, then full width: one warm-up and one timed solve (bitwise-equal
@@ -160,8 +171,9 @@ Phases:
      bitwise equal to (a)'s gloo run;
   10. a JSON line of the kernels (`launches`: on the main path of phases
      3-5, the device loop's replays included; beside it each kernel's
-     launches on phase 8's paths and, summed over the ranks, on phase
-     9's), then the result line.
+     launches on the step routes of phases 3-5 (`launches_step`), on phase
+     8's paths and, summed over the ranks, on phase 9's), then the result
+     line.
 
 `--lattice-only` runs phases 0-2 and the lattice kernels' part of phase 6
 (with `--against`) and stops: a short call that checks and times a change
@@ -205,6 +217,7 @@ from fea_large_tpu_torch.elements.kernels import (
     element_stiffness,
     precompute_geometry,
 )
+from fea_large_tpu_torch.entry import entry
 from fea_large_tpu_torch.io.export import load_checkpoint
 from fea_large_tpu_torch.io.task import load_task
 from fea_large_tpu_torch.materials import (
@@ -271,6 +284,11 @@ TPU_PCG = [10, 8, 17, 28, 28]
 LOOP_REPS = 5
 LOOP_BOUND = 1e-7
 HANDOVER_BUDGET = 20
+#: phases 3-4: bench.py's step mode (FEA_BENCH_MODE=step: `_step` with
+#: forcing "fixed", a warm-up, then bench.py's default of 3 timed steps);
+#: entry()'s step on the card against its CPU run, relative to max |u|
+STEP_REPS = 3
+ENTRY_BOUND = 1e-10
 #: the JAX reference's config 2 (tests/test_parity.py: TET10 5-tet box 2^3,
 #: zmin fixed, zmax -0.2, linear="pcg_bcsr", f64, n_steps=2, pcg_tol
 #: 1e-13), measured on CPU: per increment (load factor, Newton count, PCG
@@ -919,6 +937,92 @@ def handover(solver, u0, u_full):
             "pcg_iters": rec.pcg_iters, "u_vs_device_loop": du}
 
 
+def step_mode(label, solver, u0, keys, build, card):
+    """bench.py's step mode (FEA_BENCH_MODE=step) on the setup of `solver`
+    (phases 3-4): `_step(u0, 1.0)` with forcing "fixed", the mixed step
+    (the plain f64 residual, the freeze, block-Jacobi plus the coarse
+    correction, chunked f32 PCG), a warm-up and STEP_REPS timed steps,
+    all bitwise equal. Counts are set to 0 just before the steps and read
+    just after: the freeze, diagonal and tangent-action kernels launched,
+    the last at least once per PCG iteration. The stepped u's f64
+    residual, recomputed on the host CPU, is under the start's. Then one
+    `step_fn` (the same set-up and one PCG chunk of at most pcg_chunk
+    iterations), bitwise the step where it took the step's count.
+    Returns the steps' launches of `keys`."""
+    other = with_options(solver, forcing="fixed")
+    reset_launches()
+    runs = []
+    for _ in range(1 + STEP_REPS):
+        t0 = time.perf_counter()
+        out = other._step(u0, 1.0)
+        torch.cuda.synchronize()
+        runs.append((out, time.perf_counter() - t0))
+    launches = wrapper_counts(keys)
+    (u1, it1, ok1, rel1), warm_s = runs[0]
+    for (u, it, _, _), _ in runs[1:]:
+        check(torch.equal(u, u1) and it == it1, f"{label} step mode: repeat steps bitwise equal")
+    secs = [dt for _, dt in runs[1:]]
+    apply_key = next(k for k in keys if k.endswith("_apply"))
+    print(f"{label} step mode (bench.py FEA_BENCH_MODE=step, pcg_tol "
+          f"{other.options.pcg_tol}): s/step median {statistics.median(secs):.5f}, range "
+          f"{min(secs):.5f}-{max(secs):.5f} (warm-up {warm_s:.5f}); pcg {it1}, ok={ok1}, "
+          f"rel {rel1:.3e}; launches over {1 + STEP_REPS} steps {launches}")
+    check(all(launches[k] > 0 for k in keys if k.endswith(("_freeze", "_diag", "_apply"))),
+          f"the {label} step launches its freeze, diagonal and tangent-action kernels")
+    check(launches[apply_key] >= (1 + STEP_REPS) * it1,
+          f"{apply_key} launched at least once per PCG iteration of the step")
+    r_start, r_step = host_norms(lambda: build(*(3 * [FULL[label][0]]), element_type="tet10",
+                                               device="cpu"),
+                                 NeoHookean(1.0, 0.6), bench_bc, [u0, u1], None, 1.0)
+    print(f"host CPU f64 residual: start {r_start:.6e}, after the step {r_step:.6e} "
+          f"({r_step / r_start:.3e})")
+    check(r_step < r_start, f"the {label} step lowers the f64 residual")
+    t0 = time.perf_counter()
+    u_f, k, ok, rnorm = other.step_fn(u0, 1.0)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    same = k == it1 and torch.equal(u_f, u1)
+    print(f"{label} step_fn (one chunk of at most {other.options.pcg_chunk}): {dt:.5f} s, pcg {k}, "
+          f"ok={ok}, |r| {rnorm:.3e}; bitwise the step's u: {same}")
+    check(bool(torch.isfinite(u_f).all()) and u_f.shape == u0.shape and 0 < k
+          <= other.options.pcg_chunk, f"{label} step_fn gives a finite u [N, 3] in one chunk")
+    check(same or k != it1, f"{label} step_fn bitwise the step where it took the step's count")
+    print("slice: " + json.dumps({
+        "path": f"{label} step mode", "s_per_step": secs, "s_per_step_median":
+        statistics.median(secs), "warmup_s": warm_s, "pcg_iters": it1, "ok": ok1, "rel": rel1,
+        "host_residual_start": r_start, "host_residual_step": r_step, "launches": launches,
+        "step_fn": {"s": dt, "pcg_iters": k, "ok": ok, "r_norm": rnorm}, "card": card}))
+    return launches
+
+
+def entry_on_card(device, card):
+    """`entry()`'s step (the f64 matrix-free route on a TET10 box 4^3) on
+    the card against its CPU run, at its own arguments (u = 0, a zero
+    residual) and at the 20% affine compression its BCs prescribe: within
+    ENTRY_BOUND of max |u|, finite, shape and dtype kept."""
+    fn, args = entry(device=device)
+    fn_c, args_c = entry(device="cpu")
+    mesh = box_mesh(4, 4, 4, element_type="tet10", device="cpu")
+    bc = DirichletBuilder(mesh).fix("zmin").prescribe("zmax", "z", -0.2).build()
+    u = torch.zeros((mesh.n_nodes, 3), dtype=torch.float64)
+    u[:, 2] = -0.2 * mesh.coords[:, 2]
+    u = bc.impose(u, 1.0)
+    for name, (a, a_c) in {"entry args": (args, args_c),
+                           "20% compression": ((u.to(device), 1.0), (u, 1.0))}.items():
+        t0 = time.perf_counter()
+        out = fn(*a)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        ref = fn_c(*a_c)
+        err = float((out.cpu() - ref).abs().max())
+        scale = max(float(ref.abs().max()), 1e-300)
+        print(f"entry() on the card, {name}: {dt:.4f} s, out {tuple(out.shape)} {out.dtype}, "
+              f"max |u| {float(ref.abs().max()):.6e}, card vs CPU {err:.3e} ({card})")
+        check(out.shape == a[0].shape and out.dtype == torch.float64
+              and bool(torch.isfinite(out).all()), "entry() gives a finite f64 u [N, 3]")
+        check(err <= ENTRY_BOUND * scale, f"entry() on the card within {ENTRY_BOUND} of the CPU's")
+
+
 def phase_kuhn(device, card):
     print(f"== phase 3: Kuhn path ({card})")
     t0 = time.perf_counter()
@@ -928,10 +1032,12 @@ def phase_kuhn(device, card):
              "kuhn resid_df=False", device)
     solver = solve_n4(box_mesh_kuhn, KUHN, REFERENCE_N4_DEVICE_LOOP, "kuhn resid_df=None", device)
     check(solver._resid_df, "resid_df=None routes the fused residual on the card")
-    out = full_width("kuhn", box_mesh_kuhn, KUHN,
-                     [k for k in KERNELS if k.startswith("struct_")], device, card)
+    keys = [k for k in KERNELS if k.startswith("struct_")]
+    out = full_width("kuhn", box_mesh_kuhn, KUHN, keys, device, card)
+    steps = step_mode("kuhn", out[0], out[1], keys, box_mesh_kuhn, card)
+    entry_on_card(device, card)
     print(f"phase 3: {time.perf_counter() - t0:.1f} s")
-    return out
+    return out + (steps,)
 
 
 def phase_5tet(device, card):
@@ -944,10 +1050,11 @@ def phase_5tet(device, card):
     solver = solve_n4(box_mesh, FIVE_TET, REFERENCE_5TET_N4_DEVICE_LOOP, "5tet resid_df=None",
                       device)
     check(solver._resid_df, "resid_df=None routes the fused residual B9 on the card")
-    out = full_width("5tet", box_mesh, FIVE_TET,
-                     [k for k in KERNELS if k.startswith("elem_")], device, card)
+    keys = [k for k in KERNELS if k.startswith("elem_")]
+    out = full_width("5tet", box_mesh, FIVE_TET, keys, device, card)
+    steps = step_mode("5tet", out[0], out[1], keys, box_mesh, card)
     print(f"phase 4: {time.perf_counter() - t0:.1f} s")
-    return out
+    return out + (steps,)
 
 
 def phase_bcsr(device, card):
@@ -1016,15 +1123,29 @@ def phase_bcsr(device, card):
     red_cpu = float(r_cpu) / reca.residual_norms[0]
     print(f"host CPU f64 residual of the converged u: {float(r_cpu):.6e} (reduction {red_cpu:.3e})")
     check(red_cpu <= 1e-6, "host-recomputed residual reduction <= 1e-6")
+    # entry.py's step (`step_fn`, here `_step`) on this route, counts
+    # set to 0 just before it and read just after
+    reset_launches()
+    t3 = time.perf_counter()
+    u_s, k_s, ok_s, rel_s = solver.step_fn(u0, 1.0)
+    torch.cuda.synchronize()
+    dt_s = time.perf_counter() - t3
+    step_launches = bk.LAUNCHES["spmv"]
+    print(f"step_fn (one f64 step at pcg_tol {solver.options.pcg_tol}): {dt_s:.4f} s, pcg {k_s}, "
+          f"ok={ok_s}, rel {rel_s:.3e}, bcsr_spmv launches {step_launches}")
+    check(bool(torch.isfinite(u_s).all()) and 0 < k_s <= step_launches,
+          "step_fn on the BCSR path: a finite u, B10 at least once per PCG iteration")
     summary = {
         "path": "bcsr", "n_dof": mesh.n_dof, "nnzb": st.nnzb, "newton_iters": recb.newton_iters,
         "pcg_iters": recb.pcg_iters, "residual_reduction": red, "s_per_step": dtb / recb.newton_iters,
         "solve_s": [dt for _, _, dt in runs], "setup_s": t_setup, "peak_bytes": peak,
         "launches": {"bcsr_spmv": launches}, "card": card,
+        "step_fn": {"s": dt_s, "pcg_iters": k_s, "ok": ok_s, "rel": rel_s,
+                    "launches": step_launches},
     }
     print("slice: " + json.dumps(summary))
     print(f"phase 5: {time.perf_counter() - t0:.1f} s")
-    return solver, u0, {"bcsr_spmv": launches}
+    return solver, u0, {"bcsr_spmv": launches}, {"bcsr_spmv": step_launches}
 
 
 def cuda_ms(fn, n=10):
@@ -1313,16 +1434,22 @@ def bcsr_timings(solver, u0, mat, table):
           f"{1e3 * (time.perf_counter() - t0) / max(done, 1):.4f} ms")
 
 
-def host_reduction(build_cpu, material, bc_fn, u, f_ext, scale, r0):
-    """The residual of u at `scale` recomputed by the plain f64 element pass
-    on the host CPU, over the increment's first residual r0: (|R|,
-    reduction). `build_cpu()` builds the mesh on the CPU, `bc_fn(mesh)` its
-    BCs; f_ext lies on any device (None: no load)."""
+def host_norms(build_cpu, material, bc_fn, us, f_ext, scale):
+    """|R| of each u of `us` at `scale`, recomputed by the plain f64 element
+    pass on the host CPU. `build_cpu()` builds the mesh on the CPU,
+    `bc_fn(mesh)` its BCs; f_ext lies on any device (None: no load)."""
     mesh = build_cpu()
     f = torch.zeros((mesh.n_nodes, 3), dtype=torch.float64) if f_ext is None else f_ext.cpu()
     p64 = soa.SoAProblem.build(mesh, torch.float64)
-    _, r = _residual_soa_fn(u.cpu(), scale, p64, material, bc_fn(mesh), f)
-    return float(r), float(r) / r0
+    bc = bc_fn(mesh)
+    return [float(_residual_soa_fn(u.cpu(), scale, p64, material, bc, f)[1]) for u in us]
+
+
+def host_reduction(build_cpu, material, bc_fn, u, f_ext, scale, r0):
+    """(|R|, |R| / r0) of u on the host CPU (`host_norms`), over the
+    increment's first residual r0."""
+    r = host_norms(build_cpu, material, bc_fn, [u], f_ext, scale)[0]
+    return r, r / r0
 
 
 def matfree_full_width(device, card):
@@ -2349,7 +2476,7 @@ def phase_timings(kuhn, five_tet, bcsr, card, against=()):
     resid_df_turns(solver5, u05, "5-tet")
     for name, (err, _) in {**errs, **errs5}.items():
         table[name.split("/")[0]]["max_abs_err"] = err
-    solver_b, u0b, _ = bcsr
+    solver_b, u0b = bcsr[:2]
     bcsr_timings(solver_b, u0b, mat, table)
     print(f"phase 6: {time.perf_counter() - t0:.1f} s")
     return table
@@ -2387,6 +2514,7 @@ def main():
     bcsr = phase_bcsr(device, card)
     table = phase_timings(kuhn, five_tet, bcsr, card, args.against)
     launches = {**kuhn[2], **five_tet[2], **bcsr[2]}
+    step_launches = {**kuhn[4], **five_tet[4], **bcsr[3]}
     kuhn_pcg = kuhn[3]
     del kuhn, five_tet, bcsr  # phases 7 and 8 hold their own peak memory
     torch.cuda.empty_cache()
@@ -2402,6 +2530,7 @@ def main():
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t.get("library_ms"), "device_ms": t["device_ms"],
             **({"library_ms_f32": t["library_ms_f32"]} if "library_ms_f32" in t else {}),
+            "launches_step": step_launches.get(name, 0),
             "launches_phase8": {p: c[name] for p, c in more.items() if name in c},
             "launches_sharded": {p: c[name] for p, c in sharded.items() if name in c},
         })

@@ -25,6 +25,7 @@ from fea_large_tpu_torch.materials import (  # noqa: F401
     NeoHookean,
     NeoHookeanVolumetric,
     StVenantKirchhoff,
+    lame_from_E_nu,
     make_material,
 )
 from fea_large_tpu_torch.mesh.core import Mesh, make_node_sets  # noqa: F401

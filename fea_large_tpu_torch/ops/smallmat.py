@@ -50,6 +50,33 @@ def det3(a: torch.Tensor) -> torch.Tensor:
     )
 
 
+def adjugate3(a: torch.Tensor) -> torch.Tensor:
+    """Adjugate (transposed cofactor matrix) of [..., 3, 3], the
+    reference's cofactors (`inv_det3` keeps its own, the freeze kernel's)."""
+    c00 = a[..., 1, 1] * a[..., 2, 2] - a[..., 1, 2] * a[..., 2, 1]
+    c01 = a[..., 1, 2] * a[..., 2, 0] - a[..., 1, 0] * a[..., 2, 2]
+    c02 = a[..., 1, 0] * a[..., 2, 1] - a[..., 1, 1] * a[..., 2, 0]
+    c10 = a[..., 0, 2] * a[..., 2, 1] - a[..., 0, 1] * a[..., 2, 2]
+    c11 = a[..., 0, 0] * a[..., 2, 2] - a[..., 0, 2] * a[..., 2, 0]
+    c12 = a[..., 0, 1] * a[..., 2, 0] - a[..., 0, 0] * a[..., 2, 1]
+    c20 = a[..., 0, 1] * a[..., 1, 2] - a[..., 0, 2] * a[..., 1, 1]
+    c21 = a[..., 0, 2] * a[..., 1, 0] - a[..., 0, 0] * a[..., 1, 2]
+    c22 = a[..., 0, 0] * a[..., 1, 1] - a[..., 0, 1] * a[..., 1, 0]
+    return torch.stack(
+        [
+            torch.stack([c00, c10, c20], -1),
+            torch.stack([c01, c11, c21], -1),
+            torch.stack([c02, c12, c22], -1),
+        ],
+        -2,
+    )
+
+
+def sym3(a: torch.Tensor) -> torch.Tensor:
+    """Symmetric part of [..., 3, 3]."""
+    return 0.5 * (a + a.transpose(-1, -2))
+
+
 def inv3(a: torch.Tensor) -> torch.Tensor:
     """Inverse of [..., 3, 3] via the adjugate."""
     return inv_det3(a)[0]

@@ -183,7 +183,8 @@ class DeviceLoop:
     `last` (its `DeviceLoopResult`) and `runs` (of each body) the last
     solve. It is built for the solver's f64 residual route, coarse space,
     options, boundary conditions and load as they are at its first solve;
-    `solve` raises if any of them changed since (build it anew instead)."""
+    where any of them changed since (`stale`), the solver builds a loop
+    anew (`NewtonSolver._device_solve`), and `solve` refuses to run."""
 
     def __init__(self, solver):
         self.solver = solver
@@ -211,6 +212,11 @@ class DeviceLoop:
     def _inputs(self) -> tuple:
         s = self.solver
         return (bool(s._resid_df), s._coarse, s.options, s.bc, s.f_ext)
+
+    def stale(self) -> bool:
+        """Whether any of the solver's inputs is no longer the object the
+        loop was built with."""
+        return any(a is not b for a, b in zip(self._inputs(), self._fixed))
 
     def _on_device(self):
         """The solver's card as the current CUDA device (a no-op on the CPU)."""
@@ -352,11 +358,8 @@ class DeviceLoop:
 
     def solve(self, u0: torch.Tensor, scale: float) -> DeviceLoopResult:
         """One increment from u0 at the load factor `scale`."""
-        if any(a is not b for a, b in zip(self._inputs(), self._fixed)):
-            raise RuntimeError(
-                "the solver's f64 residual route, coarse space, options, boundary conditions "
-                "or load changed after its device loop was built; set its _device_loop to None "
-                "to build the loop anew")
+        if self.stale():  # NewtonSolver._device_solve builds a new loop instead
+            raise RuntimeError("the solver's inputs changed after its device loop was built")
         st = self.state
         eager = self._bodies(st) if self._graphs is None else None
         st.u.copy_(self.solver.bc.impose(u0, scale))

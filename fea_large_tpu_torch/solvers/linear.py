@@ -52,6 +52,12 @@ def apply_block_jacobi(inv_blocks, free_mask, r):
     return (inv_blocks * (r * free_mask)[:, None, :]).sum(-1) * free_mask
 
 
+def apply_block_jacobi_T(inv_blocks, free_T, r_T):
+    """`apply_block_jacobi` on component-first vectors: r_T, free_T
+    [3, N], inv_blocks [N, 3, 3] -> [3, N]."""
+    return torch.einsum("nij,jn->in", inv_blocks, r_T * free_T) * free_T
+
+
 def block_jacobi_preconditioner(diag_blocks: torch.Tensor, free_mask: torch.Tensor):
     """The block-Jacobi apply r -> z (see `jacobi_inverse_blocks`)."""
     inv_blocks = jacobi_inverse_blocks(diag_blocks, free_mask)

@@ -754,3 +754,14 @@ def build_multilevel_space(mesh, material, bc, agg_size1: int = 16,
     clock.lap("device_s")
     space.setup.update(clock.seconds, invert="device")
     return space
+
+
+def two_level_preconditioner(coarse, jacobi_apply, free_mask):
+    """Additive two-level apply r -> jacobi_apply(r) + M coarse.apply(r)
+    (M = free_mask: the identity-compatible masked system; both terms SPD
+    on the free subspace)."""
+
+    def apply(r):
+        return jacobi_apply(r) + free_mask * coarse.apply(r)
+
+    return apply

@@ -47,12 +47,20 @@ the f64 residual of the element pass (`_residual_fn`), then one step
 The matrix-free and direct routes are plain PyTorch: the reference runs
 them as XLA-fused einsums and `cho_solve`, outside any Pallas kernel.
 
+One step alone (`_step`, bench.py's FEA_BENCH_MODE=step; `step_fn`, the
+step of entry.py): on the f64 routes the step above; on the
+mixed path (`_step_mixed`) the plain f64 residual, the f32 freeze,
+block-Jacobi plus the coarse correction and chunked f32 PCG
+(`drive_chunked_pcg`), with no fallback to block-Jacobi alone, as the
+reference's step.
+
 `solve` steps the load factor to 1 with bisection on Newton failure.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 
 import torch
@@ -81,12 +89,18 @@ from fea_large_tpu_torch.solvers.linear import (
     pcg_chunk,
     pcg_init,
 )
+from fea_large_tpu_torch.solvers.multilevel import (
+    build_coarse_space,
+    build_multilevel_space,
+    two_level_preconditioner,
+)
 
 
 @dataclasses.dataclass(frozen=True)
 class SolverOptions:
     """Solver configuration: the reference's fields and defaults. The port
-    runs four routes; `NewtonSolver` raises on any other combination:
+    runs four routes; `NewtonSolver` raises ValueError on any other
+    combination:
       * linear="pcg", precision="mixed", preconditioner "jacobi",
         "two_level" (coarse_modes 3, 6 or 12; any other value is a
         ValueError, as in the reference) or "three_level" (aggregates of
@@ -159,22 +173,22 @@ class SolveResult:
         return sum(h.newton_iters for h in self.history)
 
 
-def _unsupported(opts: SolverOptions) -> str | None:
-    """What of `opts` is not ported (NotImplementedError), or None. Raises
-    ValueError where the reference does."""
+def _check_options(opts: SolverOptions) -> None:
+    """Raise ValueError on options no route runs: where the reference
+    raises, and on a `precision` other than "f64" and "mixed" (the
+    reference runs its f64 route for any other string)."""
     if opts.linear not in ("direct", "pcg", "pcg_bcsr"):
         raise ValueError(f"unknown linear solver {opts.linear!r}")
+    if opts.precision not in ("f64", "mixed"):
+        raise ValueError(f"precision must be 'f64' or 'mixed', got {opts.precision!r}")
     if opts.pallas and opts.precision != "mixed":
         raise ValueError("pallas=True requires precision='mixed'")
     if opts.precision == "f64":
-        return None
-    if opts.precision != "mixed":
-        return f"precision={opts.precision!r}"
+        return
     if opts.linear != "pcg":
         raise ValueError("precision='mixed' requires linear='pcg'")
     if opts.preconditioner == "two_level" and opts.coarse_modes not in (3, 6, 12):
         raise ValueError(f"coarse modes must be 3, 6 or 12, got {opts.coarse_modes}")
-    return None
 
 
 def newton_lin_tol(opts, it, norms, norm0, eta):
@@ -304,6 +318,12 @@ def _residual_df_fn(u, scale, soa64, material, bc, f_ext):
     return r, torch.linalg.norm(r)
 
 
+def _to_f32(x: float) -> float:
+    """x rounded to f32 (the mixed path's PCG tolerance, as the
+    reference's f32 scalar)."""
+    return float(torch.tensor(x, dtype=torch.float32))
+
+
 def _mixed_matvec(soa, state, free32_T, v):
     """Masked f32 tangent action M K M v + (I - M) v; v [N, 3]."""
     vm_T = (v.T * free32_T).contiguous()
@@ -313,15 +333,15 @@ def _mixed_matvec(soa, state, free32_T, v):
 
 def _mixed_precond(inv_blocks, free32, coarse):
     """Block-Jacobi, plus the coarse correction of `coarse` when given (a
-    two-level `CoarseSpace` or a three-level `MultilevelSpace`)."""
+    two-level `CoarseSpace` or a three-level `MultilevelSpace`) through
+    `two_level_preconditioner`."""
 
-    def apply(r):
-        z = apply_block_jacobi(inv_blocks, free32, r)
-        if coarse is not None:
-            z = z + free32 * coarse.apply(r)
-        return z
+    def jacobi(r):
+        return apply_block_jacobi(inv_blocks, free32, r)
 
-    return apply
+    if coarse is None:
+        return jacobi
+    return two_level_preconditioner(coarse, jacobi, free32)
 
 
 class NewtonSolver:
@@ -336,9 +356,7 @@ class NewtonSolver:
 
     def __init__(self, mesh, material, bc, f_ext=None, options=None):
         self.options = options or SolverOptions()
-        why = _unsupported(self.options)
-        if why is not None:
-            raise NotImplementedError(f"{why} is not ported (see ROADMAP.md)")
+        _check_options(self.options)
         self.mesh = mesh
         self.material = material
         self.bc = bc
@@ -366,15 +384,11 @@ class NewtonSolver:
         else:
             self._resid_df = bool(self.options.resid_df) and supported
         if self.options.preconditioner == "two_level":
-            from fea_large_tpu_torch.solvers.multilevel import build_coarse_space
-
             self._coarse = build_coarse_space(
                 mesh, material, bc, agg_size=self.options.agg_size,
                 modes=self.options.coarse_modes, soa=self._soa,
             )
         elif self.options.preconditioner == "three_level":
-            from fea_large_tpu_torch.solvers.multilevel import build_multilevel_space
-
             self._coarse = build_multilevel_space(
                 mesh, material, bc, agg_size1=self.options.agg_size or 16,
             )
@@ -395,12 +409,21 @@ class NewtonSolver:
         return self._scatter
 
     def _residual(self, u, scale):
+        """f64 residual (r [N, 3], ||r||): the plain SoA element pass on the
+        mixed path, the assembled path's element pass on the f64 paths."""
+        if self.options.precision == "mixed":
+            return _residual_soa_fn(u, scale, self._soa64, self.material, self.bc, self.f_ext)
         return _residual_fn(u, scale, self.mesh.conn, self.geom, self.material, self.bc,
                             self.f_ext, self.scatter)
 
-    def _step(self, u, scale, lin_tol=None):
-        """One f64 Newton step on the route of `options.linear`."""
+    def _step(self, u, scale, lin_tol=None, r64=None):
+        """One Newton step on the route of `options` (bench.py's step mode):
+        (u + du, PCG iterations, converged, final relative PCG residual).
+        `lin_tol` replaces pcg_tol; `r64`, the f64 residual at u, is used
+        by the mixed step only."""
         opts = self.options
+        if opts.precision == "mixed":
+            return self._step_mixed(u, scale, lin_tol, r64=r64)
         args = (u, scale, self.mesh.conn, self.geom, self.material, self.bc, self.f_ext,
                 self.scatter)
         if opts.linear == "direct":
@@ -410,36 +433,83 @@ class NewtonSolver:
             return _step_matfree_fn(*args, tol, opts.pcg_maxiter)
         return _step_bcsr_fn(*args, self.bcsr, tol, opts.pcg_maxiter)
 
+    def _mixed_prepare(self, u, scale, r64=None):
+        """The mixed step's set-up at u (the reference's
+        `_mixed_prepare_fn`): the f64 residual `r64` (the plain f64 SoA
+        pass when not given), the f32 freeze, block-Jacobi and the
+        preconditioner. Returns (matvec, precond, b32)."""
+        if r64 is None:
+            r64, _ = _residual_soa_fn(u, scale, self._soa64, self.material, self.bc, self.f_ext)
+        free32 = self.bc.free_mask.to(torch.float32)
+        free32_T = free32.T.contiguous()
+        state = self._freeze(u)
+        diag = soa_diag_blocks(self._soa, state).permute(2, 0, 1)
+        precond = _mixed_precond(jacobi_inverse_blocks(diag, free32), free32, self._coarse)
+
+        def matvec(v):
+            return _mixed_matvec(self._soa, state, free32_T, v)
+
+        return matvec, precond, r64.to(torch.float32)
+
+    def _step_mixed(self, u, scale, lin_tol=None, r64=None):
+        """One mixed-precision Newton step: `_mixed_prepare`, then
+        `_chunked_pcg` from zero at `lin_tol` (else pcg_tol) rounded to
+        f32, its first chunk after the set-up (the zero start is the first
+        best iterate), as the reference's step; a breakdown restart
+        rebuilds only the Krylov state. No fallback to block-Jacobi alone."""
+        tol = _to_f32(self.options.pcg_tol if lin_tol is None else lin_tol)
+        matvec, precond, b = self._mixed_prepare(u, scale, r64)
+        x, iters, ok, rel = self._chunked_pcg(matvec, precond, b, tol, first_chunk=False)
+        return u + x.to(u.dtype), iters, ok, rel
+
+    def step_fn(self, u, scale):
+        """One Newton step as a plain function of (u, scale) (the step of
+        entry.py): on the mixed path `_mixed_prepare` and
+        one PCG chunk of at most pcg_chunk iterations at pcg_tol in f32,
+        returning (u + x, iterations, no breakdown, ||r||); on every other
+        route `_step`."""
+        opts = self.options
+        if opts.precision != "mixed":
+            return self._step(u, scale)
+        matvec, precond, b = self._mixed_prepare(u, scale)
+        st = pcg_chunk(matvec, pcg_init(matvec, b, precond, tol=_to_f32(opts.pcg_tol)), precond,
+                       maxiter=opts.pcg_chunk)
+        return u + st.x.to(u.dtype), st.k, st.ok, math.sqrt(st.rr)
+
     def _freeze(self, u):
         """f32 tangent state at u [N, 3]."""
         return soa_freeze(self._soa, self.material, u.to(torch.float32).T.contiguous())
+
+    def _chunked_pcg(self, matvec, precond, b, tol, first_chunk):
+        """Chunked PCG from zero on the masked f32 tangent system through
+        `drive_chunked_pcg`, in chunks of pcg_chunk up to pcg_maxiter
+        iterations (`first_chunk`: the first chunk runs with the set-up).
+        Returns (x, iterations, converged, rel)."""
+        opts = self.options
+
+        def prepare(x0):
+            st = pcg_init(matvec, b, precond, x0=x0, tol=tol)
+            if x0 is None and first_chunk:
+                st = pcg_chunk(matvec, st, precond, maxiter=min(opts.pcg_chunk, opts.pcg_maxiter))
+            return st
+
+        def chunk(st, n):
+            return pcg_chunk(matvec, st, precond, maxiter=n)
+
+        return drive_chunked_pcg(prepare, chunk, tol=tol, chunk_iters=opts.pcg_chunk,
+                                 maxiter=opts.pcg_maxiter)
 
     def _linear_solve(self, state, inv_blocks, b, lin_tol, free32, free32_T):
         """Chunked PCG on the masked f32 tangent system; a preconditioner with
         a coarse correction falls back to block-Jacobi alone when its solve
         is not accepted. Returns (x, iterations, accepted)."""
-        opts = self.options
 
         def matvec(v):
             return _mixed_matvec(self._soa, state, free32_T, v)
 
         def run(coarse, first_chunk):
-            precond = _mixed_precond(inv_blocks, free32, coarse)
-
-            def prepare(x0):
-                st = pcg_init(matvec, b, precond, x0=x0, tol=lin_tol)
-                if x0 is None and first_chunk:
-                    st = pcg_chunk(matvec, st, precond,
-                                   maxiter=min(opts.pcg_chunk, opts.pcg_maxiter))
-                return st
-
-            def chunk(st, n):
-                return pcg_chunk(matvec, st, precond, maxiter=n)
-
-            return drive_chunked_pcg(
-                prepare, chunk, tol=lin_tol, chunk_iters=opts.pcg_chunk,
-                maxiter=opts.pcg_maxiter,
-            )
+            return self._chunked_pcg(matvec, _mixed_precond(inv_blocks, free32, coarse), b,
+                                     lin_tol, first_chunk)
 
         x, iters, ok, rel = run(self._coarse, True)
         accept = ok or rel <= 1e-3
@@ -453,12 +523,16 @@ class NewtonSolver:
         return x, iters, accept
 
     def _device_solve(self, u, scale):
-        """One increment on the device loop (solvers/device_loop.py),
-        built at first use and kept: its graphs are captured once per
-        solver. Returns a `DeviceLoopResult`."""
-        if self._device_loop is None:
+        """One increment on the device loop (solvers/device_loop.py). The
+        loop is built at first use and kept, so its graphs are captured
+        once per solver; where the solver's f64 residual route, coarse
+        space, options, boundary conditions or load are no longer the
+        objects it was built with, it is built anew (and recaptured).
+        Returns a `DeviceLoopResult`."""
+        if self._device_loop is None or self._device_loop.stale():
             from fea_large_tpu_torch.solvers.device_loop import DeviceLoop
 
+            self._device_loop = None  # release the old graphs before the capture
             self._device_loop = DeviceLoop(self)
         return self._device_loop.solve(u, scale)
 

@@ -32,9 +32,9 @@ the device solve is continued by the host loop, with no bisection; (e)
 `device_forcing` is bitwise `newton_lin_tol` on the reference test's norm
 histories and on random ones; the device-state PCG against the
 reference's `pcg_init`/`pcg_chunk`; the three-level and 12-mode
-preconditioners and a poisoned residual on both loops; a loop whose
-solver's inputs changed refuses to solve; and the options and task loader
-field for field.
+preconditioners and a poisoned residual on both loops; a change to the
+solver's inputs builds a new loop, which solves as a fresh solver's; and
+the options and task loader field for field.
 """
 
 import dataclasses
@@ -343,22 +343,33 @@ def test_poisoned_residual_bisects_on_both_loops():
 
 
 def test_device_loop_refuses_changed_inputs():
-    """The loop is built for the solver's f64 residual route, options and
-    load at its first solve; after a change it raises rather than run the
-    bodies it was built with, and a loop built anew runs."""
+    """The loop is built for the solver's f64 residual route, options,
+    boundary conditions and load at its first solve. After a change to any
+    of them the solver builds a new loop (the reference reads its inputs
+    on every call): the solve equals a fresh solver's under the changed
+    inputs bitwise, and the old loop, now stale, refuses to solve."""
     mesh, mat, bc = _problem(3)
-    solver = NewtonSolver(mesh, mat, bc, options=SolverOptions(**JACOBI))
     u0 = torch.zeros((mesh.n_nodes, 3), dtype=torch.float64)
+    f_ext = torch.zeros((mesh.n_nodes, 3), dtype=torch.float64)
+    f_ext[:, 0] = 1e-4
+    bc2 = DirichletBuilder(mesh).fix("zmin").prescribe("zmax", "z", -0.08).build()
+    solver = NewtonSolver(mesh, mat, bc, options=SolverOptions(**JACOBI))
     assert solver._device_solve(u0, 1.0).n_iters >= 1
-    solver._resid_df = not solver._resid_df
-    with pytest.raises(RuntimeError, match="changed after its device loop was built"):
-        solver._device_solve(u0, 1.0)
-    solver._resid_df = not solver._resid_df
-    solver.options = dataclasses.replace(solver.options, pcg_tol=1e-3)
-    with pytest.raises(RuntimeError, match="changed after its device loop was built"):
-        solver._device_solve(u0, 1.0)
-    solver._device_loop = None
-    assert solver._device_solve(u0, 1.0).n_iters >= 1
+    changes = [("_resid_df", True), ("options", SolverOptions(**dict(JACOBI, pcg_tol=1e-3))),
+               ("f_ext", f_ext), ("bc", bc2)]
+    for name, value in changes:
+        old = solver._device_loop
+        setattr(solver, name, value)
+        assert old.stale()
+        out = solver._device_solve(u0, 1.0)
+        assert solver._device_loop is not old and not solver._device_loop.stale()
+        with pytest.raises(RuntimeError, match="changed after its device loop was built"):
+            old.solve(u0, 1.0)
+        fresh = NewtonSolver(mesh, mat, solver.bc, f_ext=solver.f_ext, options=solver.options)
+        fresh._resid_df = solver._resid_df
+        ref = fresh._device_solve(u0, 1.0)
+        assert torch.equal(out.u, ref.u) and out.pcg_iters == ref.pcg_iters
+        assert out.residual_norms == ref.residual_norms
 
 
 def test_task_loader_keeps_device_loop_fields(tmp_path):

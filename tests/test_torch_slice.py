@@ -164,7 +164,10 @@ def test_pallas_option_changes_nothing():
 
 @pytest.mark.parametrize("bad", [dict(precision="f32")])
 def test_newton_solver_rejects_unported_options(case, bad):
-    with pytest.raises(NotImplementedError):
+    """A precision other than "f64" and "mixed" is a ValueError naming the
+    two (the reference runs its f64 route for any other string; its docs
+    and task format name only the two)."""
+    with pytest.raises(ValueError, match="'f64' or 'mixed'"):
         NewtonSolver(case.mesh, NeoHookean(1.0, 0.6), case.bc, options=SolverOptions(**{**BENCH, **bad}))
 
 
