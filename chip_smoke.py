@@ -66,6 +66,11 @@ Phases:
      within 1e-7 of max |u| of the host loop's, both PCG lists beside the
      TPU's; s/step (median and range of each loop), host fetches per
      solve, capture seconds, graph nodes, peak memory and setup seconds.
+     The host loop's CG runs the mixed route's PCG chunk (the reference's
+     `pcg_chunk`: captured graphs, the CG iteration under a WHILE node,
+     solvers/linear.py `DevicePCGChunk`): its capture seconds, fetches per
+     solve and peak memory, and one solve with the chunks' bodies run
+     eagerly on the card beside it (u bitwise, the same PCG list).
      Counts set to 0 before the setup and read after the device-loop
      solves: every kernel of the path launched (the setup's probes and the
      loop's warm-up eagerly, the rest by the replays: launches per capture
@@ -79,19 +84,25 @@ Phases:
      bench.py's step mode (FEA_BENCH_MODE=step: `NewtonSolver._step` with
      forcing "fixed", the mixed step: the plain f64 residual, the freeze,
      block-Jacobi plus the coarse correction, chunked f32 PCG at pcg_tol
-     1e-6): a warm-up and 3 timed steps (s/step median and range, PCG
-     iterations, ok, rel), all bitwise equal, counts set to 0 just before
-     and read just after (B1-B3 or B6-B7 launched, the tangent action at
-     least once per PCG iteration), the stepped u's f64 residual
-     recomputed on the host CPU under the start's; one `step_fn` (one PCG
-     chunk); phase 3 also `entry()`'s step (entry.py) on the card against
-     its CPU run (1e-10 of max |u|), and phase 5 one `step_fn` on its
-     route (the f64 step: B10 at least once per PCG iteration);
+     1e-6 on the PCG chunk): a warm-up (with the chunk's capture) and 3
+     timed steps (s/step median and range, PCG iterations, ok, rel, host
+     fetches per step, capture seconds, peak memory), all bitwise equal,
+     counts set to 0 just before and read just after (B1-B3 or B6-B7
+     launched, the tangent action at least once per PCG iteration, the
+     replays included), one step with eager chunks beside (bitwise), the
+     stepped u's f64 residual recomputed on the host CPU under the
+     start's; one `step_fn` (one run of the chunk, one fetch); phase 3
+     also `entry()`'s step (entry.py) on the card against its CPU run
+     (1e-10 of max |u|), and phase 5 one `step_fn` on its route (the f64
+     step: B10 at least once per PCG iteration, two fetches);
   5. the f64 BCSR path: config 2 of tests/test_parity.py (TET10 box 2^3,
      zmax -0.2, two increments, pcg_tol 1e-13) against the reference's
-     counts, then full width: one warm-up and one timed solve (bitwise-equal
-     u and equal PCG lists), B10 launched at least once per PCG iteration,
-     peak memory, and the host CPU recheck of the converged residual;
+     counts, then full width: one warm-up (with the PCG chunk's capture)
+     and one timed solve (bitwise-equal u and equal PCG lists), the
+     chunk's host fetches per solve (two a Newton step: the solve and its
+     restart) and one solve with eager chunks beside (bitwise), B10
+     launched at least once per PCG iteration (replays included), peak
+     memory, and the host CPU recheck of the converged residual;
   6. timings at full width: each kernel and its plain version with CUDA
      events around each call (median of 10: `ms`, `plain_ms`; the host's
      launch path is in it when the kernel is shorter than its wrapper's
@@ -103,7 +114,9 @@ Phases:
      rate (csrc/probe_kernels.cu, a yardstick outside the port) beside the
      data sheet's, which the bounds use; B10 beside cuSPARSE's BSR product
      (`torch.sparse_bsr_tensor @ x`), the passes of one Newton and one PCG
-     iteration on every path, the pieces of a replayed PCG iteration
+     iteration on every path (a PCG iteration of the host loop: a captured
+     chunk's run, beside the eager `pcg_chunk`), the pieces of a replayed
+     PCG iteration
      (Kuhn and 5-tet), each captured into a CUDA graph of its own and
      replayed, and the Kuhn and the 5-tet solves with the
      plain and the fused f64 residual in turns; with `--against CHECKOUT
@@ -114,7 +127,9 @@ Phases:
   7. the f64 matrix-free, direct and CLI paths, none of which launches a
      kernel of the port: (a) bench.py's f64 mode at full width (1,073,733
      DOF; setup, one warm-up and three timed solves, bitwise-equal u and
-     equal PCG lists, s/step, peak memory, the host CPU recheck, and the ms
+     equal PCG lists, s/step, peak memory, the PCG chunk's fetches and
+     capture, one solve with eager chunks beside (bitwise), the host CPU
+     recheck, and the ms
      of TangentState.freeze, the scattered element_diag_blocks and one
      masked apply_tangent product); (b) the dense direct path on
      tasks/uniaxial_tet4.json (1,029 DOF) and on config 2's compression of
@@ -170,7 +185,8 @@ Phases:
      where there are 4 cards, (a) again with one NCCL rank per card,
      bitwise equal to (a)'s gloo run;
   10. a JSON line of the kernels (`launches`: on the main path of phases
-     3-5, the device loop's replays included; beside it each kernel's
+     3-5, the replays of the device loop's and the PCG chunks' graphs
+     included; beside it each kernel's
      launches on the step routes of phases 3-5 (`launches_step`), on phase
      8's paths and, summed over the ranks, on phase 9's), then the result
      line.
@@ -233,6 +249,7 @@ from fea_large_tpu_torch.ops import elem_kernels as ek, struct_kernels as sk
 from fea_large_tpu_torch.ops.pooling import make_lattice_pool
 from fea_large_tpu_torch.solvers import device_loop as dl, multilevel as ml
 from fea_large_tpu_torch.solvers.linear import (
+    DevicePCGChunk,
     apply_block_jacobi,
     block_jacobi_preconditioner,
     dense_cholesky_solve,
@@ -446,8 +463,44 @@ def reset_launches():
 
 
 def wrapper_counts(names):
-    """The kernel wrappers' launch counts of `names` (KERNELS keys)."""
+    """The kernel wrappers' launch counts of `names` (KERNELS keys): the
+    eager launches (a capture takes its counts back)."""
     return {k: KERNELS[k][0][KERNELS[k][1]] for k in names}
+
+
+def launch_counts(names):
+    """Every launch of `names`: the wrappers' eager ones and those of the
+    replayed graphs (the device loop's and the PCG chunks')."""
+    return {k: KERNELS[k][0][KERNELS[k][1]] + cuda_graphs.REPLAYED[k] for k in names}
+
+
+def chunk_stats(solver):
+    """(fetches, capture seconds, graph nodes) over the PCG chunks of the
+    solver's routes (solvers/newton.py `_ChunkRoute`); every chunk on the
+    card captured."""
+    chunks = {f"{r}/{k}": c for r, route in solver._routes.items() for k, c in route.chunks.items()}
+    check(all(c.captured for c in chunks.values()) or solver._capture_chunks is False,
+          "every PCG chunk on the card runs as captured graphs")
+    return (sum(c.fetches for c in chunks.values()), sum(c.capture_s for c in chunks.values()),
+            {name: c.graph_nodes for name, c in chunks.items()})
+
+
+def eager_beside(label, solver, run, u_graph, pcg_graph):
+    """`run(other)` -> (u, PCG list) once on a copy of `solver` whose PCG
+    chunks run their bodies eagerly on the card (one fetch of `active` an
+    iteration), beside the graph route's (u_graph, pcg_graph): the same
+    PCG list and u bitwise. Returns its seconds and fetches."""
+    other = with_options(solver)
+    other._capture_chunks = False
+    t0 = time.perf_counter()
+    u, pcg = run(other)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    same = torch.equal(u, u_graph) and pcg == pcg_graph
+    print(f"  {label}, the same call with eager chunks: {dt:.4f} s, pcg {pcg}; u bitwise the "
+          f"graph chunk's: {same}")
+    check(same, f"{label}: the graph chunk's u and PCG list are the eager chunk's, bitwise")
+    return {"eager_s": dt, "eager_pcg": pcg, "bitwise": same}
 
 
 def smooth_fields(coords_host, device, dtype=torch.float32):
@@ -769,10 +822,12 @@ def f64_residuals(rec):
 
 def with_options(solver, **changes):
     """The same setup (meshes, SoA tables, coarse space) under other
-    options: a shallow copy of `solver` with its own device loop."""
+    options: a shallow copy of `solver` with its own device loop and PCG
+    chunks."""
     other = copy.copy(solver)
     other.options = dataclasses.replace(solver.options, **changes)
     other._device_loop = None
+    other._routes = {}
     return other
 
 
@@ -850,9 +905,8 @@ def full_width(label, build, opts, keys, device, card):
     dev_runs = timed_solves(f"{label} device loop", lambda: solver._newton(u0, 1.0), LOOP_REPS)
     check(wrapper_counts(keys) == ticks,
           f"no kernel wrapper called during the {label} device loop's replayed solves")
-    captured = {k: sum(c.get(k, 0) for c in loop.per_capture.values()) for k in keys}
     replayed = {k: dl.REPLAYED[k] for k in keys}
-    launches = {k: ticks[k] - captured[k] + replayed[k] for k in keys}
+    launches = {k: ticks[k] + replayed[k] for k in keys}
     peak = torch.cuda.max_memory_allocated()
     fetches, runs = loop.last.fetches, dict(loop.runs)
     ud, recd, _ = dev_runs[0]
@@ -862,19 +916,35 @@ def full_width(label, build, opts, keys, device, card):
           f"solves): {launches}; by the replays: {replayed}; per capture: {loop.per_capture}")
     print(f"device loop: body runs per solve {runs}, host fetches per solve {fetches}, peak device "
           f"memory {peak} B ({peak / 2**30:.2f} GiB)")
-    check(all(replayed[k] > 0 for k in keys if k in captured and captured[k]),
+    captured = {k for c in loop.per_capture.values() for k in c}
+    check(all(replayed[k] > 0 for k in keys if k in captured),
           f"every kernel of the {label} loop's bodies launched by the replays")
     check(all(v > 0 for v in launches.values()), f"every kernel of the {label} path launched")
     resid = next(k for k in keys if k.endswith("_resid"))
     n_f64 = f64_residuals(recd) * (1 + LOOP_REPS)
     print(f"f64 residuals in the device-loop solves: {n_f64}, {resid} replays: {replayed[resid]}")
     check(replayed[resid] == n_f64, f"{resid} launched once per f64 residual")
-    # the host loop on the same setup
-    host_before = wrapper_counts(keys)
-    host_runs = timed_solves(f"{label} host loop", lambda: solver._newton_mixed_host(u0, 1.0),
-                             1 + LOOP_REPS)[1:]
+    # the host loop on the same setup: its CG on the mixed route's chunks
+    host_before = launch_counts(keys)
+    torch.cuda.reset_peak_memory_stats()
+    host = with_options(solver)
+    warm = timed_solves(f"{label} host loop (first solve with the chunk's capture)",
+                        lambda: host._newton_mixed_host(u0, 1.0), 1)
+    fetch0, host_capture_s, host_nodes = chunk_stats(host)
+    host_runs = timed_solves(f"{label} host loop", lambda: host._newton_mixed_host(u0, 1.0),
+                             LOOP_REPS)
     uh, rech, _ = host_runs[0]
-    host_launches = {k: v - host_before[k] for k, v in wrapper_counts(keys).items()}
+    host_fetches = (chunk_stats(host)[0] - fetch0) / LOOP_REPS
+    host_peak = torch.cuda.max_memory_allocated()
+    host_launches = {k: v - host_before[k] for k, v in launch_counts(keys).items()}
+    check(torch.equal(warm[0][0], uh), f"{label}: the host loop's capturing solve bitwise the rest")
+    print(f"{label} host loop: PCG chunk capture {host_capture_s:.3f} s, graph nodes {host_nodes}, "
+          f"host fetches of the chunks per solve {host_fetches:g} (a Newton iteration: one run of "
+          f"at most pcg_chunk {solver.options.pcg_chunk}); peak device memory {host_peak} B "
+          f"({host_peak / 2**30:.2f} GiB)")
+    host_eager = eager_beside(f"{label} host loop", solver,
+                              lambda o: (lambda out: (out[0], out[2].pcg_iters))(
+                                  o._newton_mixed_host(u0, 1.0)), uh, rech.pcg_iters)
     check(recd.newton_iters == rech.newton_iters,
           f"{label}: the device loop takes the host loop's Newton count")
     du = float((ud - uh).abs().max() / uh.abs().max())
@@ -900,6 +970,8 @@ def full_width(label, build, opts, keys, device, card):
         "host_reduction": red_cpu, "u_vs_host_loop": du,
         "s_per_step": dsteps, "s_per_step_median": statistics.median(dsteps),
         "s_per_step_host_loop": hsteps, "s_per_step_host_loop_median": statistics.median(hsteps),
+        "host_loop_chunk_fetches_per_solve": host_fetches, "host_loop_chunk_capture_s":
+        host_capture_s, "host_loop_peak_bytes": host_peak, "host_loop_eager_chunk": host_eager,
         "fetches_per_solve": fetches, "capture_s": loop.capture_s, "graph_nodes": loop.graph_nodes,
         "body_runs_per_solve": runs, "setup_s": t_setup, "peak_bytes": peak,
         "setup_peak_bytes": setup_peak, "device_loop_bytes": held,
@@ -951,13 +1023,18 @@ def step_mode(label, solver, u0, keys, build, card):
     Returns the steps' launches of `keys`."""
     other = with_options(solver, forcing="fixed")
     reset_launches()
+    torch.cuda.reset_peak_memory_stats()
     runs = []
-    for _ in range(1 + STEP_REPS):
+    for rep in range(1 + STEP_REPS):
         t0 = time.perf_counter()
         out = other._step(u0, 1.0)
         torch.cuda.synchronize()
         runs.append((out, time.perf_counter() - t0))
-    launches = wrapper_counts(keys)
+        if rep == 0:
+            fetch0, capture_s, nodes = chunk_stats(other)
+    launches = launch_counts(keys)
+    peak = torch.cuda.max_memory_allocated()
+    fetches = (chunk_stats(other)[0] - fetch0) / STEP_REPS
     (u1, it1, ok1, rel1), warm_s = runs[0]
     for (u, it, _, _), _ in runs[1:]:
         check(torch.equal(u, u1) and it == it1, f"{label} step mode: repeat steps bitwise equal")
@@ -965,8 +1042,13 @@ def step_mode(label, solver, u0, keys, build, card):
     apply_key = next(k for k in keys if k.endswith("_apply"))
     print(f"{label} step mode (bench.py FEA_BENCH_MODE=step, pcg_tol "
           f"{other.options.pcg_tol}): s/step median {statistics.median(secs):.5f}, range "
-          f"{min(secs):.5f}-{max(secs):.5f} (warm-up {warm_s:.5f}); pcg {it1}, ok={ok1}, "
-          f"rel {rel1:.3e}; launches over {1 + STEP_REPS} steps {launches}")
+          f"{min(secs):.5f}-{max(secs):.5f} (warm-up {warm_s:.5f}, with the chunk's capture "
+          f"{capture_s:.3f} s); pcg {it1}, ok={ok1}, rel {rel1:.3e}; host fetches of the chunk "
+          f"per step {fetches:g}; graph nodes {nodes}; peak device memory {peak} B "
+          f"({peak / 2**30:.2f} GiB); launches over {1 + STEP_REPS} steps (eager and replayed) "
+          f"{launches}, replayed {dict((k, dl.REPLAYED[k]) for k in keys)}")
+    eager = eager_beside(f"{label} step mode", other,
+                         lambda o: (lambda out: (out[0], [out[1]]))(o._step(u0, 1.0)), u1, [it1])
     check(all(launches[k] > 0 for k in keys if k.endswith(("_freeze", "_diag", "_apply"))),
           f"the {label} step launches its freeze, diagonal and tangent-action kernels")
     check(launches[apply_key] >= (1 + STEP_REPS) * it1,
@@ -977,13 +1059,17 @@ def step_mode(label, solver, u0, keys, build, card):
     print(f"host CPU f64 residual: start {r_start:.6e}, after the step {r_step:.6e} "
           f"({r_step / r_start:.3e})")
     check(r_step < r_start, f"the {label} step lowers the f64 residual")
+    fetch0 = chunk_stats(other)[0]
     t0 = time.perf_counter()
     u_f, k, ok, rnorm = other.step_fn(u0, 1.0)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
+    fn_fetches = chunk_stats(other)[0] - fetch0
     same = k == it1 and torch.equal(u_f, u1)
     print(f"{label} step_fn (one chunk of at most {other.options.pcg_chunk}): {dt:.5f} s, pcg {k}, "
-          f"ok={ok}, |r| {rnorm:.3e}; bitwise the step's u: {same}")
+          f"ok={ok}, |r| {rnorm:.3e}, host fetches of the chunk {fn_fetches}; bitwise the step's "
+          f"u: {same}")
+    check(fn_fetches == 1, f"{label} step_fn: one fetch of the chunk")
     check(bool(torch.isfinite(u_f).all()) and u_f.shape == u0.shape and 0 < k
           <= other.options.pcg_chunk, f"{label} step_fn gives a finite u [N, 3] in one chunk")
     check(same or k != it1, f"{label} step_fn bitwise the step where it took the step's count")
@@ -991,7 +1077,10 @@ def step_mode(label, solver, u0, keys, build, card):
         "path": f"{label} step mode", "s_per_step": secs, "s_per_step_median":
         statistics.median(secs), "warmup_s": warm_s, "pcg_iters": it1, "ok": ok1, "rel": rel1,
         "host_residual_start": r_start, "host_residual_step": r_step, "launches": launches,
-        "step_fn": {"s": dt, "pcg_iters": k, "ok": ok, "r_norm": rnorm}, "card": card}))
+        "chunk_fetches_per_step": fetches, "chunk_capture_s": capture_s, "peak_bytes": peak,
+        "eager_chunk": eager,
+        "step_fn": {"s": dt, "pcg_iters": k, "ok": ok, "r_norm": rnorm, "fetches": fn_fetches},
+        "card": card}))
     return launches
 
 
@@ -1057,6 +1146,46 @@ def phase_5tet(device, card):
     return out + (steps,)
 
 
+def f64_solves(label, solver, u0, reps, keys=()):
+    """Solves of an f64 PCG route (phase 5, 7a): one per name in `reps`,
+    the first capturing the route's PCG chunk, each converged to a
+    reduction <= 1e-6, all bitwise equal in u and PCG list; the chunk's
+    host fetches per solve and its capture seconds, the launches of `keys`
+    so far (eager and replayed), then one solve with eager chunks beside
+    (`eager_beside`). Returns a dict of runs [(u, record, s)], fetches,
+    capture_s, launches, eager."""
+    runs = []
+    for i, rep in enumerate(reps):
+        t0 = time.perf_counter()
+        u, ok, rec = solver._newton(u0, 1.0)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        red = rec.residual_norms[-1] / rec.residual_norms[0]
+        print(f"{rep} solve: {dt:.4f} s, newton {rec.newton_iters}, pcg {rec.pcg_iters} "
+              f"(total {sum(rec.pcg_iters)}), |R| {rec.residual_norms[0]:.6e} -> "
+              f"{rec.residual_norms[-1]:.6e} (reduction {red:.3e}), "
+              f"{dt / max(rec.newton_iters, 1):.5f} s/step")
+        check(ok and red <= 1e-6, f"{label} {rep} solve converged to reduction <= 1e-6")
+        runs.append((u, rec, dt))
+        if i == 0:
+            fetch0, capture_s, nodes = chunk_stats(solver)
+    ua, reca, _ = runs[0]
+    for u, rec, _ in runs[1:]:
+        check(torch.equal(ua, u), f"every {label} solve gives bitwise-equal u")
+        check(rec.pcg_iters == reca.pcg_iters and rec.residual_norms == reca.residual_norms,
+              f"every {label} solve gives identical PCG lists and residual norms")
+    fetches = (chunk_stats(solver)[0] - fetch0) / max(len(runs) - 1, 1)
+    launches = launch_counts(keys)
+    print(f"{label}: PCG chunk capture {capture_s:.3f} s, graph nodes {nodes}, host fetches of the "
+          f"chunk per solve {fetches:g} ({fetches / reca.newton_iters:g} a Newton step: the solve "
+          f"and its restart)")
+    eager = eager_beside(f"{label} solve", solver,
+                         lambda o: (lambda out: (out[0], out[2].pcg_iters))(o._newton(u0, 1.0)),
+                         ua, reca.pcg_iters)
+    return {"runs": runs, "fetches": fetches, "capture_s": capture_s, "launches": launches,
+            "eager": eager}
+
+
 def phase_bcsr(device, card):
     print(f"== phase 5: f64 BCSR path ({card})")
     t0 = time.perf_counter()
@@ -1092,23 +1221,13 @@ def phase_bcsr(device, card):
     print(f"bcsr n={n}: {mesh.n_nodes} nodes, {mesh.n_elements} tets, {mesh.n_dof} DOF, "
           f"nnzb {st.nnzb} ({st.nnzb / st.n_nodes:.1f} blocks per row); mesh {t_mesh:.2f} s, "
           f"solver setup (host BCSR build) {t_setup:.2f} s")
-    runs = []
-    for rep in ("warm-up", "timed"):
-        t3 = time.perf_counter()
-        u, ok, rec = solver._newton(u0, 1.0)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t3
-        red = rec.residual_norms[-1] / rec.residual_norms[0]
-        print(f"{rep} solve: {dt:.4f} s, newton {rec.newton_iters}, pcg {rec.pcg_iters} "
-              f"(total {sum(rec.pcg_iters)}), |R| {rec.residual_norms[0]:.6e} -> "
-              f"{rec.residual_norms[-1]:.6e} (reduction {red:.3e}), "
-              f"{dt / max(rec.newton_iters, 1):.5f} s/step")
-        check(ok and red <= 1e-6, f"bcsr {rep} solve converged to reduction <= 1e-6")
-        runs.append((u, rec, dt))
-    launches = bk.LAUNCHES["spmv"]
+    f64_solve = f64_solves("bcsr", solver, u0, ("warm-up", "timed"), ["bcsr_spmv"])
+    runs, fetches, capture_s = f64_solve["runs"], f64_solve["fetches"], f64_solve["capture_s"]
+    launches = f64_solve["launches"]["bcsr_spmv"]
     total_pcg = sum(sum(r.pcg_iters) for _, r, _ in runs)
     peak = torch.cuda.max_memory_allocated()
-    print(f"bcsr_spmv launches (2 solves): {launches}, PCG iterations: {total_pcg}")
+    print(f"bcsr_spmv launches (2 solves, eager and replayed): {launches}, replayed "
+          f"{dl.REPLAYED['bcsr_spmv']}, PCG iterations: {total_pcg}")
     print(f"peak device memory: {peak} B ({peak / 2**30:.2f} GiB)")
     check(launches >= total_pcg, "B10 launched at least once per PCG iteration")
     (ua, reca, _), (ub, recb, dtb) = runs
@@ -1126,22 +1245,28 @@ def phase_bcsr(device, card):
     # entry.py's step (`step_fn`, here `_step`) on this route, counts
     # set to 0 just before it and read just after
     reset_launches()
+    fetch0 = chunk_stats(solver)[0]
     t3 = time.perf_counter()
     u_s, k_s, ok_s, rel_s = solver.step_fn(u0, 1.0)
     torch.cuda.synchronize()
     dt_s = time.perf_counter() - t3
-    step_launches = bk.LAUNCHES["spmv"]
+    step_launches = launch_counts(["bcsr_spmv"])["bcsr_spmv"]
+    step_fetches = chunk_stats(solver)[0] - fetch0
     print(f"step_fn (one f64 step at pcg_tol {solver.options.pcg_tol}): {dt_s:.4f} s, pcg {k_s}, "
-          f"ok={ok_s}, rel {rel_s:.3e}, bcsr_spmv launches {step_launches}")
+          f"ok={ok_s}, rel {rel_s:.3e}, bcsr_spmv launches {step_launches} (replayed), host "
+          f"fetches of the chunk {step_fetches}")
+    check(step_fetches == 2, "step_fn on the BCSR path: two fetches (the solve and its restart)")
     check(bool(torch.isfinite(u_s).all()) and 0 < k_s <= step_launches,
           "step_fn on the BCSR path: a finite u, B10 at least once per PCG iteration")
     summary = {
         "path": "bcsr", "n_dof": mesh.n_dof, "nnzb": st.nnzb, "newton_iters": recb.newton_iters,
-        "pcg_iters": recb.pcg_iters, "residual_reduction": red, "s_per_step": dtb / recb.newton_iters,
+        "pcg_iters": recb.pcg_iters, "residual_reduction":
+        recb.residual_norms[-1] / recb.residual_norms[0], "s_per_step": dtb / recb.newton_iters,
         "solve_s": [dt for _, _, dt in runs], "setup_s": t_setup, "peak_bytes": peak,
-        "launches": {"bcsr_spmv": launches}, "card": card,
+        "launches": {"bcsr_spmv": launches}, "card": card, "chunk_fetches_per_solve": fetches,
+        "chunk_capture_s": capture_s, "eager_chunk": f64_solve["eager"],
         "step_fn": {"s": dt_s, "pcg_iters": k_s, "ok": ok_s, "rel": rel_s,
-                    "launches": step_launches},
+                    "launches": step_launches, "fetches": step_fetches},
     }
     print("slice: " + json.dumps(summary))
     print(f"phase 5: {time.perf_counter() - t0:.1f} s")
@@ -1219,10 +1344,12 @@ def loop_iteration_ms(solver, label):
     """Phase 6: one PCG iteration of each loop, on the state the device
     loop's last solve left: the replayed `cg` program with its CG_UNROLL IF
     nodes all taken (stop 0; CUDA events around each launch, median of 5,
-    over CG_UNROLL), and the host loop's `pcg_chunk` of CG_UNROLL iterations
-    on the same frozen state and right-hand side (host clock ending in a
-    synchronise, median of 5); then one replayed `head` (x set to 0, so u
-    stays). The next solve resets the state."""
+    over CG_UNROLL); the host loop's, a run of CG_UNROLL iterations of a
+    captured PCG chunk (its WHILE node, tol 0) on the same frozen state and
+    right-hand side, and the eager `pcg_chunk` (the sharded ranks' host
+    loop) beside it (host clock ending in a synchronise, median of 5);
+    then one replayed `head` (x set to 0, so u stays). The next solve
+    resets the state."""
     loop = solver._device_loop
     st, k = loop.state, dl.CG_UNROLL
 
@@ -1241,23 +1368,31 @@ def loop_iteration_ms(solver, label):
         return _mixed_matvec(solver._soa, st.frozen, free32_T, v)
 
     precond = _mixed_precond(st.inv_blocks, free32, solver._coarse)
-    host = []
+    chunk = DevicePCGChunk(matvec, precond, st.b.shape, torch.float32, st.b.device)
+    host, eager = [], []
     for _ in range(6):
+        chunk.start(st.b, 0.0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = chunk.run(k).k
+        host.append((time.perf_counter() - t0) * 1e3 / max(done, 1))
         pst = pcg_init(matvec, st.b, precond, tol=0.0)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         pst = pcg_chunk(matvec, pst, precond, maxiter=k)
         torch.cuda.synchronize()
-        host.append((time.perf_counter() - t0) * 1e3 / max(pst.k, 1))
-    host_ms = statistics.median(host[1:])
+        eager.append((time.perf_counter() - t0) * 1e3 / max(pst.k, 1))
+    host_ms, eager_ms = statistics.median(host[1:]), statistics.median(eager[1:])
     split = cg_iteration_split(solver, matvec, precond, dev_ms, label)
     st.pcg.x.zero_()
     head_ms = cuda_ms(lambda: loop.replay("head"), n=5)
     print(f"  {label} PCG iteration: device loop {dev_ms:.4f} ms (replayed, {k} a launch), host "
-          f"loop {host_ms:.4f} ms; device loop head (u += x, freeze, f64 residual, forcing, "
+          f"loop {host_ms:.4f} ms (a PCG chunk's run of {k}, replayed, one fetch), eager "
+          f"pcg_chunk {eager_ms:.4f} ms; device loop head (u += x, freeze, f64 residual, forcing, "
           f"block-Jacobi, pcg_init) {head_ms:.4f} ms")
     return {"pcg_iteration_ms_device_loop": dev_ms, "pcg_iteration_ms_host_loop": host_ms,
-            "head_ms_device_loop": head_ms, "pcg_iteration_split_ms": split}
+            "pcg_iteration_ms_eager": eager_ms, "head_ms_device_loop": head_ms,
+            "pcg_iteration_split_ms": split}
 
 
 def graph_ms(fn, n=10):
@@ -1425,13 +1560,25 @@ def bcsr_timings(solver, u0, mat, table):
         "block-Jacobi preconditioner": lambda: precond(x),
         "one PCG iteration": lambda: pcg_chunk(matvec, pcg_state, precond, maxiter=1),
     })
-    # the same iteration inside a run of 50, as a solve takes them (host clock)
+    # the same iteration inside a run of 50, as a solve takes them (host
+    # clock): eager (`pcg_chunk`) and a captured PCG chunk's run (its WHILE
+    # node; the solver's route)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     done = pcg_chunk(matvec, pcg_state, precond, maxiter=50).k - pcg_state.k
     torch.cuda.synchronize()
-    print(f"  one PCG iteration within a chunk of {done}: "
-          f"{1e3 * (time.perf_counter() - t0) / max(done, 1):.4f} ms")
+    eager_ms = 1e3 * (time.perf_counter() - t0) / max(done, 1)
+    chunk = DevicePCGChunk(matvec, precond, x.shape, x.dtype, x.device)
+    graph = []
+    for _ in range(3):
+        chunk.start(bc.project(x), 1e-30)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        k = chunk.run(50).k
+        graph.append(1e3 * (time.perf_counter() - t0) / max(k, 1))
+    print(f"  one PCG iteration within a run of {done}: eager {eager_ms:.4f} ms, a captured "
+          f"chunk's {statistics.median(graph):.4f} ms (median of 3, one fetch a run; capture "
+          f"{chunk.capture_s:.3f} s)")
 
 
 def host_norms(build_cpu, material, bc_fn, us, f_ext, scale):
@@ -1471,26 +1618,11 @@ def matfree_full_width(device, card):
     check(solver.bcsr is None, "the matrix-free path builds no BCSR structure")
     print(f"matfree n={n}: {mesh.n_nodes} nodes, {mesh.n_elements} tets, {mesh.n_dof} DOF; mesh "
           f"{t_mesh:.2f} s, solver setup {t_setup:.2f} s")
-    runs = []
-    for rep in ("warm-up", "timed 0", "timed 1", "timed 2"):
-        t2 = time.perf_counter()
-        u, ok, rec = solver._newton(u0, 1.0)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t2
-        red = rec.residual_norms[-1] / rec.residual_norms[0]
-        print(f"{rep} solve: {dt:.4f} s, newton {rec.newton_iters}, pcg {rec.pcg_iters} (total "
-              f"{sum(rec.pcg_iters)}), |R| {rec.residual_norms[0]:.6e} -> "
-              f"{rec.residual_norms[-1]:.6e} (reduction {red:.3e}), "
-              f"{dt / max(rec.newton_iters, 1):.5f} s/step")
-        check(ok and red <= 1e-6, f"matfree {rep} solve converged to reduction <= 1e-6")
-        runs.append((u, rec, dt))
+    f64_solve = f64_solves("matfree", solver, u0, ("warm-up", "timed 0", "timed 1", "timed 2"))
+    runs = f64_solve["runs"]
     peak = torch.cuda.max_memory_allocated()
     print(f"peak device memory: {peak} B ({peak / 2**30:.2f} GiB)")
     ua, reca, _ = runs[0]
-    for u, rec, _ in runs[1:]:
-        check(torch.equal(ua, u), "every matfree solve gives bitwise-equal u")
-        check(rec.pcg_iters == reca.pcg_iters and rec.residual_norms == reca.residual_norms,
-              "every matfree solve gives identical PCG lists and residual norms")
     check(bool(torch.isfinite(ua).all()) and tuple(ua.shape) == (mesh.n_nodes, 3), "finite u [N, 3]")
     r_cpu, red_cpu = host_reduction(
         lambda: box_mesh_kuhn(n, n, n, element_type="tet10", device="cpu"), mat, bench_bc, ua,
@@ -1501,7 +1633,7 @@ def matfree_full_width(device, card):
     state, _ = TangentState.freeze(u0, conn, geom, mat)
     v = spmv_x(mesh.n_nodes, device)
 
-    def matvec(x):  # the masked product of `_pcg_step`
+    def matvec(x):  # the masked product of the route's chunk
         xm = x * free
         return apply_tangent(state, xm, conn, geom, mat, scatter) * free + (x - xm)
 
@@ -1529,7 +1661,8 @@ def matfree_full_width(device, card):
         / reca.residual_norms[0], "host_reduction": red_cpu,
         "s_per_step": [dt / r.newton_iters for _, r, dt in runs[1:]],
         "solve_s": [dt for _, _, dt in runs], "setup_s": t_setup, "peak_bytes": peak,
-        "pass_ms": pass_ms, "card": card,
+        "pass_ms": pass_ms, "chunk_fetches_per_solve": f64_solve["fetches"],
+        "chunk_capture_s": f64_solve["capture_s"], "eager_chunk": f64_solve["eager"], "card": card,
     }
     print("slice: " + json.dumps(summary))
 
@@ -1724,12 +1857,15 @@ def mixed_phase8(label, mesh, bc, opts, mesh_cpu, card):
     print(f"{label}: setup {t_setup:.2f} s ({setup['host_s']:.2f} s host, {setup['device_s']:.2f} s "
           f"device, inverse on the {setup['invert']})")
     check(setup["invert"] == "device", f"{label}: the coarse inverse was built on the card")
-    in_setup = {k: KERNELS[k][0][KERNELS[k][1]] for k in KERNELS if k.startswith("struct_")}
+    keys = [k for k in KERNELS if k.startswith("struct_")]
+    in_setup = launch_counts(keys)
     runs = solve_runs(label, lambda: solver._newton(u0, 1.0))
-    launches = {k: KERNELS[k][0][KERNELS[k][1]] for k in KERNELS if k.startswith("struct_")}
+    launches = launch_counts(keys)
+    fetches, capture_s, _ = chunk_stats(solver)
     peak = torch.cuda.max_memory_allocated()
-    print(f"  kernel launches (setup {in_setup}; setup + 3 solves {launches}); peak device memory "
-          f"{peak} B ({peak / 2**30:.2f} GiB)")
+    print(f"  kernel launches (setup {in_setup}; setup + 3 solves, eager and replayed "
+          f"{launches}); peak device memory {peak} B ({peak / 2**30:.2f} GiB); PCG chunk capture "
+          f"{capture_s:.3f} s, host fetches of the chunks in 3 solves {fetches}")
     check(all(v > 0 for v in launches.values()), f"every lattice kernel launched on the {label} path")
     u, rec, _ = runs[0]
     # the device loop on the same setup: its graphs over this preconditioner
@@ -1853,7 +1989,7 @@ def mooney_rivlin_phase8(device, card):
     torch.cuda.synchronize()
     t_setup = time.perf_counter() - t0
     runs = solve_runs("8d MR pcg_bcsr", lambda: solver._newton(u0, 1.0))
-    launches = bk.LAUNCHES["spmv"]
+    launches = launch_counts(["bcsr_spmv"])["bcsr_spmv"]
     total_pcg = sum(sum(r.pcg_iters) for _, r, _ in runs)
     peak = torch.cuda.max_memory_allocated()
     print(f"  bcsr_spmv launches (3 solves): {launches}, PCG iterations: {total_pcg}; setup (host "

@@ -73,12 +73,14 @@ def apply_tangent(state: TangentState, v: torch.Tensor, conn: torch.Tensor,
 
 
 class MatFreeOperator(NamedTuple):
-    """Matrix-free K(u): the product, the internal force and the nodal
-    diagonal blocks (block-Jacobi). Built afresh per Newton iterate."""
+    """Matrix-free K(u): the product, the internal force, the nodal
+    diagonal blocks (block-Jacobi) and the frozen state the product reads.
+    Built afresh per Newton iterate."""
 
     matvec: Callable[[torch.Tensor], torch.Tensor]
     f_int: torch.Tensor  # [N, 3]
     diag_blocks: torch.Tensor  # [N, 3, 3]
+    state: TangentState
 
 
 def make_operator(u: torch.Tensor, conn: torch.Tensor, geom: ElementGeometry, material,
@@ -90,4 +92,4 @@ def make_operator(u: torch.Tensor, conn: torch.Tensor, geom: ElementGeometry, ma
     def matvec(v):
         return apply_tangent(state, v, conn, geom, material, scatter)
 
-    return MatFreeOperator(matvec=matvec, f_int=scatter(fe), diag_blocks=diag)
+    return MatFreeOperator(matvec=matvec, f_int=scatter(fe), diag_blocks=diag, state=state)

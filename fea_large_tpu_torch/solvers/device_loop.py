@@ -40,9 +40,9 @@ card. On the CPU the same bodies run eagerly, a Python `if` on each flag
 in place of its IF node; that is the only difference between the routes.
 
 The kernel wrappers count launches when they are called, that is at
-warm-up and capture here; `REPLAYED` counts what the graphs launch: the
-launches of each body's capture times the runs of that body, which the
-bodies count on the device.
+warm-up here (a capture takes its counts back, ops/cuda_graphs.py);
+`REPLAYED` counts what the graphs launch: the launches of each body's
+capture times the runs of that body, which the bodies count on the device.
 """
 
 from __future__ import annotations
@@ -53,9 +53,7 @@ import time
 
 import torch
 
-from fea_large_tpu_torch.ops import bcsr_kernels as bk
-from fea_large_tpu_torch.ops import elem_kernels as ek
-from fea_large_tpu_torch.ops import struct_kernels as sk
+from fea_large_tpu_torch.ops import cuda_graphs
 from fea_large_tpu_torch.ops.soa import soa_diag_blocks, soa_freeze, soa_internal_force
 from fea_large_tpu_torch.solvers.linear import (
     DevicePCG,
@@ -88,14 +86,9 @@ PROGRAMS = {
     "tail": ((None, "tail"),),
 }
 
-#: the kernel wrappers' launch counters, by kernel name
-_COUNTERS = {"struct": sk.LAUNCHES, "elem": ek.LAUNCHES, "bcsr": bk.LAUNCHES}
-#: kernel launches made by replayed graphs (per capture x runs), by name
-REPLAYED = {f"{p}_{k}": 0 for p, c in _COUNTERS.items() for k in c}
-
-
-def _launch_counts() -> dict:
-    return {f"{p}_{k}": v for p, c in _COUNTERS.items() for k, v in c.items()}
+#: kernel launches made by replayed graphs (per capture x runs), by name:
+#: the device loop's and the PCG chunks' (ops/cuda_graphs.py)
+REPLAYED = cuda_graphs.REPLAYED
 
 
 @dataclasses.dataclass
@@ -309,9 +302,8 @@ class DeviceLoop:
     def _capture(self, n_nodes: int) -> None:
         """Warm every body up once on a scratch state on a side stream, then
         capture each body and compose the programs."""
-        from fea_large_tpu_torch.ops.cuda_graphs import Body, Program
-
         t0 = time.perf_counter()
+        cuda_graphs.collect_garbage()
         with self._on_device():
             scratch = LoopState.zeros(n_nodes, self.max_newton, self.device)
             side = torch.cuda.Stream(self.device)
@@ -322,15 +314,10 @@ class DeviceLoop:
             torch.cuda.current_stream(self.device).wait_stream(side)
             torch.cuda.synchronize(self.device)
             del scratch
-            bodies = {}
-            for name, fn in self._bodies(self.state).items():
-                before = _launch_counts()
-                bodies[name] = Body(fn)
-                after = _launch_counts()
-                self.per_capture[name] = {k: after[k] - before[k] for k in after
-                                          if after[k] > before[k]}
+            bodies = {name: cuda_graphs.Body(fn) for name, fn in self._bodies(self.state).items()}
+            self.per_capture = {name: body.launches for name, body in bodies.items()}
             self._graphs = {
-                prog: Program([(bodies[body], None if flag is None else self.state.flag(flag))
+                prog: cuda_graphs.Program([(bodies[body], None if flag is None else self.state.flag(flag))
                                for flag, body in items])
                 for prog, items in PROGRAMS.items()
             }
@@ -393,9 +380,7 @@ class DeviceLoop:
         m = self.max_newton
         n_it, conv, failed, exhausted, bad, eta, total = vals[2 * m: 2 * m + 7]
         runs = dict(zip(BODIES, (int(v) for v in vals[2 * m + 7:])))
-        for body, counts in self.per_capture.items():
-            for kernel, c in counts.items():
-                REPLAYED[kernel] += c * runs[body]
+        cuda_graphs.tally(self.per_capture, runs)
         self.runs = runs
         n_it = int(n_it)
         self.last = DeviceLoopResult(

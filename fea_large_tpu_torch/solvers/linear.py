@@ -1,18 +1,30 @@
 """Dense Cholesky, preconditioned conjugate gradients and block-Jacobi
 (counterpart of `fea_large_tpu/solvers/linear.py`).
 
-Two forms of PCG:
-  * `PCGState`, `pcg_init`, `pcg_chunk`: a host loop over device tensors,
-    resumable across chunks. The vector arithmetic stays on the device; the
-    loop fetches (p.q, r.r) once per iteration and tests the stop and
-    breakdown conditions in Python f64. The host Newton loop, the f64
-    paths and the sharded solvers run it.
-  * `DevicePCG`, `device_pcg_init`, `device_pcg_step`: every scalar of the
-    recurrence, the stop test and the flags in 0-d device tensors, updated
-    in place, so that an iteration can be captured in a CUDA graph and
-    replayed under an IF node on `active` (solvers/device_loop.py). The
-    stop test runs on the device in the vectors' dtype, as the reference's
-    `pcg_chunk` while-loop condition does.
+Three forms of PCG:
+  * `DevicePCGChunk` (the reference's `pcg_init` + `pcg_chunk`, a
+    `lax.while_loop` whose condition lives on the device): every
+    single-device CG of the solvers runs it (solvers/newton.py: the mixed
+    step, `step_fn`, the host Newton loop's solves and its block-Jacobi
+    fallback, the f64 BCSR and matrix-free steps). On the card one chunk
+    of n iterations is one launch of a CUDA graph that runs the captured
+    CG iteration under a WHILE node on `active`, then one batched fetch
+    of (k, rr, ok, stop); on the CPU the same bodies run eagerly, a Python
+    test of `active` in place of the WHILE node.
+  * `DevicePCG`, `device_pcg_init`, `device_pcg_step`: the state and the
+    bodies both the chunk and the device-resident Newton loop
+    (solvers/device_loop.py, under IF nodes) are made of. Every scalar of
+    the recurrence, the stop test and the flags live in 0-d device
+    tensors, updated in place (the addresses a captured graph reads stay
+    fixed). The stop max(tol ||b||, atol) and the loop condition are
+    formed in the vectors' dtype, f32 on the mixed path, as the
+    reference's are.
+  * `PCGState`, `pcg_init`, `pcg_chunk`: a host loop over device tensors
+    that fetches (p.q, r.r) once per iteration and tests the stop in
+    Python f64, for the sharded ranks only (dist/sharded.py: their dots
+    are collectives, which a graph does not capture).
+`drive_chunked_pcg` is the chunked control loop (restarts, best iterate,
+budget) over either chunked form.
 Self-dots are clamped at zero at the source (r.r, r.z and ||b|| are
 non-negative by mathematics; a rounded negative would turn sqrt into NaN).
 """
@@ -21,6 +33,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import time
 
 import torch
 
@@ -83,7 +96,9 @@ class PCGResult:
 @dataclasses.dataclass
 class PCGState:
     """Exact CG state, resumable across chunks. Vectors and rz are device
-    tensors; rr, k, ok and stop are host values read by the control loop."""
+    tensors; rr, k, ok and stop are host values read by the control loop
+    (the host loop's state, and the fetch of a `DevicePCGChunk`, whose
+    vectors are then its buffers and whose bnorm is set)."""
 
     x: torch.Tensor
     r: torch.Tensor
@@ -94,10 +109,13 @@ class PCGState:
     k: int  # iterations so far
     ok: bool  # no breakdown
     stop: float  # max(tol * ||b||, atol)
+    bnorm: float | None = None  # clamped ||b|| (a chunk's fetch)
 
 
 def pcg_init(matvec, b, preconditioner=None, x0=None, tol=1e-10, atol=0.0,
              dot=None) -> PCGState:
+    """The host loop's `pcg_init` (the sharded ranks'; see the module
+    docstring): ||b||, the stop and r0 . r0 fetched to the host."""
     preconditioner = preconditioner or (lambda r: r)
     dot = dot or _dot
     b_norm = math.sqrt(max(float(dot(b, b)), 0.0))
@@ -117,7 +135,10 @@ def pcg_init(matvec, b, preconditioner=None, x0=None, tol=1e-10, atol=0.0,
 def pcg_chunk(matvec, state: PCGState, preconditioner=None, dot=None,
               maxiter=100) -> PCGState:
     """Up to `maxiter` further CG iterations (stops early on convergence or
-    breakdown); an exact continuation of the Krylov recurrence."""
+    breakdown); an exact continuation of the Krylov recurrence. The host
+    loop: one fetch of (p.q > 0, r.r) per iteration and the stop test in
+    Python f64. Only the sharded ranks run it (dist/sharded.py); every
+    single-device solve runs `DevicePCGChunk`."""
     preconditioner = preconditioner or (lambda r: r)
     dot = dot or _dot
     s = dataclasses.replace(state)
@@ -144,7 +165,8 @@ def pcg_chunk(matvec, state: PCGState, preconditioner=None, dot=None,
 
 def pcg(matvec, b, preconditioner=None, x0=None, tol=1e-10, atol=0.0, maxiter=1000,
         dot=None) -> PCGResult:
-    """Preconditioned CG: `pcg_init`, then up to `maxiter` iterations.
+    """Preconditioned CG on the host loop: `pcg_init`, then up to
+    `maxiter` iterations (the solvers run `DevicePCGChunk`).
     `matvec` is the masked operator (identity on prescribed DOFs) and `b`
     masked, so the iterates stay in the free subspace. Stops at ||r|| <=
     max(tol ||b||, atol), or on the breakdown p.Kp <= 0."""
@@ -198,19 +220,28 @@ def _set_active(s: DevicePCG) -> None:
     s.active.copy_(s.ok & (s.k < s.cap) & (torch.sqrt(s.rr) > s.stop) & torch.isfinite(s.rr))
 
 
-def device_pcg_init(s: DevicePCG, b, preconditioner, tol, cap) -> None:
-    """`pcg_init` from x0 = 0 into `s`: r0 = b, z0 = p0 = M^-1 b, with the
-    stop max(tol ||b||, 0) in b's dtype; `tol` and `cap` are 0-d tensors
-    (the forcing term and the iteration cap of this solve)."""
-    s.x.zero_()
-    s.r.copy_(b)
-    s.z.copy_(preconditioner(b))
+def device_pcg_init(s: DevicePCG, b, preconditioner, tol, cap, *, matvec=None, x0=None,
+                    atol=0.0) -> None:
+    """The reference's `pcg_init` into `s`: from x0 = 0 (r0 = b exactly, no
+    product) or, given `x0` and `matvec`, from x0 with r0 = b - A x0 (`x0`
+    may be `s.x` itself: the restart from the last iterate); z0 = p0 = M^-1
+    r0, and the stop max(tol ||b||, atol) in b's dtype. `tol` and `cap` are
+    0-d tensors (the forcing term and the iteration cap of this solve),
+    `atol` a float."""
+    if x0 is None:
+        s.x.zero_()
+        s.r.copy_(b)
+    else:
+        if x0 is not s.x:
+            s.x.copy_(x0)
+        s.r.copy_(b - matvec(s.x))
+    s.z.copy_(preconditioner(s.r))
     s.p.copy_(s.z)
     s.rz.copy_(torch.clamp_min(_dot(s.r, s.z), 0.0))
-    rr = torch.clamp_min(_dot(b, b), 0.0)
-    s.rr.copy_(rr)
-    s.bnorm.copy_(torch.sqrt(rr))
-    s.stop.copy_(torch.clamp_min(tol * s.bnorm, 0.0))
+    bb = torch.clamp_min(_dot(b, b), 0.0)
+    s.rr.copy_(bb if x0 is None else torch.clamp_min(_dot(s.r, s.r), 0.0))
+    s.bnorm.copy_(torch.sqrt(bb))
+    s.stop.copy_(torch.clamp_min(tol * s.bnorm, atol))
     s.k.zero_()
     s.cap.copy_(cap)
     s.ok.fill_(True)
@@ -220,7 +251,7 @@ def device_pcg_init(s: DevicePCG, b, preconditioner, tol, cap) -> None:
 def device_pcg_step(s: DevicePCG, matvec, preconditioner) -> None:
     """One CG iteration of `pcg_chunk`'s body on `s`, in place, then the
     loop condition for the next. The caller runs it only while `s.active`
-    (an IF node in a graph, a Python `if` on the CPU)."""
+    (a WHILE or IF node in a graph, a Python test on the CPU)."""
     q = matvec(s.p)
     pq = _dot(s.p, q)
     pos = pq > 0.0  # breakdown guard: K must be SPD
@@ -238,6 +269,176 @@ def device_pcg_step(s: DevicePCG, matvec, preconditioner) -> None:
     _set_active(s)
 
 
+class DevicePCGChunk:
+    """The reference's `pcg_init` and `pcg_chunk` on one operator: a
+    `DevicePCG` state, the right-hand side `b` and the 0-d `tol` and `n`
+    in persistent tensors, and five bodies that update them in place:
+
+      init0  `device_pcg_init` from zero      initx  from the state's own x
+      arm    cap = k + n, the loop condition  step   one CG iteration
+      fin    ok &= isfinite(rr): a non-finite r.r ends the loop as a
+             breakdown, as the reference's `pcg_chunk` reports it
+
+    `start(b, tol, x0)` runs init0 or initx; `run(n)` runs arm, step while
+    `active`, fin, then `fetch()`: ONE batched fetch of (k, rr, ok, stop,
+    ||b||), the reference's per-chunk contract. The stop test is in the
+    vectors' dtype on the device. `matvec` and `preconditioner` must read
+    only tensors that outlive the chunk (the caller refreshes them in place
+    between solves: a capture holds their addresses).
+
+    On the card (`capture`, the default there) the bodies are warmed up
+    once on a side stream and captured into CUDA graphs at construction,
+    and three programs are composed of them (ops/cuda_graphs.py): init0,
+    initx and arm -> WHILE(active) {step} -> fin. A chunk of n iterations
+    is then one launch and one fetch. `capture=False` runs the bodies
+    eagerly wherever the tensors are, with a Python test of `active` in
+    place of the WHILE node (the CPU's route; on the card, a comparison).
+    A failed capture or launch raises. `fetches` counts the fetches, `runs`
+    (on the device) the runs of each body; the replays' kernel launches go
+    to `cuda_graphs.REPLAYED` at each fetch."""
+
+    BODIES = ("init0", "initx", "arm", "step", "fin")
+    PROGRAMS = {"init0": (("init0", None),), "initx": (("initx", None),),
+                "run": (("arm", None), ("step", "while"), ("fin", None))}
+
+    def __init__(self, matvec, preconditioner, shape, dtype, device, *, capture=None, atol=0.0):
+        self.device = torch.device(device)
+        self.matvec, self.preconditioner, self.atol = matvec, preconditioner, float(atol)
+        self.state = DevicePCG.zeros(shape, dtype, self.device)
+        self.b = torch.zeros(shape, dtype=dtype, device=self.device)
+        self.tol = torch.zeros((), dtype=dtype, device=self.device)
+        self.n = torch.zeros((), dtype=torch.int64, device=self.device)
+        self.runs = torch.zeros(len(self.BODIES), dtype=torch.int64, device=self.device)
+        self._seen = [0] * len(self.BODIES)
+        self._bodies = self._make_bodies()
+        self.fetches = 0
+        self.capture_s = 0.0
+        self.per_capture = {}
+        self.graph_nodes = {}
+        self._graphs = None
+        if (self.device.type == "cuda") if capture is None else capture:
+            self._capture()
+            self.runs.zero_()  # the warm-up's runs were eager
+
+    def _make_bodies(self) -> dict:
+        # the bodies hold the tensors, not the chunk: no reference cycle, so
+        # a chunk and its graphs go when its last reference does
+        s, matvec, precond = self.state, self.matvec, self.preconditioner
+        b, tol, n, runs, atol = self.b, self.tol, self.n, self.runs, self.atol
+
+        def count(i):
+            runs[i].add_(1)
+
+        def init0():
+            count(0)
+            device_pcg_init(s, b, precond, tol, n, atol=atol)
+
+        def initx():
+            count(1)
+            device_pcg_init(s, b, precond, tol, n, matvec=matvec, x0=s.x, atol=atol)
+
+        def arm():
+            count(2)
+            s.cap.copy_(s.k + n)
+            _set_active(s)
+
+        def step():
+            count(3)
+            device_pcg_step(s, matvec, precond)
+
+        def fin():
+            count(4)
+            s.ok.logical_and_(torch.isfinite(s.rr))
+
+        return {"init0": init0, "initx": initx, "arm": arm, "step": step, "fin": fin}
+
+    def _capture(self) -> None:
+        """Warm every body up once on a side stream, then capture each body
+        and compose the programs."""
+        from fea_large_tpu_torch.ops import cuda_graphs
+
+        t0 = time.perf_counter()
+        cuda_graphs.collect_garbage()
+        with torch.cuda.device(self.device):
+            current = torch.cuda.current_stream(self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(current)
+            with torch.cuda.stream(side):
+                for fn in self._bodies.values():
+                    fn()
+            current.wait_stream(side)
+            torch.cuda.synchronize(self.device)
+            bodies = {name: cuda_graphs.Body(fn) for name, fn in self._bodies.items()}
+            self.per_capture = {name: b.launches for name, b in bodies.items()}
+            active = cuda_graphs.While(self.state.active)
+            self._graphs = {
+                prog: cuda_graphs.Program([(bodies[body], None if cond is None else active)
+                                           for body, cond in items])
+                for prog, items in self.PROGRAMS.items()
+            }
+            self._kept = bodies  # the programs replay the bodies' graphs
+            self.graph_nodes = {prog: g.nodes for prog, g in self._graphs.items()}
+            torch.cuda.synchronize(self.device)
+        self.capture_s = time.perf_counter() - t0
+
+    @property
+    def captured(self) -> bool:
+        return self._graphs is not None
+
+    def _launch(self, prog: str) -> None:
+        if self._graphs is not None:
+            with torch.cuda.device(self.device):
+                self._graphs[prog].launch()
+            return
+        for body, cond in self.PROGRAMS[prog]:
+            if cond is None:
+                self._bodies[body]()
+            else:
+                while bool(self.state.active):
+                    self._bodies[body]()
+
+    def start(self, b, tol, x0=None) -> None:
+        """`pcg_init`: b (None: the last one) and the tolerance `tol` (a
+        float, rounded to the vectors' dtype), from zero or from `x0`
+        (which may be `state.x`). No fetch."""
+        if b is not None:
+            self.b.copy_(b)
+        self.tol.fill_(tol)
+        if x0 is None:
+            self._launch("init0")
+            return
+        if x0 is not self.state.x:
+            self.state.x.copy_(x0)
+        self._launch("initx")
+
+    def run(self, n: int) -> PCGState:
+        """`pcg_chunk`: up to n further iterations (stops early on
+        convergence or breakdown), then `fetch()`."""
+        self.n.fill_(int(n))
+        self._launch("run")
+        return self.fetch()
+
+    def fetch(self) -> PCGState:
+        """The one batched fetch of (k, rr, ok, stop, ||b||) and the bodies'
+        run counters: the state as `PCGState`, its vectors the chunk's
+        buffers (valid until the next `start`)."""
+        s = self.state
+        f64 = torch.float64
+        vals = torch.cat([torch.stack([t.to(f64) for t in (s.k, s.rr, s.ok, s.stop, s.bnorm)]),
+                          self.runs.to(f64)]).tolist()
+        self.fetches += 1
+        runs = [int(v) for v in vals[5:]]
+        if self._graphs is not None:
+            from fea_large_tpu_torch.ops import cuda_graphs
+
+            cuda_graphs.tally(self.per_capture, {
+                name: r - seen for name, r, seen in zip(self.BODIES, runs, self._seen)})
+        self._seen = runs
+        k, rr, ok, stop, bnorm = vals[:5]
+        return PCGState(x=s.x, r=s.r, z=s.z, p=s.p, rz=s.rz, rr=rr, k=int(k), ok=ok > 0.0,
+                        stop=stop, bnorm=bnorm)
+
+
 def drive_chunked_pcg(prepare, chunk, *, tol, chunk_iters, maxiter):
     """Chunked PCG control loop (the reference's `drive_chunked_pcg`).
 
@@ -248,8 +449,15 @@ def drive_chunked_pcg(prepare, chunk, *, tol, chunk_iters, maxiter):
         an early breakdown at rel ~O(1) means an indefinite operator and
         is the caller's load-step-bisection case;
       * best-iterate tracking at chunk boundaries: the best iterate is
-        returned when the final one is worse (NaN-safe).
-    Returns (x, total_iters, converged, rel)."""
+        returned when the final one is worse (NaN-safe). It is cloned when
+        recorded: a `DevicePCGChunk` writes its x in place, so the state's
+        x at a later boundary is the same tensor;
+      * a chunk that runs no iteration ends the loop (the chunk's stop test
+        in the vectors' dtype can pass where the host's f64 one does not:
+        sqrt(rr) rounded to f32 equal to the stop).
+    One fetch per chunk: `prepare` and `chunk` return the fetched state.
+    Returns (x, total_iters, converged, rel); x may be the chunk's buffer,
+    valid until its next `start`."""
     st = prepare(None)
     done_iters = 0
     restarts = 0
@@ -262,7 +470,7 @@ def drive_chunked_pcg(prepare, chunk, *, tol, chunk_iters, maxiter):
         rnorm = math.sqrt(st.rr)
         rel = rnorm / max(bnorm, 1e-300)
         if best is None or rel < best[0]:
-            best = (rel, st.x)
+            best = (rel, st.x.clone())
         if (st.ok and rnorm <= st.stop) or k >= maxiter:
             break
         if not st.ok:
@@ -272,7 +480,12 @@ def drive_chunked_pcg(prepare, chunk, *, tol, chunk_iters, maxiter):
             done_iters = k
             st = prepare(best[1])
             continue
+        k_before = st.k
         st = chunk(st, min(chunk_iters, maxiter - k))
+        if st.k == k_before and st.ok:
+            rnorm = math.sqrt(st.rr)
+            rel = rnorm / max(bnorm, 1e-300)
+            break
     converged = st.ok and rnorm <= st.stop
     total = done_iters + st.k
     x = st.x

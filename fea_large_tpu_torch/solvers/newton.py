@@ -28,17 +28,36 @@ solver and replayed, the host reading flags only. It hands a solve that
 runs out of its CG budget (`device_loop_budget`) or breaks down to the
 host loop, which continues the same Newton sequence. The host loop
 (`device_loop=False`, `NewtonSolver._newton_mixed_host`): the forcing by
-`newton_lin_tol`, chunked PCG with its stop test in Python f64 and
-rounding-breakdown restarts; a solve with a coarse correction that breaks
-down is retried with block-Jacobi alone.
+`newton_lin_tol`, then chunked PCG (`drive_chunked_pcg` over a device
+chunk, below) with rounding-breakdown restarts; a solve with a coarse
+correction that breaks down is retried with block-Jacobi alone, on a
+second chunk.
+
+Every single-device CG outside the device loop runs the reference's
+`pcg_init` + `pcg_chunk` as a `linear.DevicePCGChunk`: on the card a
+chunk of n iterations is one replay of captured CUDA graphs (the CG
+iteration under a WHILE node on the device's loop condition) and one
+batched fetch of (k, rr, ok, stop); on the CPU the same bodies run
+eagerly. The stop max(tol ||b||, atol) and the loop's test are formed in
+the vectors' dtype, f32 on the mixed path, as the reference's. Each route
+of a solver (`_ChunkRoute`: "mixed", "pcg_bcsr", "pcg") captures its
+chunks once, at first use, over persistent copies of the operands its
+product and preconditioner read (the frozen state, the BCSR values, the
+inverse Jacobi blocks), which each solve overwrites in place; where the
+solver's options, `bc`, `f_ext`, coarse space, mesh or material are no
+longer the objects it was built with, the route is built anew. The
+chunks serve the mixed step, `step_fn`, the host loop (one chunk of
+pcg_chunk iterations per fetch) and the f64 steps (one run of
+pcg_maxiter and one of the restart, two fetches a step).
 
 f64 (`precision="f64"`), per Newton iteration (`NewtonSolver._newton`):
 the f64 residual of the element pass (`_residual_fn`), then one step
 (`_step`) on the masked system:
   * `linear="pcg_bcsr"` (config 2 of the reference): the element stiffness
     assembled into BCSR (assembly/bcsr.py) and block-Jacobi PCG with one
-    restart from the final iterate (`_pcg_with_restart`), whose product is
-    the BCSR kernel B10 on the card (ops/bcsr_kernels.py);
+    restart from the final iterate (`_pcg_with_restart`, on the route's
+    chunk), whose product is the BCSR kernel B10 on the card
+    (ops/bcsr_kernels.py);
   * `linear="pcg"` (matrix-free, bench.py's FEA_BENCH_PRECISION=f64): the
     frozen tangent state, the scattered element diagonal blocks and the
     same PCG on the tangent action (assembly/matfree.py), plain PyTorch;
@@ -51,8 +70,8 @@ One step alone (`_step`, bench.py's FEA_BENCH_MODE=step; `step_fn`, the
 step of entry.py): on the f64 routes the step above; on the
 mixed path (`_step_mixed`) the plain f64 residual, the f32 freeze,
 block-Jacobi plus the coarse correction and chunked f32 PCG
-(`drive_chunked_pcg`), with no fallback to block-Jacobi alone, as the
-reference's step.
+(`drive_chunked_pcg` over the mixed route's chunk), with no fallback to
+block-Jacobi alone, as the reference's step.
 
 `solve` steps the load factor to 1 with bisection on Newton failure.
 """
@@ -67,9 +86,10 @@ import torch
 
 from fea_large_tpu_torch.assembly.bcsr import BCSRStructure, assemble_bcsr
 from fea_large_tpu_torch.assembly.dense import assemble_dense, mask_dense_system
-from fea_large_tpu_torch.assembly.matfree import make_operator
+from fea_large_tpu_torch.assembly.matfree import apply_tangent, make_operator
 from fea_large_tpu_torch.assembly.scatter import NodeScatter
 from fea_large_tpu_torch.elements.kernels import element_internal_force, precompute_geometry
+from fea_large_tpu_torch.ops.bcsr_kernels import bcsr_spmv
 from fea_large_tpu_torch.ops.residual import resid_df_supported, soa_internal_force_df
 from fea_large_tpu_torch.ops.soa import (
     SoAProblem,
@@ -79,15 +99,11 @@ from fea_large_tpu_torch.ops.soa import (
     soa_internal_force,
 )
 from fea_large_tpu_torch.solvers.linear import (
-    PCGResult,
+    DevicePCGChunk,
     apply_block_jacobi,
-    block_jacobi_preconditioner,
     dense_cholesky_solve,
     drive_chunked_pcg,
     jacobi_inverse_blocks,
-    pcg,
-    pcg_chunk,
-    pcg_init,
 )
 from fea_large_tpu_torch.solvers.multilevel import (
     build_coarse_space,
@@ -251,17 +267,21 @@ def _residual_fn(u, scale, conn, geom, material, bc, f_ext, scatter):
     return r, torch.linalg.norm(r)
 
 
-def _pcg_with_restart(matvec, r, precond, pcg_tol, pcg_maxiter) -> PCGResult:
-    """PCG, then one unconditional restart from its final iterate with the
-    remaining budget. A p.Kp <= 0 breakdown near stagnation can be
-    rounding in the recurrence; the restart rebuilds it from the true
-    residual. After a converged solve it costs one product and one
-    preconditioner apply, and runs no iteration."""
-    res = pcg(matvec, r, preconditioner=precond, tol=pcg_tol, maxiter=pcg_maxiter)
-    res2 = pcg(matvec, r, preconditioner=precond, x0=res.x, tol=pcg_tol,
-               maxiter=max(pcg_maxiter - res.iterations, 0))
-    return PCGResult(x=res2.x, iterations=res.iterations + res2.iterations,
-                     residual_norm=res2.residual_norm, converged=res2.converged)
+def _pcg_with_restart(chunk, r, pcg_tol, pcg_maxiter):
+    """PCG on `chunk` (a `DevicePCGChunk` over the masked system) from
+    zero, then one unconditional restart from its final iterate with the
+    remaining budget: two runs, one fetch each. A p.Kp <= 0 breakdown near
+    stagnation can be rounding in the recurrence; the restart rebuilds it
+    from the true residual. After a converged solve it costs one product
+    and one preconditioner apply, and runs no iteration. Returns (x,
+    iterations, converged, final ||r|| of the recurrence over ||r||); x is
+    the chunk's buffer."""
+    chunk.start(r, pcg_tol)
+    first = chunk.run(pcg_maxiter)
+    chunk.start(None, pcg_tol, x0=chunk.state.x)
+    st = chunk.run(max(pcg_maxiter - first.k, 0))
+    rnorm = math.sqrt(st.rr)
+    return st.x, first.k + st.k, st.ok and rnorm <= st.stop, rnorm / max(st.bnorm, 1e-300)
 
 
 def _step_direct_fn(u, scale, conn, geom, material, bc, f_ext, scatter, structure):
@@ -272,34 +292,89 @@ def _step_direct_fn(u, scale, conn, geom, material, bc, f_ext, scatter, structur
     return u + dense_cholesky_solve(A, b).reshape(u.shape), 1, True, 0.0
 
 
-def _pcg_step(u, r, product, diag_blocks, bc, pcg_tol, pcg_maxiter):
-    """(u + du, PCG iterations, converged, final relative PCG residual):
-    block-Jacobi PCG with one restart on the masked system M K M + (I - M)
-    du = r, given K v = product(v) and K's nodal diagonal blocks."""
-    precond = block_jacobi_preconditioner(diag_blocks, bc.free_mask)
-
-    def matvec(v):
-        vm = bc.project(v)
-        return bc.project(product(vm)) + (v - vm)
-
-    res = _pcg_with_restart(matvec, r, precond, pcg_tol, pcg_maxiter)
-    rel = res.residual_norm / max(float(torch.linalg.norm(r)), 1e-300)
-    return u + res.x, res.iterations, res.converged, rel
-
-
-def _step_matfree_fn(u, scale, conn, geom, material, bc, f_ext, scatter, pcg_tol, pcg_maxiter):
-    """One f64 Newton step on the matrix-free tangent (`_pcg_step`)."""
+def _step_matfree_fn(u, scale, conn, geom, material, bc, f_ext, scatter, pcg_step):
+    """One f64 Newton step on the matrix-free tangent: the operator at u,
+    then `pcg_step(u, r, tangent state, diagonal blocks)`
+    (`NewtonSolver._f64_pcg_step`)."""
     op = make_operator(u, conn, geom, material, scatter)
     r = bc.project(scale * f_ext - op.f_int)
-    return _pcg_step(u, r, op.matvec, op.diag_blocks, bc, pcg_tol, pcg_maxiter)
+    return pcg_step(u, r, op.state, op.diag_blocks)
 
 
-def _step_bcsr_fn(u, scale, conn, geom, material, bc, f_ext, scatter, structure, pcg_tol,
-                  pcg_maxiter):
-    """One f64 Newton step on the assembled BCSR system (`_pcg_step`)."""
+def _step_bcsr_fn(u, scale, conn, geom, material, bc, f_ext, scatter, structure, pcg_step):
+    """One f64 Newton step on the assembled BCSR system: K at u, then
+    `pcg_step(u, r, K's values, K's diagonal blocks)`."""
     K, f_int = assemble_bcsr(u, conn, geom, material, structure, scatter)
     r = bc.project(scale * f_ext - f_int)
-    return _pcg_step(u, r, K.matvec, K.block_diagonal(), bc, pcg_tol, pcg_maxiter)
+    return pcg_step(u, r, K.data, K.block_diagonal())
+
+
+def _clone_tree(x):
+    """A copy of x: a tensor, or a dataclass or tuple (named or not) of
+    them, as the operands of the PCG routes are (`SoAState`,
+    `TangentState`, the iso-tangent factors)."""
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if dataclasses.is_dataclass(x):
+        return dataclasses.replace(x, **{f.name: _clone_tree(getattr(x, f.name))
+                                         for f in dataclasses.fields(x)})
+    if hasattr(x, "_fields"):
+        return type(x)(*(_clone_tree(v) for v in x))
+    return tuple(_clone_tree(v) for v in x)
+
+
+def _copy_tree(dst, src) -> None:
+    """Copy the tensors of `src` into those of `dst` (a `_clone_tree` of an
+    operand of the same shapes and dtypes) in place."""
+    if isinstance(dst, torch.Tensor):
+        if src.shape != dst.shape or src.dtype != dst.dtype:
+            raise ValueError("a refreshed operand must keep its shape and dtype")
+        dst.copy_(src)
+        return
+    if dataclasses.is_dataclass(dst):  # not astuple: it deep-copies the tensors
+        names = [f.name for f in dataclasses.fields(dst)]
+        dst, src = ([getattr(x, n) for n in names] for x in (dst, src))
+    for a, b in zip(dst, src, strict=True):
+        _copy_tree(a, b)
+
+
+class _ChunkRoute:
+    """The PCG chunks of one route of one solver ("mixed", "pcg_bcsr",
+    "pcg"): the operands their bodies read (the frozen tangent state, the
+    BCSR values, the inverse Jacobi blocks) in persistent copies that
+    `refresh` overwrites in place before each solve (a captured graph holds
+    their addresses), and one `DevicePCGChunk` per preconditioner
+    (`chunk(key)`, built, and captured on the card, at first use).
+    `make(operands, key)` gives a chunk's (matvec, preconditioner). It
+    serves the solver's inputs as they were at construction (`stale`)."""
+
+    def __init__(self, solver, operands, make, dtype):
+        self._fixed = _route_inputs(solver)
+        self.operands = _clone_tree(operands)
+        self._make = make
+        self._dtype = dtype
+        self._shape = (solver.mesh.n_nodes, 3)
+        self._device = solver.mesh.device
+        self._capture = solver._capture_chunks
+        self.chunks = {}
+
+    def stale(self, solver) -> bool:
+        return any(a is not b for a, b in zip(_route_inputs(solver), self._fixed))
+
+    def refresh(self, operands) -> None:
+        _copy_tree(self.operands, operands)
+
+    def chunk(self, key: str) -> DevicePCGChunk:
+        if key not in self.chunks:
+            matvec, precond = self._make(self.operands, key)
+            self.chunks[key] = DevicePCGChunk(matvec, precond, self._shape, self._dtype,
+                                              self._device, capture=self._capture)
+        return self.chunks[key]
+
+
+def _route_inputs(solver) -> tuple:
+    return (solver.options, solver.bc, solver.f_ext, solver._coarse, solver.mesh,
+            solver.material)
 
 
 def _residual_soa_fn(u, scale, soa64, material, bc, f_ext):
@@ -372,6 +447,12 @@ class NewtonSolver:
         self._resid_df = False
         self._coarse = None
         self._device_loop = None
+        #: the PCG chunks of each route (`_ChunkRoute`), built at first use
+        self._routes = {}
+        #: None: the chunks are captured on the card and run eagerly on the
+        #: CPU; False: eagerly wherever the tensors are (a comparison on the
+        #: card, never a fallback)
+        self._capture_chunks = None
         if self.options.precision == "f64":
             if self.options.linear in ("pcg_bcsr", "direct"):
                 self.bcsr = BCSRStructure.build(mesh.conn_host, mesh.n_nodes, mesh.device)
@@ -430,26 +511,93 @@ class NewtonSolver:
             return _step_direct_fn(*args, self.bcsr)
         tol = opts.pcg_tol if lin_tol is None else lin_tol
         if opts.linear == "pcg":
-            return _step_matfree_fn(*args, tol, opts.pcg_maxiter)
-        return _step_bcsr_fn(*args, self.bcsr, tol, opts.pcg_maxiter)
+            return _step_matfree_fn(*args, self._f64_pcg_step(tol))
+        return _step_bcsr_fn(*args, self.bcsr, self._f64_pcg_step(tol))
+
+    def _route(self, name, operands, make, dtype) -> _ChunkRoute:
+        """The chunks of route `name` with their operands refreshed to
+        `operands`: the route built at first use and kept, so its graphs are
+        captured once per solver; built anew (and recaptured) where the
+        solver's inputs changed since."""
+        route = self._routes.get(name)
+        if route is not None and not route.stale(self):
+            route.refresh(operands)
+            return route
+        self._routes.pop(name, None)  # release the old graphs before the capture
+        route = self._routes[name] = _ChunkRoute(self, operands, make, dtype)
+        return route
+
+    def _f64_pcg_step(self, tol):
+        """`pcg_step(u, r, operand, diag_blocks)` of the f64 PCG steps:
+        block-Jacobi PCG with one restart (`_pcg_with_restart`) on the
+        masked system M K M + (I - M) of this solver's route, K v the BCSR
+        product of the values `operand` (B10) or the matrix-free tangent
+        action of the state `operand`, at `tol` and pcg_maxiter. Returns
+        (u + du, PCG iterations, converged, final relative PCG residual)."""
+        opts, bc = self.options, self.bc
+        free = bc.free_mask
+        if opts.linear == "pcg_bcsr":
+            structure = self.bcsr
+
+            def product(data):
+                return lambda v: bcsr_spmv(structure, data, v)
+        else:
+            conn, geom, material, scatter = self.mesh.conn, self.geom, self.material, self.scatter
+
+            def product(state):
+                return lambda v: apply_tangent(state, v, conn, geom, material, scatter)
+
+        def make(operands, key):
+            operand, inv_blocks = operands
+            apply = product(operand)
+
+            def matvec(v):  # M K M v + (I - M) v
+                vm = bc.project(v)
+                return bc.project(apply(vm)) + (v - vm)
+
+            return matvec, lambda r: apply_block_jacobi(inv_blocks, free, r)
+
+        def pcg_step(u, r, operand, diag_blocks):
+            route = self._route(opts.linear, (operand, jacobi_inverse_blocks(diag_blocks, free)),
+                                make, r.dtype)
+            x, iters, ok, rel = _pcg_with_restart(route.chunk("jacobi"), r, tol, opts.pcg_maxiter)
+            return u + x, iters, ok, rel
+
+        return pcg_step
+
+    def _mixed_route(self, state, inv_blocks) -> _ChunkRoute:
+        """The mixed routes' chunks (the step, `step_fn`, the host loop)
+        with their operands refreshed to the frozen state and inverse
+        Jacobi blocks: chunk "coarse" over block-Jacobi plus the coarse
+        correction (where the solver has a coarse space), "jacobi" over
+        block-Jacobi alone."""
+        soa, coarse = self._soa, self._coarse
+        free32 = self.bc.free_mask.to(torch.float32)
+        free32_T = free32.T.contiguous()
+
+        def make(operands, key):
+            frozen, inv = operands
+            return (lambda v: _mixed_matvec(soa, frozen, free32_T, v),
+                    _mixed_precond(inv, free32, coarse if key == "coarse" else None))
+
+        return self._route("mixed", (state, inv_blocks), make, torch.float32)
+
+    def _mixed_key(self) -> str:
+        return "jacobi" if self._coarse is None else "coarse"
 
     def _mixed_prepare(self, u, scale, r64=None):
         """The mixed step's set-up at u (the reference's
         `_mixed_prepare_fn`): the f64 residual `r64` (the plain f64 SoA
-        pass when not given), the f32 freeze, block-Jacobi and the
-        preconditioner. Returns (matvec, precond, b32)."""
+        pass when not given), the f32 freeze and block-Jacobi. Returns the
+        mixed route's chunk (`_mixed_route`) over the solver's
+        preconditioner, its operands refreshed, and b32."""
         if r64 is None:
             r64, _ = _residual_soa_fn(u, scale, self._soa64, self.material, self.bc, self.f_ext)
         free32 = self.bc.free_mask.to(torch.float32)
-        free32_T = free32.T.contiguous()
         state = self._freeze(u)
         diag = soa_diag_blocks(self._soa, state).permute(2, 0, 1)
-        precond = _mixed_precond(jacobi_inverse_blocks(diag, free32), free32, self._coarse)
-
-        def matvec(v):
-            return _mixed_matvec(self._soa, state, free32_T, v)
-
-        return matvec, precond, r64.to(torch.float32)
+        route = self._mixed_route(state, jacobi_inverse_blocks(diag, free32))
+        return route.chunk(self._mixed_key()), r64.to(torch.float32)
 
     def _step_mixed(self, u, scale, lin_tol=None, r64=None):
         """One mixed-precision Newton step: `_mixed_prepare`, then
@@ -458,63 +606,56 @@ class NewtonSolver:
         best iterate), as the reference's step; a breakdown restart
         rebuilds only the Krylov state. No fallback to block-Jacobi alone."""
         tol = _to_f32(self.options.pcg_tol if lin_tol is None else lin_tol)
-        matvec, precond, b = self._mixed_prepare(u, scale, r64)
-        x, iters, ok, rel = self._chunked_pcg(matvec, precond, b, tol, first_chunk=False)
+        chunk, b = self._mixed_prepare(u, scale, r64)
+        x, iters, ok, rel = self._chunked_pcg(chunk, b, tol, first_chunk=False)
         return u + x.to(u.dtype), iters, ok, rel
 
     def step_fn(self, u, scale):
         """One Newton step as a plain function of (u, scale) (the step of
-        entry.py): on the mixed path `_mixed_prepare` and
-        one PCG chunk of at most pcg_chunk iterations at pcg_tol in f32,
-        returning (u + x, iterations, no breakdown, ||r||); on every other
-        route `_step`."""
+        entry.py): on the mixed path `_mixed_prepare` and one run of the
+        chunk, at most pcg_chunk iterations at pcg_tol in f32, returning
+        (u + x, iterations, no breakdown, ||r||); on every other route
+        `_step`."""
         opts = self.options
         if opts.precision != "mixed":
             return self._step(u, scale)
-        matvec, precond, b = self._mixed_prepare(u, scale)
-        st = pcg_chunk(matvec, pcg_init(matvec, b, precond, tol=_to_f32(opts.pcg_tol)), precond,
-                       maxiter=opts.pcg_chunk)
+        chunk, b = self._mixed_prepare(u, scale)
+        chunk.start(b, _to_f32(opts.pcg_tol))
+        st = chunk.run(opts.pcg_chunk)
         return u + st.x.to(u.dtype), st.k, st.ok, math.sqrt(st.rr)
 
     def _freeze(self, u):
         """f32 tangent state at u [N, 3]."""
         return soa_freeze(self._soa, self.material, u.to(torch.float32).T.contiguous())
 
-    def _chunked_pcg(self, matvec, precond, b, tol, first_chunk):
-        """Chunked PCG from zero on the masked f32 tangent system through
-        `drive_chunked_pcg`, in chunks of pcg_chunk up to pcg_maxiter
-        iterations (`first_chunk`: the first chunk runs with the set-up).
-        Returns (x, iterations, converged, rel)."""
+    def _chunked_pcg(self, chunk, b, tol, first_chunk):
+        """Chunked PCG from zero on `chunk` (the masked f32 tangent system)
+        through `drive_chunked_pcg`: runs of pcg_chunk iterations up to
+        pcg_maxiter, one fetch each (`first_chunk`: the first run follows
+        the set-up before the first fetch). Returns (x, iterations,
+        converged, rel); x may be the chunk's buffer."""
         opts = self.options
 
         def prepare(x0):
-            st = pcg_init(matvec, b, precond, x0=x0, tol=tol)
+            chunk.start(b, tol, x0=x0)
             if x0 is None and first_chunk:
-                st = pcg_chunk(matvec, st, precond, maxiter=min(opts.pcg_chunk, opts.pcg_maxiter))
-            return st
+                return chunk.run(min(opts.pcg_chunk, opts.pcg_maxiter))
+            return chunk.fetch()
 
-        def chunk(st, n):
-            return pcg_chunk(matvec, st, precond, maxiter=n)
+        return drive_chunked_pcg(prepare, lambda st, n: chunk.run(n), tol=tol,
+                                 chunk_iters=opts.pcg_chunk, maxiter=opts.pcg_maxiter)
 
-        return drive_chunked_pcg(prepare, chunk, tol=tol, chunk_iters=opts.pcg_chunk,
-                                 maxiter=opts.pcg_maxiter)
-
-    def _linear_solve(self, state, inv_blocks, b, lin_tol, free32, free32_T):
+    def _linear_solve(self, state, inv_blocks, b, lin_tol):
         """Chunked PCG on the masked f32 tangent system; a preconditioner with
-        a coarse correction falls back to block-Jacobi alone when its solve
-        is not accepted. Returns (x, iterations, accepted)."""
-
-        def matvec(v):
-            return _mixed_matvec(self._soa, state, free32_T, v)
-
-        def run(coarse, first_chunk):
-            return self._chunked_pcg(matvec, _mixed_precond(inv_blocks, free32, coarse), b,
-                                     lin_tol, first_chunk)
-
-        x, iters, ok, rel = run(self._coarse, True)
+        a coarse correction falls back to block-Jacobi alone (the route's
+        second chunk) when its solve is not accepted. Returns (x,
+        iterations, accepted)."""
+        route = self._mixed_route(state, inv_blocks)
+        x, iters, ok, rel = self._chunked_pcg(route.chunk(self._mixed_key()), b, lin_tol, True)
         accept = ok or rel <= 1e-3
         if not accept and self._coarse is not None:
-            x_fb, it_fb, ok_fb, rel_fb = run(None, False)
+            x_fb, it_fb, ok_fb, rel_fb = self._chunked_pcg(route.chunk("jacobi"), b, lin_tol,
+                                                           False)
             self.precond_fallbacks += 1
             iters += it_fb
             accept = ok_fb or rel_fb <= 1e-3
@@ -579,7 +720,6 @@ class NewtonSolver:
             norms, pcg_iters = list(norms), list(pcg_iters)
         it0 = len(norms)
         free32 = self.bc.free_mask.to(torch.float32)
-        free32_T = free32.T.contiguous()
         f_ext32 = self.f_ext.to(torch.float32)
         use_ew = opts.forcing == "ew"
         norm0 = stop_n = None
@@ -619,9 +759,7 @@ class NewtonSolver:
                 state = self._freeze(u)
             diag = soa_diag_blocks(self._soa, state).permute(2, 0, 1)
             inv_blocks = jacobi_inverse_blocks(diag, free32)
-            x_prev, lin_iters, accept = self._linear_solve(
-                state, inv_blocks, b, lin_tol, free32, free32_T
-            )
+            x_prev, lin_iters, accept = self._linear_solve(state, inv_blocks, b, lin_tol)
             pcg_iters.append(int(lin_iters))
             if not accept:
                 break

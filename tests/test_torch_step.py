@@ -50,6 +50,7 @@ from fea_large_tpu_torch import entry as port_entry
 from fea_large_tpu_torch.bc import DirichletBuilder
 from fea_large_tpu_torch.materials import NeoHookean
 from fea_large_tpu_torch.mesh.generators import box_mesh, box_mesh_kuhn
+from fea_large_tpu_torch.ops import cuda_graphs
 from fea_large_tpu_torch.ops import struct_kernels as sk
 from fea_large_tpu_torch.ops.smallmat import adjugate3, sym3
 from fea_large_tpu_torch.solvers import newton as nm
@@ -245,8 +246,11 @@ def test_mixed_step_on_card():
         solver = NewtonSolver(mesh, NeoHookean(1.0, 0.6), bc, options=SolverOptions(**STEP))
         u = bc.impose(torch.tensor(_affine(mesh.coords.cpu().numpy(), -0.05), device=dev), 1.0)
         before = dict(sk.LAUNCHES)
+        replayed = {k: cuda_graphs.REPLAYED[f"struct_{k}"] for k in sk.LAUNCHES}
         out = solver._step(u, 1.0)
-        launched = {k: sk.LAUNCHES[k] - before[k] for k in sk.LAUNCHES}
+        # eager launches and, on the card, those of the PCG chunk's graphs
+        launched = {k: sk.LAUNCHES[k] - before[k] + cuda_graphs.REPLAYED[f"struct_{k}"]
+                    - replayed[k] for k in sk.LAUNCHES}
         again = solver._step(u, 1.0)
         runs[dev] = (u, out, launched, again)
     u, (u_c, it_c, ok_c, _), _, _ = runs["cpu"]
