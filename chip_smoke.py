@@ -10,8 +10,9 @@ preconditioners, the host coarse builders, an autodiff material on the
 f64 paths, the examples and the sharded paths, and checks them:
 
   * the Kuhn path, bench.py's default (mixed precision, two-level PCG with
-    6 coarse modes, device_loop=True: the device-resident Newton loop,
-    replayed CUDA graphs with IF nodes, solvers/device_loop.py), with the
+    6 coarse modes, device_loop=True: the device-resident Newton loop, an
+    increment one launched CUDA graph of nested WHILE and IF nodes and one
+    fetch, solvers/device_loop.py), with the
     host Newton loop (device_loop=False) beside it: TET10 Kuhn lattice
     n=35, 1,073,733 DOF, the lattice kernels B1-B4 and, with
     resid_df=None, the fused f64 residual B5 (csrc/struct_kernels.cu);
@@ -33,11 +34,15 @@ f64 paths, the examples and the sharded paths, and checks them:
 Phases:
 
   0. card: nvidia-smi name and power limit, torch, CUDA and driver
-     versions (the device loop's IF nodes need CUDA >= 12.4);
+     versions (the conditional graph nodes need CUDA >= 12.4);
   1. build: every kernel source with nvcc, all at once (and
-     csrc/graph_kernels.cu, the device loop's IF nodes), and ptxas's
-     registers, spills and static shared memory per kernel (for the
-     lattice kernels also the blocks an SM holds);
+     csrc/graph_kernels.cu, the programs' WHILE and IF nodes), and
+     ptxas's registers, spills and static shared memory per kernel (for
+     the lattice kernels also the blocks an SM holds); then a nested
+     program over counter bodies (WHILE {IF, WHILE}) against the run
+     counts of the same Python loop, and whether CUDA takes a composed
+     program as a child graph (it must not: nested chains go into the
+     conditional nodes' own body graphs);
   2. kernel checks, each kernel against its plain PyTorch version on the
      same inputs: B1-B5 on TET10 and TET4 Kuhn lattices n=21 (C = 9,261 =
      289*32 + 13 cells; B2 also on n=22, whose C is a multiple of 8, where
@@ -65,7 +70,8 @@ Phases:
      within a loop, the same Newton count in both, the device loop's u
      within 1e-7 of max |u| of the host loop's, both PCG lists beside the
      TPU's; s/step (median and range of each loop), host fetches per
-     solve, capture seconds, graph nodes, peak memory and setup seconds.
+     solve (the device loop: one, checked), capture seconds, graph nodes,
+     peak memory and setup seconds.
      The host loop's CG runs the mixed route's PCG chunk (the reference's
      `pcg_chunk`: captured graphs, the CG iteration under a WHILE node,
      solvers/linear.py `DevicePCGChunk`): its capture seconds, fetches per
@@ -94,13 +100,15 @@ Phases:
      start's; one `step_fn` (one run of the chunk, one fetch); phase 3
      also `entry()`'s step (entry.py) on the card against its CPU run
      (1e-10 of max |u|), and phase 5 one `step_fn` on its route (the f64
-     step: B10 at least once per PCG iteration, two fetches);
+     step: B10 at least once per PCG iteration, one fetch: the solve and
+     its restart in one launch);
   5. the f64 BCSR path: config 2 of tests/test_parity.py (TET10 box 2^3,
      zmax -0.2, two increments, pcg_tol 1e-13) against the reference's
      counts, then full width: one warm-up (with the PCG chunk's capture)
      and one timed solve (bitwise-equal u and equal PCG lists), the
-     chunk's host fetches per solve (two a Newton step: the solve and its
-     restart) and one solve with eager chunks beside (bitwise), B10
+     chunk's host fetches per solve (one a Newton step, checked: the solve
+     and its restart in one launch) and one solve with eager chunks beside
+     (bitwise), B10
      launched at least once per PCG iteration (replays included), peak
      memory, and the host CPU recheck of the converged residual;
   6. timings at full width: each kernel and its plain version with CUDA
@@ -537,7 +545,7 @@ def phase_card():
     print(smi)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, driver {driver}, "
           f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} device(s)")
-    # the device loop's IF nodes (csrc/graph_kernels.cu): CUDA 12.4 or later,
+    # the programs' WHILE nodes (csrc/graph_kernels.cu): CUDA 12.4 or later,
     # whose drivers are 550 or later
     check(tuple(int(x) for x in torch.version.cuda.split(".")[:2]) >= (12, 4),
           f"conditional graph nodes need CUDA >= 12.4, torch has {torch.version.cuda}")
@@ -569,6 +577,7 @@ def phase_build():
     ek._library()
     bk._library()
     cuda_graphs._library()
+    graph_nesting()
     for src, (path, seconds, log) in zip(sources, builds):
         print(f"{src.name}: {path.name} (nvcc {seconds:.1f} s{'' if seconds else ', reused'})")
         name = None
@@ -584,6 +593,53 @@ def phase_build():
                 if m and src == sk.SOURCE and tag:
                     print(f"    {tag} blocks of {TILE_THREADS} threads resident per SM: "
                           f"{resident_blocks(int(m.group(1)), int(m.group(2)), TILE_THREADS)}")
+
+
+def graph_nesting():
+    """The nested programs' composition on this card's CUDA: WHILE(outer)
+    {a; IF(odd) b; WHILE(inner) c; d} over counter bodies (a: i += 1; b
+    counts; c: j += 1, inner = j % 3 != 0; d: outer = i < 5, odd = i odd,
+    inner = True; every flag set at the launch) gives the counts of the
+    same Python loop and the nodes of its items; CUDA refuses the composed
+    graph as a child graph."""
+    cnt = torch.zeros(3, dtype=torch.int64, device="cuda")
+    outer, odd, inner = (torch.ones((), dtype=torch.bool, device="cuda") for _ in range(3))
+
+    def c():
+        cnt[2].add_(1)
+        inner.copy_(cnt[2] % 3 != 0)
+
+    def d():
+        outer.copy_(cnt[0] < 5)
+        odd.copy_(cnt[0] % 2 == 1)
+        inner.fill_(True)
+
+    a, b = (cuda_graphs.Body(lambda i=i: cnt[i].add_(1)) for i in (0, 1))
+    c, d = cuda_graphs.Body(c), cuda_graphs.Body(d)
+    prog = cuda_graphs.Program([([(a, None), (b, odd), (c, cuda_graphs.While(inner)), (d, None)],
+                                 cuda_graphs.While(outer))])
+    t0 = time.perf_counter()
+    prog.launch()
+    got = cnt.tolist()
+    dt = time.perf_counter() - t0
+    i = n_b = j = 0
+    flag = True
+    while True:  # the program's structure in Python, its flags initially set
+        i, n_b = i + 1, n_b + flag
+        while True:
+            j += 1
+            if j % 3 == 0:
+                break
+        flag = i % 2 == 1
+        if i >= 5:
+            break
+    child = cuda_graphs.child_graph_error(prog)
+    print(f"nested program WHILE {{IF, WHILE}} over counters: runs {got} (Python loop "
+          f"{[i, n_b, j]}), {prog.nodes} nodes, {dt * 1e3:.3f} ms with the fetch; the composed "
+          f"graph as a child graph: CUDA error {child} (0: taken)")
+    check(got == [i, n_b, j], "the nested program runs its bodies as the Python loop does")
+    check(prog.nodes == a.nodes + b.nodes + c.nodes + d.nodes + 8, "the nested program's nodes")
+    check(child != 0, "CUDA refuses a child graph that holds conditional nodes")
 
 
 MATERIALS = (StVenantKirchhoff(1.0, 0.6), NeoHookean(1.0, 0.6), NeoHookeanVolumetric(1.0, 0.6))
@@ -900,7 +956,8 @@ def full_width(label, build, opts, keys, device, card):
           f"pools); peak of the setup {setup_peak} B ({setup_peak / 2**30:.2f} GiB)")
     print(f"device loop, first solve (with the capture): {time.perf_counter() - t2:.3f} s, "
           f"capture {loop.capture_s:.3f} s, ok={ok}, newton {rec1.newton_iters}, "
-          f"pcg {rec1.pcg_iters}; graph nodes {loop.graph_nodes} (cg: {dl.CG_UNROLL} iterations)")
+          f"pcg {rec1.pcg_iters}; graph nodes {loop.graph_nodes} (one program: WHILE(running) "
+          f"{{head, WHILE(active) cg, tail}})")
     ticks = wrapper_counts(keys)
     dev_runs = timed_solves(f"{label} device loop", lambda: solver._newton(u0, 1.0), LOOP_REPS)
     check(wrapper_counts(keys) == ticks,
@@ -914,8 +971,9 @@ def full_width(label, build, opts, keys, device, card):
           "the capturing solve and the replayed ones give bitwise-equal u")
     print(f"kernel launches of the main path (setup + warm-up + the replays of {1 + LOOP_REPS} "
           f"solves): {launches}; by the replays: {replayed}; per capture: {loop.per_capture}")
-    print(f"device loop: body runs per solve {runs}, host fetches per solve {fetches}, peak device "
-          f"memory {peak} B ({peak / 2**30:.2f} GiB)")
+    print(f"device loop: body runs per solve {runs}, host fetches per solve {fetches} (one launch), "
+          f"peak device memory {peak} B ({peak / 2**30:.2f} GiB)")
+    check(fetches == 1, f"a {label} device-loop solve is one launch and one fetch")
     captured = {k for c in loop.per_capture.values() for k in c}
     check(all(replayed[k] > 0 for k in keys if k in captured),
           f"every kernel of the {label} loop's bodies launched by the replays")
@@ -1178,7 +1236,8 @@ def f64_solves(label, solver, u0, reps, keys=()):
     launches = launch_counts(keys)
     print(f"{label}: PCG chunk capture {capture_s:.3f} s, graph nodes {nodes}, host fetches of the "
           f"chunk per solve {fetches:g} ({fetches / reca.newton_iters:g} a Newton step: the solve "
-          f"and its restart)")
+          f"and its restart in one launch)")
+    check(fetches == reca.newton_iters, f"{label}: one fetch a Newton step")
     eager = eager_beside(f"{label} solve", solver,
                          lambda o: (lambda out: (out[0], out[2].pcg_iters))(o._newton(u0, 1.0)),
                          ua, reca.pcg_iters)
@@ -1255,7 +1314,7 @@ def phase_bcsr(device, card):
     print(f"step_fn (one f64 step at pcg_tol {solver.options.pcg_tol}): {dt_s:.4f} s, pcg {k_s}, "
           f"ok={ok_s}, rel {rel_s:.3e}, bcsr_spmv launches {step_launches} (replayed), host "
           f"fetches of the chunk {step_fetches}")
-    check(step_fetches == 2, "step_fn on the BCSR path: two fetches (the solve and its restart)")
+    check(step_fetches == 1, "step_fn on the BCSR path: one fetch (the solve and its restart)")
     check(bool(torch.isfinite(u_s).all()) and 0 < k_s <= step_launches,
           "step_fn on the BCSR path: a finite u, B10 at least once per PCG iteration")
     summary = {
@@ -1340,27 +1399,37 @@ def time_calls(calls, points, npe, table):
               f"of it)   plain {plain_ms:9.4f} ms   host {host_us(kern):6.1f} us/launch")
 
 
+#: CG iterations of one timed run of phase 6's PCG iteration timings
+ITERATION_RUN = 16
+
+
 def loop_iteration_ms(solver, label):
     """Phase 6: one PCG iteration of each loop, on the state the device
-    loop's last solve left: the replayed `cg` program with its CG_UNROLL IF
-    nodes all taken (stop 0; CUDA events around each launch, median of 5,
-    over CG_UNROLL); the host loop's, a run of CG_UNROLL iterations of a
-    captured PCG chunk (its WHILE node, tol 0) on the same frozen state and
-    right-hand side, and the eager `pcg_chunk` (the sharded ranks' host
-    loop) beside it (host clock ending in a synchronise, median of 5);
-    then one replayed `head` (x set to 0, so u stays). The next solve
-    resets the state."""
+    loop's last solve left: the device loop's `cg` program (WHILE(active)
+    over the CG body, as nested in its solve program) armed for
+    ITERATION_RUN iterations (stop 0, cap k + ITERATION_RUN; CUDA events
+    around each launch, median of 5, over the iterations a launch ran);
+    the host loop's, a run of ITERATION_RUN iterations of a captured PCG
+    chunk (its WHILE node, tol 0) on the same frozen state and right-hand
+    side, and the eager `pcg_chunk` (the sharded ranks' host loop) beside
+    it (host clock ending in a synchronise, median of 5); then one
+    replayed `head` (x set to 0, so u stays). The next solve resets the
+    state."""
     loop = solver._device_loop
-    st, k = loop.state, dl.CG_UNROLL
+    st, k = loop.state, ITERATION_RUN
 
     def armed_cg():
         st.pcg.stop.zero_()
-        st.pcg.cap.fill_(2**62)
+        st.pcg.cap.copy_(st.pcg.k + k)
         st.pcg.ok.fill_(True)
         st.pcg.active.fill_(True)
         loop.replay("cg")
 
-    dev_ms = cuda_ms(armed_cg, n=5) / k
+    k0 = int(st.pcg.k)
+    launch_ms = cuda_ms(armed_cg, n=5)
+    per_launch = (int(st.pcg.k) - k0) / 6  # cuda_ms: a warm-up and 5 timed launches
+    check(per_launch > 0, f"{label}: the device loop's cg program ran CG iterations")
+    dev_ms = launch_ms / per_launch
     free32 = solver.bc.free_mask.to(torch.float32)
     free32_T = free32.T.contiguous()
 
@@ -1386,7 +1455,8 @@ def loop_iteration_ms(solver, label):
     split = cg_iteration_split(solver, matvec, precond, dev_ms, label)
     st.pcg.x.zero_()
     head_ms = cuda_ms(lambda: loop.replay("head"), n=5)
-    print(f"  {label} PCG iteration: device loop {dev_ms:.4f} ms (replayed, {k} a launch), host "
+    print(f"  {label} PCG iteration: device loop {dev_ms:.4f} ms (replayed, {per_launch:g} a "
+          f"launch of its cg program), host "
           f"loop {host_ms:.4f} ms (a PCG chunk's run of {k}, replayed, one fetch), eager "
           f"pcg_chunk {eager_ms:.4f} ms; device loop head (u += x, freeze, f64 residual, forcing, "
           f"block-Jacobi, pcg_init) {head_ms:.4f} ms")
@@ -1417,11 +1487,11 @@ def graph_ms(fn, n=10):
 def cg_iteration_split(solver, matvec, precond, iteration_ms, label):
     """Where a replayed PCG iteration's device time goes: its pieces on the
     device loop's state, each captured and replayed alone (`graph_ms`): one
-    CG step (`device_pcg_step`, the `cg` body without its IF node), the
+    CG step (`device_pcg_step`, the `cg` body without its WHILE node), the
     masked matvec (gather, B1 or B6, scatter), the preconditioner, its
     block-Jacobi and coarse parts, and the coarse part's restrict, dense
     gemv and prolong. Derived, not timed: the replayed iteration less the
-    step (the IF node's share and a graph's own start; it has come out
+    step (the WHILE node's share and a graph's own start; it has come out
     negative, the step alone slower than inside `cg`) and the step's dots,
     axpys and flags (the step less the matvec and the preconditioner). The
     step's replays advance the state's CG; the next solve resets it."""
@@ -1880,7 +1950,11 @@ def mixed_phase8(label, mesh, bc, opts, mesh_cpu, card):
           f"{rec.pcg_iters}); u within {du:.3e} of the host loop's")
     check(recd.newton_iters == rec.newton_iters, f"{label}: the device loop's Newton count")
     check(du <= LOOP_BOUND, f"{label}: device-loop u within {LOOP_BOUND} of the host loop's")
-    del dev
+    loop = dev._device_loop
+    check(loop.last.fetches == 1, f"{label}: a device-loop solve is one fetch")
+    loop_stats = {"fetches": loop.last.fetches, "graph_nodes": loop.graph_nodes,
+                  "capture_s": loop.capture_s}
+    del dev, loop
     r_cpu, red_cpu = host_reduction(lambda: mesh_cpu, NeoHookean(1.0, 0.6), bench_bc, u, None, 1.0,
                                     rec.residual_norms[0])
     print(f"  host CPU f64 residual of the converged u: {r_cpu:.6e} (reduction {red_cpu:.3e})")
@@ -1894,7 +1968,7 @@ def mixed_phase8(label, mesh, bc, opts, mesh_cpu, card):
         "solve_s": [dt for _, _, dt in runs], "setup_s": t_setup, "setup": setup,
         "peak_bytes": peak, "launches": launches, "setup_launches": in_setup, "card": card,
         "device_loop": {"pcg_iters": recd.pcg_iters, "u_vs_host_loop": du,
-                        "s_per_step": dev_runs[1][2] / recd.newton_iters},
+                        "s_per_step": dev_runs[1][2] / recd.newton_iters, **loop_stats},
     }
     return solver, summary
 

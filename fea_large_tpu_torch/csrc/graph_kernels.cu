@@ -11,17 +11,20 @@
 // body, or
 //
 //     IF:    set kernel (reads the flag, sets the IF's condition) -> IF node
-//            {child graph node holding the body}
-//     WHILE: set kernel -> WHILE node {child graph node holding the body ->
-//            set kernel}
+//            {chain}
+//     WHILE: set kernel -> WHILE node {chain -> set kernel}
 //
-// The WHILE item is `lax.while_loop`: the flag is tested before the first
-// run (a flag already clear runs the body no time) and again after each
-// run, all on the card. cudaGraphAddChildGraphNode clones the body, so a
-// body may appear several times in one chain (the K predicated CG
-// iterations). No Pallas kernel of the reference corresponds: on the TPU
-// the loops are XLA programs. The set kernel is one thread that reads one
-// byte.
+// where {chain} is again a chain of items, appended into the conditional
+// node's own body graph, so that conditionals nest (a whole Newton
+// increment: WHILE {..., IF {...}, WHILE {...}, ...}). A child graph may
+// not hold a conditional node (cudaGraphAddChildGraphNode refuses it), so a
+// composed program is never wrapped as a child graph. The WHILE item is
+// `lax.while_loop`: the flag is tested before the first run (a flag already
+// clear runs the body no time) and again after each run, all on the card.
+// cudaGraphAddChildGraphNode clones the body, so a body may appear several
+// times in one program (the two runs of a PCG solve and its restart). No
+// Pallas kernel of the reference corresponds: on the TPU the loops are XLA
+// programs. The set kernel is one thread that reads one byte.
 //
 // C interface, loaded with ctypes; every function returns a cudaError_t.
 
@@ -64,37 +67,63 @@ cudaError_t add_set(cudaGraphNode_t* out, cudaGraph_t graph, const cudaGraphNode
   return cudaGraphAddKernelNode(out, graph, deps, n_deps, &kp);
 }
 
-// Append `body` to the chain ending at *tail: always (kAlways), under
-// IF(*flag) (kIf) or WHILE(*flag) (kWhile).
-cudaError_t append(cudaGraph_t graph, cudaGraphNode_t* tail, cudaGraph_t body, const bool* flag,
-                   int kind) {
-  const size_t n_deps = *tail ? 1 : 0;
-  cudaGraphNode_t node;
-  if (kind == kAlways) {
-    FEA_TRY(cudaGraphAddChildGraphNode(&node, graph, tail, n_deps, body));
-    *tail = node;
-    return cudaSuccess;
-  }
-  if ((kind != kIf && kind != kWhile) || flag == nullptr) return cudaErrorInvalidValue;
-  cudaGraphConditionalHandle handle;
-  FEA_TRY(cudaGraphConditionalHandleCreate(&handle, graph, 0, 0));
+// Append a set kernel and a conditional node of `kind` on *flag to the
+// chain of `graph` ending at *tail; *inner is the node's body graph.
+cudaError_t append_conditional(cudaGraph_t graph, cudaGraphNode_t* tail, const bool* flag,
+                               int kind, cudaGraph_t* inner, cudaGraphConditionalHandle* handle) {
+  // the handle belongs to the graph that holds the conditional node
+  FEA_TRY(cudaGraphConditionalHandleCreate(handle, graph, 0, 0));
   cudaGraphNode_t set;
-  FEA_TRY(add_set(&set, graph, tail, n_deps, handle, flag));
+  FEA_TRY(add_set(&set, graph, tail, *tail ? 1 : 0, *handle, flag));
   cudaGraphNodeParams cp = {};
   cp.type = cudaGraphNodeTypeConditional;
-  cp.conditional.handle = handle;
+  cp.conditional.handle = *handle;
   cp.conditional.type = kind == kIf ? cudaGraphCondTypeIf : cudaGraphCondTypeWhile;
   cp.conditional.size = 1;
-  FEA_TRY(add_node(&node, graph, &set, 1, &cp));
-  cudaGraph_t inner = cp.conditional.phGraph_out[0];
-  cudaGraphNode_t child;
-  FEA_TRY(cudaGraphAddChildGraphNode(&child, inner, nullptr, 0, body));
-  if (kind == kWhile) {
-    // the loop condition for the next run, after this one
-    cudaGraphNode_t again;
-    FEA_TRY(add_set(&again, inner, &child, 1, handle, flag));
+  FEA_TRY(add_node(tail, graph, &set, 1, &cp));
+  *inner = cp.conditional.phGraph_out[0];
+  return cudaSuccess;
+}
+
+// Append items [lo, hi), the chain whose parent is item `parent` (-1: the
+// top level), to the chain of `graph` ending at *tail. Items are in
+// pre-order: item i's chain is the run of items after it whose parents are
+// i or later.
+cudaError_t append_chain(cudaGraph_t graph, cudaGraphNode_t* tail, int parent, int lo, int hi,
+                         void* const* bodies, void* const* flags, const int* kinds,
+                         const int* parents) {
+  for (int i = lo; i < hi;) {
+    if (parents[i] != parent) return cudaErrorInvalidValue;
+    int end = i + 1;
+    while (end < hi && parents[end] >= i) {
+      if (parents[end] >= end) return cudaErrorInvalidValue;
+      ++end;
+    }
+    if (kinds[i] == kAlways) {
+      if (bodies[i] == nullptr || end != i + 1) return cudaErrorInvalidValue;
+      cudaGraphNode_t node;
+      FEA_TRY(cudaGraphAddChildGraphNode(&node, graph, tail, *tail ? 1 : 0,
+                                         static_cast<cudaGraph_t>(bodies[i])));
+      *tail = node;
+    } else {
+      const bool* flag = static_cast<const bool*>(flags[i]);
+      if ((kinds[i] != kIf && kinds[i] != kWhile) || flag == nullptr || bodies[i] != nullptr ||
+          end == i + 1) {
+        return cudaErrorInvalidValue;
+      }
+      cudaGraph_t inner;
+      cudaGraphConditionalHandle handle;
+      FEA_TRY(append_conditional(graph, tail, flag, kinds[i], &inner, &handle));
+      cudaGraphNode_t inner_tail = nullptr;
+      FEA_TRY(append_chain(inner, &inner_tail, i, i + 1, end, bodies, flags, kinds, parents));
+      if (kinds[i] == kWhile) {
+        // the loop condition for the next run, after this one
+        cudaGraphNode_t again;
+        FEA_TRY(add_set(&again, inner, &inner_tail, 1, handle, flag));
+      }
+    }
+    i = end;
   }
-  *tail = node;
   return cudaSuccess;
 }
 
@@ -109,25 +138,24 @@ int fea_graph_init() {
   return cudaFuncGetAttributes(&attr, set_condition_kernel);
 }
 
-// Compose n items into a new graph and instantiate it. Item i is the body
-// graph bodies[i], run once (kinds[i] 0), under IF(*flags[i]) (1) or
-// WHILE(*flags[i]) (2); flags[i] is a bool in device memory, read when a
-// set kernel runs.
+// Compose n items into a new graph and instantiate it. The items are in
+// pre-order; parents[i] is the conditional item whose chain item i belongs
+// to (-1: the top level). Item i is the body graph bodies[i], run once
+// (kinds[i] 0), or a conditional on the bool *flags[i] in device memory,
+// read when a set kernel runs, with bodies[i] null: IF (1) or WHILE (2)
+// over its chain, which is not empty.
 int fea_graph_compose(int n, void* const* bodies, void* const* flags, const int* kinds,
-                      void** graph_out, void** exec_out) {
+                      const int* parents, void** graph_out, void** exec_out) {
   cudaGraph_t graph;
   FEA_TRY(cudaGraphCreate(&graph, 0));
   cudaGraphNode_t tail = nullptr;
-  for (int i = 0; i < n; ++i) {
-    cudaError_t status = append(graph, &tail, static_cast<cudaGraph_t>(bodies[i]),
-                                static_cast<const bool*>(flags[i]), kinds[i]);
-    if (status != cudaSuccess) {
-      cudaGraphDestroy(graph);
-      return status;
-    }
+  cudaError_t status = append_chain(graph, &tail, -1, 0, n, bodies, flags, kinds, parents);
+  if (status != cudaSuccess) {
+    cudaGraphDestroy(graph);
+    return status;
   }
   cudaGraphExec_t exec;
-  cudaError_t status = cudaGraphInstantiate(&exec, graph, 0);
+  status = cudaGraphInstantiate(&exec, graph, 0);
   if (status != cudaSuccess) {
     cudaGraphDestroy(graph);
     return status;
@@ -135,6 +163,19 @@ int fea_graph_compose(int n, void* const* bodies, void* const* flags, const int*
   *graph_out = graph;
   *exec_out = exec;
   return cudaSuccess;
+}
+
+// Append the graph `child` as a child-graph node to a new graph and
+// destroy that graph: whether CUDA takes `child` as a child graph (it
+// refuses one that holds a conditional node).
+int fea_graph_try_child(void* child) {
+  cudaGraph_t graph;
+  FEA_TRY(cudaGraphCreate(&graph, 0));
+  cudaGraphNode_t node;
+  cudaError_t status = cudaGraphAddChildGraphNode(&node, graph, nullptr, 0,
+                                                  static_cast<cudaGraph_t>(child));
+  cudaGraphDestroy(graph);
+  return status;
 }
 
 int fea_graph_launch(void* exec, void* stream) {

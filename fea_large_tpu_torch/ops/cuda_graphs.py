@@ -3,11 +3,12 @@ binding of csrc/graph_kernels.cu).
 
 `Body(fn)` captures one call of `fn` into a CUDA graph of its own (a
 private memory pool, kept as long as the Body lives: the programs built
-from it use its addresses). `Program(items)` composes a chain of bodies,
-each run once, under IF(flag) or under `While(flag)`, a flag being a 0-d
-bool tensor on the card read when the chain reaches it (and, for WHILE,
-again after each run of the body), and instantiates it; `launch()` runs it
-on the current stream. The device-resident Newton loop
+from it use its addresses). `Program(items)` composes a chain of items,
+each a body or a chain of items in its own right, run once, under
+IF(flag) or under `While(flag)`, a flag being a 0-d bool tensor on the card
+read when the chain reaches it (and, for WHILE, again after each run of
+its chain), and instantiates it; conditionals nest. `launch()` runs it on
+the current stream. The device-resident Newton loop
 (solvers/device_loop.py) and the PCG chunks (solvers/linear.py) are built
 from these. A failed capture, composition or launch raises; nothing runs
 eagerly in its place.
@@ -74,7 +75,8 @@ def _library():
     P = ctypes.c_void_p
     lib = cuda_build.load(SOURCE, {
         "fea_graph_init": [],
-        "fea_graph_compose": [ctypes.c_int, P, P, P, P, P],
+        "fea_graph_compose": [ctypes.c_int, P, P, P, P, P, P],
+        "fea_graph_try_child": [P],
         "fea_graph_launch": [P, P],
         "fea_graph_node_count": [P, P],
         "fea_graph_destroy": [P, P],
@@ -127,30 +129,51 @@ class While:
 
 
 class Program:
-    """A chain of `(body, cond)` items: cond None (run once), a 0-d bool
-    CUDA tensor (IF node) or `While(flag)` (WHILE node). `nodes` counts the
-    nodes of one pass with every condition set and every loop run once:
-    the bodies' nodes, per IF its set kernel and the IF node, per WHILE
-    two set kernels and the WHILE node."""
+    """A chain of `(what, cond)` items: `what` a `Body` or a chain of
+    items (a list or tuple of them), cond None (run once), a 0-d bool CUDA
+    tensor (IF node) or `While(flag)` (WHILE node). Conditionals nest: a
+    conditional's chain is appended into its node's own body graph. `nodes`
+    counts the nodes of one pass with every condition set and every loop
+    run once, the nested ones included: the bodies' nodes, per IF its set
+    kernel and the IF node, per WHILE two set kernels and the WHILE node.
+    A failed composition raises."""
 
     def __init__(self, items):
         self._items = list(items)  # the bodies and flags must outlive the graph
-        kinds, flags = [], []
-        for _, cond in self._items:
-            flag = cond.flag if isinstance(cond, While) else cond
-            if flag is not None and (flag.dtype != torch.bool or flag.numel() != 1
-                                     or flag.device.type != "cuda"):
-                raise ValueError("an IF or WHILE flag is a 0-d bool tensor on the card")
-            kinds.append(_ALWAYS if cond is None else _WHILE if isinstance(cond, While) else _IF)
-            flags.append(None if flag is None else flag.data_ptr())
-        n = len(self._items)
-        bodies = (ctypes.c_void_p * n)(*(b.graph.raw_cuda_graph() for b, _ in self._items))
-        flag_ptrs = (ctypes.c_void_p * n)(*flags)
-        kind_arr = (ctypes.c_int * n)(*kinds)
+        flat = []  # (parent, kind, body, flag pointer), in pre-order
+        self.nodes = self._flatten(self._items, -1, flat)
+        n = len(flat)
+        parents = (ctypes.c_int * n)(*(f[0] for f in flat))
+        kinds = (ctypes.c_int * n)(*(f[1] for f in flat))
+        bodies = (ctypes.c_void_p * n)(*(None if f[2] is None else f[2].graph.raw_cuda_graph()
+                                         for f in flat))
+        flags = (ctypes.c_void_p * n)(*(f[3] for f in flat))
         self._graph, self._exec = ctypes.c_void_p(), ctypes.c_void_p()
         _check("fea_graph_compose", _library().fea_graph_compose(
-            n, bodies, flag_ptrs, kind_arr, ctypes.byref(self._graph), ctypes.byref(self._exec)))
-        self.nodes = sum(b.nodes + (0, 2, 3)[k] for (b, _), k in zip(self._items, kinds))
+            n, bodies, flags, kinds, parents, ctypes.byref(self._graph),
+            ctypes.byref(self._exec)))
+
+    @staticmethod
+    def _flatten(items, parent, flat) -> int:
+        """Append `items` under `parent` to `flat`; returns their nodes."""
+        nodes = 0
+        for what, cond in items:
+            if cond is None:
+                if isinstance(what, Body):
+                    flat.append((parent, _ALWAYS, what, None))
+                    nodes += what.nodes
+                else:
+                    nodes += Program._flatten(what, parent, flat)
+                continue
+            flag = cond.flag if isinstance(cond, While) else cond
+            if flag.dtype != torch.bool or flag.numel() != 1 or flag.device.type != "cuda":
+                raise ValueError("an IF or WHILE flag is a 0-d bool tensor on the card")
+            kind = _WHILE if isinstance(cond, While) else _IF
+            here = len(flat)
+            flat.append((parent, kind, None, flag.data_ptr()))
+            chain = [(what, None)] if isinstance(what, Body) else what
+            nodes += (0, 2, 3)[kind] + Program._flatten(chain, here, flat)
+        return nodes
 
     def launch(self) -> None:
         stream = torch.cuda.current_stream().cuda_stream
@@ -159,3 +182,11 @@ class Program:
     def __del__(self):
         if getattr(self, "_exec", None) and self._exec.value:
             _library().fea_graph_destroy(self._graph, self._exec)
+
+
+def child_graph_error(program: Program) -> int:
+    """The CUDA error of appending `program`'s composed graph to another
+    graph as a child-graph node (0: taken). CUDA refuses a child graph that
+    holds a conditional node, which is why nested chains are appended into
+    the conditional nodes' own body graphs."""
+    return _library().fea_graph_try_child(program._graph)

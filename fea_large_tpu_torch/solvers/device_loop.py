@@ -25,19 +25,26 @@ Six bodies write them in place:
            value handed on (eta is kept on a hand-back), as the
            reference's body ends.
 
-They form three programs: head = pre, IF(use32) resid32, IF(not use32)
-resid64, post; cg = CG_UNROLL times IF(active) cg; tail. The host runs
-head, then cg until a fetched `active` is false, then tail, and fetches
-`done`: it replays and reads flags, and no host arithmetic enters the
-trajectory.
+They form one program, the reference's `while_loop(lambda c: ~c[9], ...)`
+over a Newton iteration with the CG `while_loop` nested in it:
+
+  solve = WHILE(running) {pre; IF(use32) resid32; IF(use64) resid64; post;
+                          WHILE(active) cg; tail}
+
+`running` is set before the launch (the flag is tested first, as the
+reference's loop tests ~done) and `tail` writes ~done into it. `solve`
+launches it once and makes one batched fetch of the results: no host
+arithmetic and no host read enters the trajectory.
 
 On the card each body is captured once per solver into a CUDA graph of
 its own (ops/cuda_graphs.py) after one eager warm-up of every body on a
 side stream and on a scratch state (which builds the kernel libraries and
-runs both residual branches), and the programs are composed from them with
-IF nodes. A failed capture or launch raises: no body runs eagerly on the
-card. On the CPU the same bodies run eagerly, a Python `if` on each flag
-in place of its IF node; that is the only difference between the routes.
+runs both residual branches), and the program is composed from them with
+nested WHILE and IF nodes. A failed capture, composition or launch raises:
+no body runs eagerly on the card unless the loop is built with
+`capture=False` (a comparison, never a fallback). On the CPU the same
+bodies run eagerly, a Python `while` or `if` on each flag in place of its
+node; that is the only difference between the routes.
 
 The kernel wrappers count launches when they are called, that is at
 warm-up here (a capture takes its counts back, ops/cuda_graphs.py);
@@ -69,21 +76,19 @@ from fea_large_tpu_torch.solvers.newton import (
     device_forcing,
 )
 
-#: CG iterations per replay of the `cg` program, each under IF(active):
-#: the host fetches `active` once per replay, so a Newton iteration of k CG
-#: iterations costs ceil(k / 16) + 1 fetches (the + 1: `done`), against one
-#: per iteration on the host loop. bench.py's Kuhn solve needs at most 28 a
-#: Newton iteration, so two replays; a larger block would add skipped IF
-#: nodes (a set kernel each) to every replay for no fewer fetches there.
-CG_UNROLL = 16
-
-#: the bodies in order, and the programs composed of them: (flag, body);
-#: a flag names a bool of `LoopState` (None: always run)
+#: the bodies in order, and the programs composed of them: chains of
+#: (kind, flag, what), kind None (run once), "if" or "while" on the
+#: `LoopState` bool `flag`, `what` a body or a chain; "solve" is the one the
+#: solves launch, "head" (a Newton iteration up to `pcg_init`) and "cg" (a
+#: CG run) are composed on first `replay` only (phase 6's timings)
 BODIES = ("pre", "resid32", "resid64", "post", "cg", "tail")
+HEAD = ((None, None, "pre"), ("if", "use32", "resid32"), ("if", "use64", "resid64"),
+        (None, None, "post"))
+CG = (("while", "active", "cg"),)
 PROGRAMS = {
-    "head": ((None, "pre"), ("use32", "resid32"), ("use64", "resid64"), (None, "post")),
-    "cg": (("active", "cg"),) * CG_UNROLL,
-    "tail": ((None, "tail"),),
+    "solve": (("while", "running", HEAD + CG + ((None, None, "tail"),)),),
+    "head": HEAD,
+    "cg": CG,
 }
 
 #: kernel launches made by replayed graphs (per capture x runs), by name:
@@ -96,7 +101,8 @@ class DeviceLoopResult:
     """One device-loop solve (the reference's `_mixed_solve_fn` outputs):
     u, the residual norm and CG iterations of each of the n_iters Newton
     iterations run, the terminal flags, the forcing value handed on, the CG
-    iterations in all, and the host fetches the solve made."""
+    iterations in all, and the host fetches the solve made: one, the batched
+    fetch of these (the eager route also reads each flag it tests)."""
 
     u: torch.Tensor
     residual_norms: list
@@ -140,6 +146,7 @@ class LoopState:
     failed: torch.Tensor
     exhausted: torch.Tensor
     done: torch.Tensor
+    running: torch.Tensor  # the increment's loop condition, ~done after `tail`
     runs: torch.Tensor  # int64 [len(BODIES)]: runs of each body
     frozen: object = None
     inv_blocks: torch.Tensor | None = None
@@ -160,7 +167,7 @@ class LoopState:
             norms=torch.zeros(max_newton, dtype=f64, device=device),
             cgs=torch.zeros(max_newton, dtype=i64, device=device),
             **{k: scalar(b) for k in ("use32", "use64", "conv", "bad", "skip", "failed",
-                                      "exhausted", "done")},
+                                      "exhausted", "done", "running")},
             runs=torch.zeros(len(BODIES), dtype=i64, device=device),
         )
 
@@ -170,16 +177,19 @@ class LoopState:
 
 class DeviceLoop:
     """The device loop of one `NewtonSolver` (mixed path): its state, its
-    bodies and, on the card, their graphs (captured at construction).
-    `solve(u0, scale)` runs one increment. `capture_s`, `graph_nodes` and
-    `per_capture` (each body's kernel launches) describe the capture;
+    bodies and, on the card, their graphs (captured at construction unless
+    `capture=False`, which runs the bodies eagerly on the card: a
+    comparison). `solve(u0, scale)` runs one increment: one launch and one
+    fetch on the card. `capture_s`, `graph_nodes` (of each program
+    composed) and `per_capture` (each body's kernel launches) describe the
+    capture;
     `last` (its `DeviceLoopResult`) and `runs` (of each body) the last
     solve. It is built for the solver's f64 residual route, coarse space,
     options, boundary conditions and load as they are at its first solve;
     where any of them changed since (`stale`), the solver builds a loop
     anew (`NewtonSolver._device_solve`), and `solve` refuses to run."""
 
-    def __init__(self, solver):
+    def __init__(self, solver, capture=None):
         self.solver = solver
         opts = solver.options
         self._fixed = self._inputs()
@@ -199,7 +209,7 @@ class DeviceLoop:
         self.capture_s = 0.0
         self.graph_nodes = {}
         self.per_capture = {}
-        if self.device.type == "cuda":
+        if (self.device.type == "cuda") if capture is None else capture:
             self._capture(n)
 
     def _inputs(self) -> tuple:
@@ -294,6 +304,7 @@ class DeviceLoop:
             st.prev_norm.copy_(st.norm)
             st.failed.copy_(failed)
             st.exhausted.copy_(hit)
+            st.running.copy_(~st.done)
 
         return {"pre": pre, "resid32": resid32, "resid64": resid64, "post": post, "cg": cg,
                 "tail": tail}
@@ -301,7 +312,7 @@ class DeviceLoop:
     # -- capture (card) ----------------------------------------------------
     def _capture(self, n_nodes: int) -> None:
         """Warm every body up once on a scratch state on a side stream, then
-        capture each body and compose the programs."""
+        capture each body and compose the solve program."""
         t0 = time.perf_counter()
         cuda_graphs.collect_garbage()
         with self._on_device():
@@ -314,41 +325,55 @@ class DeviceLoop:
             torch.cuda.current_stream(self.device).wait_stream(side)
             torch.cuda.synchronize(self.device)
             del scratch
-            bodies = {name: cuda_graphs.Body(fn) for name, fn in self._bodies(self.state).items()}
-            self.per_capture = {name: body.launches for name, body in bodies.items()}
-            self._graphs = {
-                prog: cuda_graphs.Program([(bodies[body], None if flag is None else self.state.flag(flag))
-                               for flag, body in items])
-                for prog, items in PROGRAMS.items()
-            }
-            self._bodies_kept = bodies
-            self.graph_nodes = {prog: g.nodes for prog, g in self._graphs.items()}
+            self._kept = {name: cuda_graphs.Body(fn) for name, fn in self._bodies(self.state).items()}
+            self.per_capture = {name: body.launches for name, body in self._kept.items()}
+            self._graphs = {}
+            self._compose("solve")
             torch.cuda.synchronize(self.device)
         self.capture_s = time.perf_counter() - t0
 
+    def _items(self, chain) -> list:
+        """`cuda_graphs.Program` items of a chain of `PROGRAMS`."""
+        out = []
+        for kind, flag, what in chain:
+            what = self._kept[what] if isinstance(what, str) else self._items(what)
+            cond = None if kind is None else self.state.flag(flag)
+            out.append((what, cuda_graphs.While(cond) if kind == "while" else cond))
+        return out
+
+    def _compose(self, prog: str) -> None:
+        self._graphs[prog] = cuda_graphs.Program(self._items(PROGRAMS[prog]))
+        self.graph_nodes[prog] = self._graphs[prog].nodes
+
     # -- the host side -----------------------------------------------------
     def replay(self, prog: str) -> None:
-        """Launch the captured program `prog` ("head", "cg" or "tail") on
-        the card's current stream (the card only)."""
+        """Launch the captured program `prog` ("solve", "head" or "cg";
+        composed at its first replay) on the card's current stream (the
+        card only)."""
         if self._graphs is None:
             raise RuntimeError("the device loop has graphs on the card only")
         with self._on_device():
+            if prog not in self._graphs:
+                self._compose(prog)
             self._graphs[prog].launch()
 
-    def _run(self, prog: str, eager: dict) -> None:
-        if self._graphs is not None:
-            self.replay(prog)
-            return
-        for flag, body in PROGRAMS[prog]:
-            if flag is None or bool(self.state.flag(flag)):
-                eager[body]()
+    def _run_eager(self, chain, eager: dict) -> None:
+        """A chain of `PROGRAMS` with its bodies run eagerly, a Python
+        `while` or `if` on each flag in place of its node."""
+        for kind, flag, what in chain:
+            while kind is None or bool(self.state.flag(flag)):
+                if isinstance(what, str):
+                    eager[what]()
+                else:
+                    self._run_eager(what, eager)
+                if kind != "while":
+                    break
 
     def solve(self, u0: torch.Tensor, scale: float) -> DeviceLoopResult:
         """One increment from u0 at the load factor `scale`."""
         if self.stale():  # NewtonSolver._device_solve builds a new loop instead
             raise RuntimeError("the solver's inputs changed after its device loop was built")
         st = self.state
-        eager = self._bodies(st) if self._graphs is None else None
         st.u.copy_(self.solver.bc.impose(u0, scale))
         st.pcg.x.zero_()
         st.scale.fill_(scale)
@@ -360,23 +385,15 @@ class DeviceLoop:
         st.norm0.fill_(1.0)
         for t in (st.done, st.conv, st.bad, st.failed, st.exhausted):
             t.fill_(False)
-        fetches = 0
-        while True:
-            self._run("head", eager)
-            while True:
-                self._run("cg", eager)
-                fetches += 1
-                if not bool(st.pcg.active):
-                    break
-            self._run("tail", eager)
-            fetches += 1
-            if bool(st.done):
-                break
+        st.running.fill_(True)
+        if self._graphs is not None:
+            self.replay("solve")
+        else:
+            self._run_eager(PROGRAMS["solve"], self._bodies(st))
         f64 = torch.float64
         flags = torch.stack([t.to(f64) for t in (st.it, st.conv, st.failed, st.exhausted, st.bad,
                                                  st.eta, st.total_cg)])
         vals = torch.cat([st.norms, st.cgs.to(f64), flags, st.runs.to(f64)]).tolist()
-        fetches += 1
         m = self.max_newton
         n_it, conv, failed, exhausted, bad, eta, total = vals[2 * m: 2 * m + 7]
         runs = dict(zip(BODIES, (int(v) for v in vals[2 * m + 7:])))
@@ -386,5 +403,5 @@ class DeviceLoop:
         self.last = DeviceLoopResult(
             u=st.u.clone(), residual_norms=vals[:n_it], pcg_iters=[int(v) for v in vals[m:m + n_it]],
             n_iters=n_it, converged=bool(conv), failed=bool(failed), exhausted=bool(exhausted),
-            poisoned=bool(bad), eta=eta, total_cg=int(total), fetches=fetches)
+            poisoned=bool(bad), eta=eta, total_cg=int(total), fetches=1)
         return self.last

@@ -9,14 +9,15 @@ Three forms of PCG:
     fallback, the f64 BCSR and matrix-free steps). On the card one chunk
     of n iterations is one launch of a CUDA graph that runs the captured
     CG iteration under a WHILE node on `active`, then one batched fetch
-    of (k, rr, ok, stop); on the CPU the same bodies run eagerly, a Python
+    of (k, rr, ok, stop), and an f64 step's solve and its restart one
+    launch and one fetch; on the CPU the same bodies run eagerly, a Python
     test of `active` in place of the WHILE node.
   * `DevicePCG`, `device_pcg_init`, `device_pcg_step`: the state and the
     bodies both the chunk and the device-resident Newton loop
-    (solvers/device_loop.py, under IF nodes) are made of. Every scalar of
-    the recurrence, the stop test and the flags live in 0-d device
-    tensors, updated in place (the addresses a captured graph reads stay
-    fixed). The stop max(tol ||b||, atol) and the loop condition are
+    (solvers/device_loop.py, under nested WHILE and IF nodes) are made
+    of. Every scalar of the recurrence, the stop test and the flags live
+    in 0-d device tensors, updated in place (the addresses a captured
+    graph reads stay fixed). The stop max(tol ||b||, atol) and the loop condition are
     formed in the vectors' dtype, f32 on the mixed path, as the
     reference's are.
   * `PCGState`, `pcg_init`, `pcg_chunk`: a host loop over device tensors
@@ -251,7 +252,7 @@ def device_pcg_init(s: DevicePCG, b, preconditioner, tol, cap, *, matvec=None, x
 def device_pcg_step(s: DevicePCG, matvec, preconditioner) -> None:
     """One CG iteration of `pcg_chunk`'s body on `s`, in place, then the
     loop condition for the next. The caller runs it only while `s.active`
-    (a WHILE or IF node in a graph, a Python test on the CPU)."""
+    (a WHILE node in a graph, a Python test on the CPU)."""
     q = matvec(s.p)
     pq = _dot(s.p, q)
     pos = pq > 0.0  # breakdown guard: K must be SPD
@@ -272,34 +273,40 @@ def device_pcg_step(s: DevicePCG, matvec, preconditioner) -> None:
 class DevicePCGChunk:
     """The reference's `pcg_init` and `pcg_chunk` on one operator: a
     `DevicePCG` state, the right-hand side `b` and the 0-d `tol` and `n`
-    in persistent tensors, and five bodies that update them in place:
+    in persistent tensors, and six bodies that update them in place:
 
       init0  `device_pcg_init` from zero      initx  from the state's own x
       arm    cap = k + n, the loop condition  step   one CG iteration
       fin    ok &= isfinite(rr): a non-finite r.r ends the loop as a
              breakdown, as the reference's `pcg_chunk` reports it
+      keep   k1, ok1 = k, ok (the first run's) and n = max(n - k, 0)
 
     `start(b, tol, x0)` runs init0 or initx; `run(n)` runs arm, step while
     `active`, fin, then `fetch()`: ONE batched fetch of (k, rr, ok, stop,
-    ||b||), the reference's per-chunk contract. The stop test is in the
+    ||b||), the reference's per-chunk contract. `restart(b, tol, n)` is
+    the reference's `_pcg_with_restart` in one launch: a run of n from
+    zero, then one from its x with the rest of the budget (none where the
+    first run used it all), then one fetch. The stop test is in the
     vectors' dtype on the device. `matvec` and `preconditioner` must read
     only tensors that outlive the chunk (the caller refreshes them in place
     between solves: a capture holds their addresses).
 
     On the card (`capture`, the default there) the bodies are warmed up
     once on a side stream and captured into CUDA graphs at construction,
-    and three programs are composed of them (ops/cuda_graphs.py): init0,
-    initx and arm -> WHILE(active) {step} -> fin. A chunk of n iterations
-    is then one launch and one fetch. `capture=False` runs the bodies
-    eagerly wherever the tensors are, with a Python test of `active` in
-    place of the WHILE node (the CPU's route; on the card, a comparison).
-    A failed capture or launch raises. `fetches` counts the fetches, `runs`
-    (on the device) the runs of each body; the replays' kernel launches go
-    to `cuda_graphs.REPLAYED` at each fetch."""
+    and four programs are composed of them (ops/cuda_graphs.py): init0,
+    initx, run = arm -> WHILE(active) {step} -> fin, and restart = init0 ->
+    run -> keep -> initx -> run. A chunk of n iterations, or a solve and
+    its restart, is then one launch and one fetch. `capture=False` runs the
+    bodies eagerly wherever the tensors are, with a Python test of `active`
+    in place of the WHILE node (the CPU's route; on the card, a
+    comparison). A failed capture or launch raises. `fetches` counts the
+    fetches, `runs` (on the device) the runs of each body; the replays'
+    kernel launches go to `cuda_graphs.REPLAYED` at each fetch."""
 
-    BODIES = ("init0", "initx", "arm", "step", "fin")
-    PROGRAMS = {"init0": (("init0", None),), "initx": (("initx", None),),
-                "run": (("arm", None), ("step", "while"), ("fin", None))}
+    BODIES = ("init0", "initx", "arm", "step", "fin", "keep")
+    RUN = (("arm", None), ("step", "while"), ("fin", None))
+    PROGRAMS = {"init0": (("init0", None),), "initx": (("initx", None),), "run": RUN,
+                "restart": (("init0", None),) + RUN + (("keep", None), ("initx", None)) + RUN}
 
     def __init__(self, matvec, preconditioner, shape, dtype, device, *, capture=None, atol=0.0):
         self.device = torch.device(device)
@@ -308,6 +315,8 @@ class DevicePCGChunk:
         self.b = torch.zeros(shape, dtype=dtype, device=self.device)
         self.tol = torch.zeros((), dtype=dtype, device=self.device)
         self.n = torch.zeros((), dtype=torch.int64, device=self.device)
+        self.k1 = torch.zeros((), dtype=torch.int64, device=self.device)
+        self.ok1 = torch.zeros((), dtype=torch.bool, device=self.device)
         self.runs = torch.zeros(len(self.BODIES), dtype=torch.int64, device=self.device)
         self._seen = [0] * len(self.BODIES)
         self._bodies = self._make_bodies()
@@ -325,6 +334,7 @@ class DevicePCGChunk:
         # a chunk and its graphs go when its last reference does
         s, matvec, precond = self.state, self.matvec, self.preconditioner
         b, tol, n, runs, atol = self.b, self.tol, self.n, self.runs, self.atol
+        k1, ok1 = self.k1, self.ok1
 
         def count(i):
             runs[i].add_(1)
@@ -350,7 +360,14 @@ class DevicePCGChunk:
             count(4)
             s.ok.logical_and_(torch.isfinite(s.rr))
 
-        return {"init0": init0, "initx": initx, "arm": arm, "step": step, "fin": fin}
+        def keep():
+            count(5)
+            k1.copy_(s.k)
+            ok1.copy_(s.ok)
+            n.copy_(torch.clamp_min(n - s.k, 0))
+
+        return {"init0": init0, "initx": initx, "arm": arm, "step": step, "fin": fin,
+                "keep": keep}
 
     def _capture(self) -> None:
         """Warm every body up once on a side stream, then capture each body
@@ -418,25 +435,42 @@ class DevicePCGChunk:
         self._launch("run")
         return self.fetch()
 
+    def restart(self, b, tol, n: int) -> tuple[int, bool, PCGState]:
+        """The reference's `_pcg_with_restart` (solvers/newton.py there): up
+        to n iterations from zero on b at `tol`, then one unconditional
+        restart from their x with max(n - k1, 0) iterations, k1 the first
+        run's; one launch and one fetch. Returns (k1, the first run's ok,
+        the restart's state as `fetch()` gives it)."""
+        self.b.copy_(b)
+        self.tol.fill_(tol)
+        self.n.fill_(int(n))
+        self._launch("restart")
+        st, k1, ok1 = self._fetch()
+        return k1, ok1, st
+
     def fetch(self) -> PCGState:
         """The one batched fetch of (k, rr, ok, stop, ||b||) and the bodies'
         run counters: the state as `PCGState`, its vectors the chunk's
         buffers (valid until the next `start`)."""
+        return self._fetch()[0]
+
+    def _fetch(self) -> tuple[PCGState, int, bool]:
         s = self.state
         f64 = torch.float64
-        vals = torch.cat([torch.stack([t.to(f64) for t in (s.k, s.rr, s.ok, s.stop, s.bnorm)]),
+        scalars = (s.k, s.rr, s.ok, s.stop, s.bnorm, self.k1, self.ok1)
+        vals = torch.cat([torch.stack([t.to(f64) for t in scalars]),
                           self.runs.to(f64)]).tolist()
         self.fetches += 1
-        runs = [int(v) for v in vals[5:]]
+        runs = [int(v) for v in vals[len(scalars):]]
         if self._graphs is not None:
             from fea_large_tpu_torch.ops import cuda_graphs
 
             cuda_graphs.tally(self.per_capture, {
                 name: r - seen for name, r, seen in zip(self.BODIES, runs, self._seen)})
         self._seen = runs
-        k, rr, ok, stop, bnorm = vals[:5]
-        return PCGState(x=s.x, r=s.r, z=s.z, p=s.p, rz=s.rz, rr=rr, k=int(k), ok=ok > 0.0,
-                        stop=stop, bnorm=bnorm)
+        k, rr, ok, stop, bnorm, k1, ok1 = vals[:len(scalars)]
+        return (PCGState(x=s.x, r=s.r, z=s.z, p=s.p, rz=s.rz, rr=rr, k=int(k), ok=ok > 0.0,
+                         stop=stop, bnorm=bnorm), int(k1), ok1 > 0.0)
 
 
 def drive_chunked_pcg(prepare, chunk, *, tol, chunk_iters, maxiter):

@@ -24,7 +24,8 @@ Two loops run it. `device_loop=True` (the default, the reference's
 `_mixed_solve_fn`): the whole increment on the device
 (solvers/device_loop.py), the forcing by `device_forcing` and the CG stop
 test in f32 on the device; on the card, CUDA graphs captured once per
-solver and replayed, the host reading flags only. It hands a solve that
+solver and composed into one program of nested WHILE and IF nodes, one
+launch and one fetch an increment. It hands a solve that
 runs out of its CG budget (`device_loop_budget`) or breaks down to the
 host loop, which continues the same Newton sequence. The host loop
 (`device_loop=False`, `NewtonSolver._newton_mixed_host`): the forcing by
@@ -47,8 +48,8 @@ inverse Jacobi blocks), which each solve overwrites in place; where the
 solver's options, `bc`, `f_ext`, coarse space, mesh or material are no
 longer the objects it was built with, the route is built anew. The
 chunks serve the mixed step, `step_fn`, the host loop (one chunk of
-pcg_chunk iterations per fetch) and the f64 steps (one run of
-pcg_maxiter and one of the restart, two fetches a step).
+pcg_chunk iterations per fetch) and the f64 steps (a run of pcg_maxiter
+and its restart in one launch, one fetch a step).
 
 f64 (`precision="f64"`), per Newton iteration (`NewtonSolver._newton`):
 the f64 residual of the element pass (`_residual_fn`), then one step
@@ -270,18 +271,16 @@ def _residual_fn(u, scale, conn, geom, material, bc, f_ext, scatter):
 def _pcg_with_restart(chunk, r, pcg_tol, pcg_maxiter):
     """PCG on `chunk` (a `DevicePCGChunk` over the masked system) from
     zero, then one unconditional restart from its final iterate with the
-    remaining budget: two runs, one fetch each. A p.Kp <= 0 breakdown near
+    remaining budget (`DevicePCGChunk.restart`: one launch and one fetch,
+    as the reference's one dispatch). A p.Kp <= 0 breakdown near
     stagnation can be rounding in the recurrence; the restart rebuilds it
-    from the true residual. After a converged solve it costs one product
-    and one preconditioner apply, and runs no iteration. Returns (x,
-    iterations, converged, final ||r|| of the recurrence over ||r||); x is
-    the chunk's buffer."""
-    chunk.start(r, pcg_tol)
-    first = chunk.run(pcg_maxiter)
-    chunk.start(None, pcg_tol, x0=chunk.state.x)
-    st = chunk.run(max(pcg_maxiter - first.k, 0))
+    from the true residual. After a converged solve, or one that used the
+    whole budget, it costs one product and one preconditioner apply, and
+    runs no iteration. Returns (x, iterations, converged, final ||r|| of
+    the recurrence over ||r||); x is the chunk's buffer."""
+    k1, _, st = chunk.restart(r, pcg_tol, pcg_maxiter)
     rnorm = math.sqrt(st.rr)
-    return st.x, first.k + st.k, st.ok and rnorm <= st.stop, rnorm / max(st.bnorm, 1e-300)
+    return st.x, k1 + st.k, st.ok and rnorm <= st.stop, rnorm / max(st.bnorm, 1e-300)
 
 
 def _step_direct_fn(u, scale, conn, geom, material, bc, f_ext, scatter, structure):

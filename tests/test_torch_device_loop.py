@@ -2,9 +2,10 @@
 fea_large_tpu_torch/solvers/device_loop.py) against the JAX reference's
 (`_mixed_solve_fn` and its dispatch in `_newton_mixed`).
 
-On the CPU the loop's bodies run eagerly, a Python `if` on each flag in
-place of an IF node (on the card the same bodies run as replayed CUDA
-graphs: the `_on_card` test, which skips here; the reference is imported
+On the CPU the loop's bodies run eagerly, a Python `while` or `if` on
+each flag in place of its node (on the card the same bodies run as one
+launched CUDA graph of nested WHILE and IF nodes: the `_on_card` tests,
+which skip here; the reference is imported
 inside the tests that use it, so that it also runs where JAX is not
 installed: `python -m pytest --noconftest -k on_card
 tests/test_torch_device_loop.py`). Three reference solves, in one module
@@ -34,7 +35,9 @@ histories and on random ones; the device-state PCG against the
 reference's `pcg_init`/`pcg_chunk`; the three-level and 12-mode
 preconditioners and a poisoned residual on both loops; a change to the
 solver's inputs builds a new loop, which solves as a fresh solver's; and
-the options and task loader field for field.
+the options and task loader field for field. Every device-loop solve
+makes one host fetch, the budget's and the breakdown's hand-backs
+included.
 """
 
 import dataclasses
@@ -45,7 +48,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import REFERENCE_N4_DEVICE_LOOP
+from chip_smoke import REFERENCE_N4_DEVICE_LOOP, graph_nesting
 from fea_large_tpu_torch.bc import DirichletBuilder
 from fea_large_tpu_torch.io.task import load_task
 from fea_large_tpu_torch.materials import NeoHookean
@@ -113,12 +116,39 @@ def reference():
     return out
 
 
+class _Fetches:
+    """Records the host fetches of every `DeviceLoop.solve` while entered."""
+
+    def __enter__(self):
+        self.fetches, real = [], dl.DeviceLoop.solve
+        self._real = real
+
+        def spy(loop, u0, scale):
+            out = real(loop, u0, scale)
+            self.fetches.append(out.fetches)
+            return out
+
+        dl.DeviceLoop.solve = spy
+        return self
+
+    def __exit__(self, *exc):
+        dl.DeviceLoop.solve = self._real
+
+
 @pytest.fixture(scope="module")
 def port():
-    """{(case, device_loop): SolveResult} of the port (the knife edge too)."""
+    """{(case, device_loop): SolveResult} of the port (the knife edge too),
+    and {case: [fetches of each device-loop solve]}."""
     cases = dict(CASES, knife_edge=(4, -0.1, JACOBI))
-    return {(name, flag): _solve(n, load, device_loop=flag, **opts)
-            for name, (n, load, opts) in cases.items() for flag in (True, False)}
+    out, fetches = {}, {}
+    for name, (n, load, opts) in cases.items():
+        for flag in (True, False):
+            with _Fetches() as seen:
+                out[(name, flag)] = _solve(n, load, device_loop=flag, **opts)
+            if flag:
+                fetches[name] = seen.fetches
+    out["fetches"] = fetches
+    return out
 
 
 def test_solver_options_match_reference():
@@ -153,6 +183,15 @@ def test_device_loop_matches_host_loop(port, case):
     assert _rel(dev.u.numpy(), host.u.numpy()) <= 1e-8
 
 
+@pytest.mark.parametrize("case", sorted(CASES) + ["knife_edge"])
+def test_device_loop_fetches_once_per_solve(port, case):
+    """A device-loop solve is one launch and one batched fetch, whatever its
+    Newton and CG counts (the reference's one dispatch and one
+    `device_get`)."""
+    fetches = port["fetches"][case]
+    assert fetches and fetches == [1] * len(fetches)
+
+
 def test_jacobi_knife_edge_splits_packages_not_loops(port):
     """Block-Jacobi on (a)'s box and load: both of the port's loops give the
     reference's first ten CG counts and one last count of their own (the
@@ -164,24 +203,27 @@ def test_jacobi_knife_edge_splits_packages_not_loops(port):
 
 
 def _bench_newton(**opts):
+    """(u, ok, record, the solver's device loop) of a Newton solve on the
+    Kuhn n=4 lattice with bench.py's problem."""
     mesh = box_mesh_kuhn(4, 4, 4, element_type="tet10", device="cpu")
     bc = DirichletBuilder(mesh).fix("zmin").prescribe("zmax", "z", -0.05).build()
     solver = NewtonSolver(mesh, NeoHookean(1.0, 0.6), bc, options=SolverOptions(**opts))
     u = torch.zeros((mesh.n_nodes, 3), dtype=torch.float64)
     u[:, 2] = -0.05 * mesh.coords[:, 2]
-    return solver._newton(bc.impose(u, 1.0), 1.0)
+    return (*solver._newton(bc.impose(u, 1.0), 1.0), solver._device_loop)
 
 
 def test_kuhn_bench_device_loop_matches_reference_counts():
     """(b) bench.py's default route on the Kuhn n=4 lattice: the reference's
-    device-loop counts and first residual (chip_smoke.py's constant), and u
-    within 1e-8 of the port's host loop."""
-    u, ok, rec = _bench_newton(**BENCH, device_loop=True)
+    device-loop counts and first residual (chip_smoke.py's constant), one
+    fetch, and u within 1e-8 of the port's host loop."""
+    u, ok, rec, loop = _bench_newton(**BENCH, device_loop=True)
     ref = REFERENCE_N4_DEVICE_LOOP
     assert ok and rec.newton_iters == ref["newton_iters"]
+    assert loop.last.fetches == 1 and loop.runs["cg"] == sum(rec.pcg_iters)
     assert rec.pcg_iters == ref["pcg_iters"]
     assert abs(rec.residual_norms[0] - ref["residual0"]) <= 1e-12 * ref["residual0"]
-    u_h, ok_h, rec_h = _bench_newton(**BENCH, device_loop=False)
+    u_h, ok_h, rec_h, _ = _bench_newton(**BENCH, device_loop=False)
     assert ok_h and rec_h.newton_iters == rec.newton_iters
     assert _rel(u.numpy(), u_h.numpy()) <= 1e-8
 
@@ -189,7 +231,8 @@ def test_kuhn_bench_device_loop_matches_reference_counts():
 def test_budget_hands_over_to_host_loop(port, monkeypatch):
     """(c) device_loop_budget=5: the device loop runs out of CG iterations,
     the host loop continues warm-started, and the increment converges within
-    1e-7 of max |u| of the unbudgeted device loop."""
+    1e-7 of max |u| of the unbudgeted device loop; the device solve that
+    handed over made one fetch."""
     handbacks = []
     host = NewtonSolver._newton_mixed_host
 
@@ -198,8 +241,9 @@ def test_budget_hands_over_to_host_loop(port, monkeypatch):
         return host(self, u, scale, handback)
 
     monkeypatch.setattr(NewtonSolver, "_newton_mixed_host", spy)
-    res = _solve(device_loop=True, device_loop_budget=5, **BASE)
-    assert res.converged
+    with _Fetches() as seen:
+        res = _solve(device_loop=True, device_loop_budget=5, **BASE)
+    assert res.converged and seen.fetches == [1]
     assert handbacks and handbacks[0] is not None and len(handbacks[0][1]) >= 1
     full = port[("two_level", True)]
     assert _rel(res.u.numpy(), full.u.numpy()) <= 1e-7
@@ -209,7 +253,7 @@ def test_cg_breakdown_hands_back_to_host_loop(monkeypatch):
     """(d) tests/test_solvers.py:470 in the port: the device solve reports a
     CG breakdown after its second Newton iteration once; the host loop
     continues the increment, which converges with one record at load factor
-    1.0 (no bisection)."""
+    1.0 (no bisection); the device solve made one fetch."""
     real = dl.DeviceLoop.solve
     fired = []
 
@@ -217,7 +261,7 @@ def test_cg_breakdown_hands_back_to_host_loop(monkeypatch):
         out = real(self, u0, scale)
         if fired:
             return out
-        fired.append(True)
+        fired.append(out.fetches)
         n = min(out.n_iters, 2)
         return dataclasses.replace(
             out, n_iters=n, residual_norms=out.residual_norms[:n], pcg_iters=out.pcg_iters[:n],
@@ -225,7 +269,7 @@ def test_cg_breakdown_hands_back_to_host_loop(monkeypatch):
 
     monkeypatch.setattr(dl.DeviceLoop, "solve", fake)
     res = _solve(device_loop=True, **BASE)
-    assert fired and res.converged
+    assert fired == [1] and res.converged
     assert len(res.history) == 1 and res.history[0].load_factor == 1.0
 
 
@@ -412,3 +456,34 @@ def test_device_loop_replays_graphs_on_card():
     u_h, ok_h, rec_h = host._newton(u, 1.0)
     assert ok_h and rec_h.newton_iters == rec.newton_iters
     assert float((u_d - u_h).abs().max() / u_h.abs().max()) <= 1e-7
+
+
+def test_nested_program_counts_on_card():
+    """On the card: chip_smoke.py's `graph_nesting`, WHILE {IF, WHILE} over
+    counter bodies, runs each body as the Python loop of the same structure
+    does, its node count is the bodies' plus 3 per WHILE and 2 per IF, and
+    CUDA refuses the composed graph as a child graph (a child graph holds
+    no conditional node); a failed check raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: conditional graph nodes run on the card")
+    graph_nesting()
+
+
+def test_one_program_solve_is_the_eager_loop_on_card():
+    """On the card: the launched one-program solve against the same
+    solver's loop with its bodies run eagerly (`capture=False`): bitwise u,
+    the same norms and PCG lists, one fetch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the loop's graphs and kernels run on the card")
+    mesh = box_mesh_kuhn(4, 4, 4, element_type="tet10", device="cuda")
+    bc = DirichletBuilder(mesh).fix("zmin").prescribe("zmax", "z", -0.05).build()
+    u = torch.zeros((mesh.n_nodes, 3), dtype=torch.float64, device="cuda")
+    u[:, 2] = -0.05 * mesh.coords[:, 2]
+    solver = NewtonSolver(mesh, NeoHookean(1.0, 0.6), bc,
+                          options=SolverOptions(**dict(BENCH, resid_df=None)))
+    graph = solver._device_solve(u, 1.0)
+    eager = dl.DeviceLoop(solver, capture=False).solve(u, 1.0)
+    assert solver._device_loop.graph_nodes["solve"] > 0
+    assert graph.fetches == eager.fetches == 1 and graph.converged and eager.converged
+    assert torch.equal(graph.u, eager.u)
+    assert graph.pcg_iters == eager.pcg_iters and graph.residual_norms == eager.residual_norms

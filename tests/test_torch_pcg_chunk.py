@@ -16,16 +16,21 @@ reference.
       reference's `pcg_chunk` reports it;
   (d) `drive_chunked_pcg` over the chunk returns the best iterate, a
       clone, where the last one is worse (the chunk writes its x in place);
-      one fetch per chunk;
+      one fetch per chunk; the solve and its restart (the chunk's restart
+      program, `_pcg_with_restart`) against the reference's
+      `_pcg_with_restart` in f64 (x within 1e-12 of max |x|), one fetch,
+      the restart running no iteration where the first run spent the whole
+      budget;
   (e) the routes against the reference: `_step` on `pcg_bcsr` and `pcg`
       (f64, TET10 box 2^3: u within 1e-12, the same PCG count), on the
       mixed Kuhn (n=3) and 5-tet (n=3) boxes with bench.py's step options
       (u within 2e-5 of the increment's max, the same count), `step_fn` on
       the mixed Kuhn box, and the host Newton loop (`_newton_mixed_host`,
       5-tet n=3: the Newton count and PCG list equal, u within 2e-5);
-      fetches per step and per solve;
+      fetches per step (the f64 steps one, the mixed step two) and per
+      solve;
   (f) on the card (skips here): each route's graph chunk bitwise the
-      eager chunk on the same card, one fetch per run. It runs where JAX
+      eager chunk on the same card, one fetch per run or restart. It runs where JAX
       is not installed: `python -m pytest --noconftest -k on_card
       tests/test_torch_pcg_chunk.py`.
 """
@@ -45,6 +50,7 @@ try:  # the card's machine has no JAX: only the `_on_card` tests run there
     from fea_large_tpu.mesh.generators import box_mesh as ref_box_mesh
     from fea_large_tpu.mesh.generators import box_mesh_kuhn as ref_box_mesh_kuhn
     from fea_large_tpu.solvers import linear as ref_linear
+    from fea_large_tpu.solvers import newton as ref_newton
     from fea_large_tpu.solvers.newton import NewtonSolver as RefNewtonSolver
     from fea_large_tpu.solvers.newton import SolverOptions as RefOptions
 except ImportError:
@@ -55,6 +61,7 @@ from fea_large_tpu_torch.materials import NeoHookean
 from fea_large_tpu_torch.mesh.generators import box_mesh, box_mesh_kuhn
 from fea_large_tpu_torch.ops import cuda_graphs
 from fea_large_tpu_torch.solvers import linear
+from fea_large_tpu_torch.solvers import newton as nm
 from fea_large_tpu_torch.solvers.newton import NewtonSolver, SolverOptions
 
 torch.set_num_threads(2)
@@ -276,6 +283,44 @@ def test_drive_fetches_once_per_chunk():
     assert int(chunk.runs[3]) == total  # the step body ran once per iteration
 
 
+#: `_pcg_with_restart` cases: (seed, indefinite, tol, pcg_maxiter); the
+#: indefinite one without a preconditioner, as the breakdown test above
+RESTART = {"budget_spent": (7, False, 1e-13, 7), "converged": (7, False, 1e-10, 500),
+           "breakdown": (9, True, 1e-10, 500)}
+
+
+@pytest.mark.parametrize("case", list(RESTART))
+def test_restart_matches_reference(case):
+    """The f64 steps' PCG, a solve and its restart on the chunk's restart
+    program (`_pcg_with_restart`: one launch, one fetch), against the
+    reference's `_pcg_with_restart`: the same iterations and converged
+    flag, x within 1e-12 of max |x| and the final ||r|| within 1e-12 of
+    ||b|| of the reference's. Where the first run spends the whole budget the restart
+    gets none and runs no iteration: the step body runs pcg_maxiter times
+    in all."""
+    seed, indefinite, tol, maxiter = RESTART[case]
+    Am, b, free, diag = _system(seed=seed, indefinite=indefinite)
+    rmv, rpc = _ref_ops(Am, free, diag, jnp.float64)
+    mv, pc = _port_ops(Am, free, diag, torch.float64)
+    if indefinite:
+        rpc = pc = None
+    ref = ref_newton._pcg_with_restart(rmv, jnp.asarray(b), rpc, tol, maxiter)
+    chunk = linear.DevicePCGChunk(mv, pc or (lambda r: r), free.shape, torch.float64, "cpu")
+    x, iters, ok, rel = nm._pcg_with_restart(chunk, torch.tensor(b), tol, maxiter)
+    assert iters == int(ref.iterations) and ok == bool(ref.converged)
+    assert ok == (case == "converged")
+    x_r = np.asarray(ref.x)
+    assert np.abs(x.numpy() - x_r).max() <= 1e-12 * np.abs(x_r).max()
+    rel_r = float(ref.residual_norm) / float(np.linalg.norm(b))
+    assert abs(rel - rel_r) <= 1e-12  # ||r|| / ||b||: 1e-12 of ||b||
+    assert chunk.fetches == 1
+    runs = dict(zip(chunk.BODIES, chunk.runs.tolist()))
+    assert runs["init0"] == runs["initx"] == runs["keep"] == 1 and runs["step"] == iters
+    assert bool(chunk.ok1) == (case != "breakdown")  # the first run's ok
+    if case == "budget_spent":
+        assert iters == maxiter and int(chunk.k1) == maxiter and int(chunk.state.k) == 0
+
+
 # -- the routes ----------------------------------------------------------------
 
 def _affine(coords, comp):
@@ -330,8 +375,9 @@ def _fetches(solver):
 def test_route_matches_reference(route):
     """Each single-device CG route on the chunk against the reference: u
     within the route's bound of the increment's max |u - u0|, the same PCG
-    counts; the fetches a step (the f64 steps: two, one a run; the mixed
-    step: two, the set-up's and one run's)."""
+    counts; the fetches a step (the f64 steps: one, the solve and its
+    restart in one launch; the mixed step: two, the set-up's and one
+    run's)."""
     if route == "host_loop":
         pair = _Pair(box_mesh, ref_box_mesh, 3, -0.05, SOLVE, -0.05)
         u_p, ok_p, rec_p = pair.port._newton_mixed_host(pair.u, 1.0)
@@ -358,9 +404,11 @@ def test_route_matches_reference(route):
         r64 = pair.port._residual(pair.u, 1.0)[0] if mixed else None
         u_p, k_p, ok_p, rel_p = pair.port._step(pair.u, 1.0, r64=r64)
         assert bool(ok_r) and ok_p and k_p == int(k_r)
-        assert _fetches(pair.port) == 2
+        per_step = 2 if mixed else 1
+        assert _fetches(pair.port) == per_step
         again = pair.port._step(pair.u, 1.0, r64=r64)
-        assert torch.equal(again[0], u_p) and again[1] == k_p and _fetches(pair.port) == 4
+        assert torch.equal(again[0], u_p) and again[1] == k_p
+        assert _fetches(pair.port) == 2 * per_step
     u_r = np.asarray(u_r)
     x_r = u_r - np.asarray(pair.u_ref)
     assert np.abs(u_p.numpy() - u_r).max() <= bound * np.abs(x_r).max()
@@ -395,7 +443,9 @@ def _card():
 def test_chunk_graph_is_the_eager_chunk_on_card():
     """On the card: the captured chunk (WHILE node) against its bodies run
     eagerly on the same card, f32 and f64: bitwise x, the same k, ok and
-    stop, one fetch per run, and the step body's replays counted."""
+    stop, one fetch per run, and the step body's replays counted; then the
+    restart program with a budget the first run spends (7 iterations, no
+    restart), one fetch, bitwise the eager one's."""
     _card()
     for dtype in (torch.float32, torch.float64):
         Am, b, free, diag = _system()
@@ -409,14 +459,19 @@ def test_chunk_graph_is_the_eager_chunk_on_card():
                 lambda r, inv=inv, ft=ft: linear.apply_block_jacobi(inv, ft, r),
                 free.shape, dtype, "cuda", capture=capture)
             assert chunk.captured == capture
-            chunk.start(torch.tensor(b, dtype=dtype, device="cuda"), 1e-6)
+            b_t = torch.tensor(b, dtype=dtype, device="cuda")
+            chunk.start(b_t, 1e-6)
             first = chunk.run(7)
             st = chunk.run(500)
             runs.append((first.k, st.k, st.ok, st.stop, st.x.clone(), chunk.fetches,
                          int(chunk.runs[3])))
-        (k1, k, ok, stop, x, fetches, steps), eager = runs[0], runs[1]
+            k1, _, again = chunk.restart(b_t, 1e-6, 7)  # the budget spent: no restart
+            runs[-1] += (k1, again.k, again.x.clone(), chunk.fetches)
+        (k1, k, ok, stop, x, fetches, steps, r1, r2, rx, rf), eager = runs[0], runs[1]
         assert k1 == 7 and ok and fetches == 2 and steps == k
-        assert (k1, k, ok, stop) == eager[:4] and torch.equal(x, eager[4])
+        assert (r1, r2, rf) == (7, 0, 3)
+        assert (k1, k, ok, stop, r1, r2) == (eager[:4] + eager[7:9])
+        assert torch.equal(x, eager[4]) and torch.equal(rx, eager[9])
 
 
 @pytest.mark.parametrize("route", list(ROUTES) + ["step_fn", "host_loop"])
