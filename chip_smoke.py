@@ -183,15 +183,27 @@ Phases:
      against the single-device solve on the card (the same Newton count, u
      within 1e-7 of max |u|, the PCG lists side by side), two sharded
      solves bitwise equal, setup, s/step, the collectives' host seconds,
-     peak memory per rank, and every kernel of the path launched (counts
-     summed over the ranks); (c) both solvers in f64 on a Kuhn box n=12 on
+     peak memory per rank, every kernel of the path launched (counts
+     summed over the ranks), and on every rank the eager route (gloo),
+     the same records and the reference's fetch contract: one fetch per
+     Newton iteration, per further PCG chunk and per restart, with the
+     fetches per Newton iteration and per solve printed; (c) both solvers in f64 on a Kuhn box n=12 on
      2 ranks, u within 1e-10 of the single-device f64 solve; (d) the two
      8-shard task files on 8 ranks (the reference's Newton counts, measured
      on CPU), the distributed example through `python -m`,
      `dist.dryrun.dryrun_multichip(2)`, and `python -m fea_large_tpu_torch
-     run` of an 8-shard task, which exits 2 on fewer than 8 cards; (e)
-     where there are 4 cards, (a) again with one NCCL rank per card,
-     bitwise equal to (a)'s gloo run;
+     run` of an 8-shard task, which exits 2 on fewer than 8 cards; (f)
+     both solvers with one rank in this process (LocalComm) on the
+     captured route (each rank's programs as CUDA graphs: a Newton
+     iteration, a further chunk and a restart one launch and one fetch
+     each) at (a)'s and (b)'s widths, a solve() of two increments from
+     zero twice: the single-device solve's Newton counts, u within 1e-7 of
+     max |u|, bitwise the same solver on the eager route, the fetch
+     contract, the path's kernels replayed, s/step, graph nodes, capture
+     seconds and peak memory; (e) where there are 4 cards, (a) again with
+     one NCCL rank per card on the captured route (the collectives inside
+     the graphs), bitwise equal to (a)'s gloo run, with its s/step beside the
+     eager host loop's 0.149;
   10. a JSON line of the kernels (`launches`: on the main path of phases
      3-5, the replays of the device loop's and the PCG chunks' graphs
      included; beside it each kernel's
@@ -400,6 +412,11 @@ REFERENCE_SHARDED_TASKS = {
 #: the sharded paths' kernels (B1-B3 on a lattice, B6-B7 on a 5-tet box)
 SHARDED_KERNELS = {"kuhn": ("struct_freeze", "struct_apply", "struct_diag"),
                    "5tet": ("elem_apply", "elem_freeze")}
+#: phase 9f: one rank in this process (LocalComm) on the captured route,
+#: a solve() of this many increments at 9a's and 9b's widths
+ONE_RANK_STEPS = 2
+#: 9e's s/step with CG driven from the host, eagerly (NCCL on 4 cards; PERF.md)
+NCCL_EAGER_S_PER_STEP = 0.149
 
 #: cells per axis of the phase-2 checks, and (cells per axis, DOF) of the
 #: full-width solves
@@ -1411,7 +1428,7 @@ def loop_iteration_ms(solver, label):
     around each launch, median of 5, over the iterations a launch ran);
     the host loop's, a run of ITERATION_RUN iterations of a captured PCG
     chunk (its WHILE node, tol 0) on the same frozen state and right-hand
-    side, and the eager `pcg_chunk` (the sharded ranks' host loop) beside
+    side, and the eager `pcg_chunk` (the reference's host-loop form) beside
     it (host clock ending in a synchronise, median of 5); then one
     replayed `head` (x set to 0, so u stays). The next solve resets the
     state."""
@@ -2247,6 +2264,47 @@ def sharded_launches(counts, names):
             for name in names}
 
 
+def strip_records(history):
+    """Increment records (dicts) without their wall times."""
+    return [{k: v for k, v in h.items() if k != "wall_time"} for h in history]
+
+
+def fetch_contract(label, history, fetches, launched):
+    """The reference's fetch contract on one rank's solve: one fetch per
+    Newton iteration (one per residual norm recorded), per further PCG
+    chunk and per restart."""
+    newton = sum(len(h["residual_norms"]) for h in history)
+    check(launched["newton"] == newton and
+          fetches == launched["newton"] + launched["chunk"] + launched["restart"],
+          f"{label}: fetches {fetches} = Newton iterations {newton} + further chunks "
+          f"{launched['chunk']} + restarts {launched['restart']} ({launched})")
+
+
+def sharded_programs(label, ranks, route):
+    """(9a, 9b, 9e) every rank's route, the fetch contract on each of its
+    solves, and the same records, fetches and programs on every rank;
+    prints rank 0's fetches per Newton iteration and per solve, its graph
+    nodes and capture seconds. Returns them."""
+    for rank, out in enumerate(ranks):
+        check(out["route"] == route, f"9 {label}: rank {rank} runs the {route} route")
+        for r in out["runs"]:
+            fetch_contract(f"9 {label} rank {rank}", r["history"], r["fetches"], r["launched"])
+    views = [[(strip_records(r["history"]), r["fetches"], r["launched"]) for r in out["runs"]]
+             for out in ranks]
+    check(all(v == views[0] for v in views[1:]),
+          f"9 {label}: every rank holds the same records, fetches and programs")
+    out = ranks[0]
+    for i, r in enumerate(out["runs"]):
+        n = r["launched"]
+        print(f"  {label} solve {i} ({route}): {r['fetches']} fetches = Newton {n['newton']} + "
+              f"chunks {n['chunk']} + restarts {n['restart']}, "
+              f"{r['fetches'] / max(n['newton'], 1):.3f} per Newton iteration")
+    print(f"  {label} programs: graph nodes {out['graph_nodes']}, capture s {out['capture_s']}")
+    return {"route": route, "fetches": [r["fetches"] for r in out["runs"]],
+            "launched": [r["launched"] for r in out["runs"]],
+            "graph_nodes": out["graph_nodes"], "capture_s": out["capture_s"]}
+
+
 def single_increment(label, mesh, bc, opts, u0):
     """The single-device solve of one increment from u0 on the card:
     (u on the host, record, setup s, solve s)."""
@@ -2287,13 +2345,16 @@ def sharded_job(label, build, opts, device):
     return job, single
 
 
-def sharded_check(label, out, run, single, card):
-    """(9a, 9b) the sharded solves against the single-device one: the same
-    Newton count, u within SHARDED_MIXED_BOUND, the PCG lists side by side,
-    two sharded solves bitwise equal with identical records, and every
-    kernel of the path launched (counts summed over the ranks). Returns
-    (launches, u)."""
+def sharded_check(label, job, run, single, card):
+    """(9a, 9b) the sharded solves (job `job` of the ranks' `run_jobs`)
+    against the single-device one: the same Newton count, u within
+    SHARDED_MIXED_BOUND, the PCG lists side by side, two sharded solves
+    bitwise equal with identical records, the eager route and the fetch
+    contract on every rank (`sharded_programs`), and every kernel of the
+    path launched (counts summed over the ranks). Returns (launches, u)."""
     u_single, rec1, setup1, solve1 = single
+    out = run.result[job]
+    programs = sharded_programs(label, [r[job] for r in run.results], "eager")
     a, b = out["runs"]
     rec = a["history"][0]
     print(f"  {label} sharded: {out['kind']}, setup {out['setup_s']:.2f} s (rank 0), coarse "
@@ -2339,7 +2400,7 @@ def sharded_check(label, out, run, single, card):
                           "s_per_step": solve1 / rec1.newton_iters},
         "collective_s": coll, "collective_calls": calls, "peak_bytes_rank0": out["peak_bytes"],
         "peak_bytes_per_rank_9ab": run.peak_bytes, "launches": launches,
-        "launches_per_rank": per_rank, "card": card,
+        "launches_per_rank": per_rank, "programs": programs, "card": card,
     }
     print("slice: " + json.dumps(summary))
     return launches, a["u"]
@@ -2506,19 +2567,179 @@ def sharded_nccl(card, gloo_u):
     out = run.result
     a, b = out["runs"]
     h = a["history"][0]
-    diff = float(np.abs(a["u"] - gloo_u).max())
-    print(f"  9e: {SHARDED_RANKS} ranks ({run.backend}), one per card: setup {out['setup_s']:.2f} "
-          f"s, newton {h['newton_iters']}, pcg {h['pcg_iters']}, solves {a['solve_s']:.3f} s and "
-          f"{b['solve_s']:.3f} s ({b['solve_s'] / h['newton_iters']:.5f} s/step), collectives "
-          f"{b['collective_calls']} in {b['collective_s']}; peak per rank {run.peak_bytes} B; "
-          f"max |u - u(gloo)| {diff:.3e}")
     check(run.backend == "nccl", "9e runs on NCCL")
+    programs = sharded_programs("9e", run.results, "captured")
+    diff = float(np.abs(a["u"] - gloo_u).max())
+    print(f"  9e: {SHARDED_RANKS} ranks ({run.backend}), one per card, captured: setup "
+          f"{out['setup_s']:.2f} s, newton {h['newton_iters']}, pcg {h['pcg_iters']}, solves "
+          f"{a['solve_s']:.3f} s and {b['solve_s']:.3f} s ({b['solve_s'] / h['newton_iters']:.5f} "
+          f"s/step; the eager host loop's {NCCL_EAGER_S_PER_STEP} s/step); peak per rank "
+          f"{run.peak_bytes} B; max |u - u(gloo)| {diff:.3e}")
     check(np.array_equal(a["u"], gloo_u) and np.array_equal(a["u"], b["u"]),
           "9e: NCCL bitwise equal to the gloo run")
     return {"backend": run.backend, "setup_s": out["setup_s"],
             "solve_s": [a["solve_s"], b["solve_s"]], "pcg_iters": h["pcg_iters"],
-            "collective_s": b["collective_s"], "collective_calls": b["collective_calls"],
-            "peak_bytes": run.peak_bytes}
+            "s_per_step": [r["solve_s"] / h["newton_iters"] for r in (a, b)],
+            "peak_bytes": run.peak_bytes, "programs": programs}
+
+
+def one_rank_solver(cls, mesh, bc, opts, eager):
+    """A one-rank sharded solver (LocalComm on the mesh's card) and its
+    setup seconds."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    solver = cls(mesh, NeoHookean(1.0, 0.6), bc, options=opts, eager=eager)
+    torch.cuda.synchronize()
+    return solver, time.perf_counter() - t0
+
+
+def one_rank_solve(label, solver):
+    """One `solve()` of the one-rank solver: (u global on the host, the
+    records as dicts, seconds), with the fetch contract checked."""
+    import dataclasses
+
+    fetches, launched = solver.fetches, dict(solver.launched)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = solver.solve()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    check(res.converged, f"{label}: converged")
+    history = [dataclasses.asdict(h) for h in res.history]
+    fetch_contract(label, history, solver.fetches - fetches,
+                   {k: v - launched[k] for k, v in solver.launched.items()})
+    return solver.u_global(res.u), history, dt
+
+
+def one_rank_increment(label, solver, mesh, bc, single):
+    """(9f) the captured one-rank solver on 9a's (9b's) increment: from the
+    5% affine start to the full load, twice, against that phase's
+    single-device solve `single` (u, record, setup s, solve s): the same
+    Newton count, u within SHARDED_MIXED_BOUND, the two bitwise equal, the
+    fetch contract. Returns its summary (s/step of the second)."""
+    u_single, rec1, _, solve1 = single
+    u0 = solver.u_from_global(bench_start(mesh, bc).cpu().numpy())
+    runs = []
+    for _ in range(2):
+        fetches, launched = solver.fetches, dict(solver.launched)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        u, ok, rec = solver._newton(u0, 1.0)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        check(ok, f"{label}: converged")
+        fetch_contract(label, [{"residual_norms": rec.residual_norms}],
+                       solver.fetches - fetches,
+                       {k: v - launched[k] for k, v in solver.launched.items()})
+        runs.append((solver.u_global(u), rec, dt))
+    (u, rec, dt1), (u2, rec2, dt2) = runs
+    err = float(np.abs(u - u_single).max() / np.abs(u_single).max())
+    print(f"  {label}: newton {rec.newton_iters} (single device {rec1.newton_iters}), pcg "
+          f"{rec.pcg_iters} (single device {rec1.pcg_iters}); {dt1:.4f} s and {dt2:.4f} s "
+          f"({dt2 / rec.newton_iters:.5f} s/step; the single device "
+          f"{solve1 / rec1.newton_iters:.5f}); u against the single device {err:.3e}")
+    check(rec.newton_iters == rec1.newton_iters, f"{label}: the single-device Newton count")
+    check(err <= SHARDED_MIXED_BOUND, f"{label}: u within the mixed bound")
+    check(np.array_equal(u, u2) and rec.pcg_iters == rec2.pcg_iters,
+          f"{label}: two captured solves bitwise equal")
+    return {"newton_iters": rec.newton_iters, "pcg_iters": rec.pcg_iters, "u_err": err,
+            "solve_s": [dt1, dt2], "s_per_step": dt2 / rec.newton_iters,
+            "single_device_s_per_step": solve1 / rec1.newton_iters}
+
+
+def sharded_one_rank(device, card, singles):
+    """(9f) both sharded solvers with one rank in this process (LocalComm),
+    on the captured route, at 9a's and 9b's widths: a solve() of
+    ONE_RANK_STEPS increments from zero (the load factor changes inside the
+    captured programs), twice, against the single-device solve (the same
+    Newton counts, u within SHARDED_MIXED_BOUND of max |u|) and against the
+    same solver on the eager route (bitwise: u and records), the fetch
+    contract, the path's kernels replayed, s/step, graph nodes, capture
+    seconds and peak memory; then 9a's (9b's) one increment from its start
+    (`one_rank_increment`, against `singles[label]`, that phase's
+    single-device solve). Returns the launches of the captured runs."""
+    import gc
+
+    from fea_large_tpu_torch.dist import ShardedNewtonSolver, StructuredShardedSolver
+
+    launches, out = {}, {}
+    for label, build, opts, cls in (("kuhn", box_mesh_kuhn, KUHN, StructuredShardedSolver),
+                                    ("5tet", box_mesh, FIVE_TET, ShardedNewtonSolver)):
+        n, n_dof = SHARDED[label]
+        opts = SolverOptions(**dict(opts, n_steps=ONE_RANK_STEPS))
+        mesh = build(n, n, n, element_type="tet10", device=device)
+        check(mesh.n_dof == n_dof, f"9f {label} is {n_dof} DOF")
+        bc = bench_bc(mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        single = NewtonSolver(mesh, NeoHookean(1.0, 0.6), bc, options=opts).solve()
+        torch.cuda.synchronize()
+        t_single = time.perf_counter() - t0
+        check(single.converged, f"9f {label}: the single-device solve converged")
+        u_single = single.u.cpu().numpy()
+        single_newton = [h.newton_iters for h in single.history]
+        del single
+        gc.collect()
+        torch.cuda.empty_cache()
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        solver, setup_s = one_rank_solver(cls, mesh, bc, opts, False)
+        check(solver.captured, f"9f {label}: one rank on the card takes the captured route")
+        u1, hist1, dt1 = one_rank_solve(f"9f {label} captured", solver)
+        u2, hist2, dt2 = one_rank_solve(f"9f {label} captured", solver)
+        peak = torch.cuda.max_memory_allocated()
+        stats = solver.program_stats()  # the fallback route too, where a solve took it
+        fallbacks = solver.precond_fallbacks
+        launches[label] = launch_counts(SHARDED_KERNELS[label])
+        replayed = {k: cuda_graphs.REPLAYED[k] for k in SHARDED_KERNELS[label]}
+        newton = [h["newton_iters"] for h in hist1]
+        steps = sum(newton)
+        phase = "9a" if label == "kuhn" else "9b"
+        increment = one_rank_increment(f"9f {label} increment of {phase}", solver, mesh, bc,
+                                       singles[label])
+        del solver
+        gc.collect()
+        torch.cuda.empty_cache()
+        eager, _ = one_rank_solver(cls, mesh, bc, opts, True)
+        check(not eager.captured, f"9f {label}: eager=True runs the eager route")
+        u_e, hist_e, dt_e = one_rank_solve(f"9f {label} eager", eager)
+        del eager
+        gc.collect()
+        torch.cuda.empty_cache()
+        err = float(np.abs(u1 - u_single).max() / np.abs(u_single).max())
+        print(f"  9f {label}: {cls.__name__}, one rank, {n_dof} DOF, setup {setup_s:.2f} s "
+              f"(capture {stats['capture_s']} s), graph nodes {stats['graph_nodes']}; newton "
+              f"{newton} (single device {single_newton}), pcg {[h['pcg_iters'] for h in hist1]}; "
+              f"captured solves {dt1:.3f} s and {dt2:.3f} s ({dt2 / steps:.5f} s/step), eager "
+              f"{dt_e:.3f} s ({dt_e / steps:.5f} s/step), single device {t_single:.3f} s with "
+              f"setup; two-level -> Jacobi fallbacks {fallbacks} in two solves; a solve "
+              f"{sum(len(h['residual_norms']) for h in hist1)} Newton iterations, "
+              f"{sum(sum(h['pcg_iters']) for h in hist1)} CG iterations; u against the "
+              f"single device {err:.3e} (bound {SHARDED_MIXED_BOUND}); peak {peak} B; kernel "
+              f"launches {launches[label]}, replayed {replayed}")
+        check(np.isfinite(u1).all() and u1.shape == u_single.shape, "9f: finite u [N, 3]")
+        check(newton == single_newton, f"9f {label}: the single-device Newton counts")
+        check(err <= SHARDED_MIXED_BOUND, f"9f {label}: u within the mixed bound")
+        check(np.array_equal(u1, u2) and strip_records(hist1) == strip_records(hist2),
+              f"9f {label}: two captured solves bitwise equal")
+        check(np.array_equal(u1, u_e) and strip_records(hist1) == strip_records(hist_e),
+              f"9f {label}: the captured route bitwise its eager run")
+        check(all(v > 0 for v in replayed.values()),
+              f"9f {label}: every kernel of the path replayed by the graphs")
+        out[label] = {"n_dof": n_dof, "newton_iters": newton, "single_newton_iters": single_newton,
+                      "pcg_iters": [h["pcg_iters"] for h in hist1], "u_err": err,
+                      "solve_s": [dt1, dt2], "s_per_step": dt2 / steps,
+                      "eager_s_per_step": dt_e / steps, "setup_s": setup_s,
+                      "capture_s": stats["capture_s"], "graph_nodes": stats["graph_nodes"],
+                      "precond_fallbacks": fallbacks, "peak_bytes": peak,
+                      "launches": launches[label], "replayed": replayed,
+                      "increment": increment}
+        del mesh, bc
+        gc.collect()
+        torch.cuda.empty_cache()
+    print("slice: " + json.dumps({"path": "sharded one rank, captured (9f)", **out,
+                                  "card": card}))
+    return {**launches["kuhn"], **launches["5tet"]}
 
 
 def phase_sharded(device, card):
@@ -2539,14 +2760,18 @@ def phase_sharded(device, card):
           f"solves of each: {group_seconds(run, time.perf_counter() - t1)}; peak device memory "
           f"per rank over both: {run.peak_bytes} B")
     launches = {}
-    launches["9a"], u_gloo = sharded_check("kuhn", run.result[0], run, jobs[0][1], card)
-    launches["9b"], _ = sharded_check("5tet", run.result[1], run, jobs[1][1], card)
+    launches["9a"], u_gloo = sharded_check("kuhn", 0, run, jobs[0][1], card)
+    launches["9b"], _ = sharded_check("5tet", 1, run, jobs[1][1], card)
+    singles = {"kuhn": jobs[0][1], "5tet": jobs[1][1]}
     del jobs
     print(f"phase 9b: {time.perf_counter() - t0:.1f} s")
     f64 = sharded_f64(device, card)
     print(f"phase 9c: {time.perf_counter() - t0:.1f} s")
     launches["9d"] = sharded_tasks_and_tools(device, card)
     print(f"phase 9d: {time.perf_counter() - t0:.1f} s")
+    launches["9f"] = sharded_one_rank(device, card, singles)
+    del singles
+    print(f"phase 9f: {time.perf_counter() - t0:.1f} s")
     nccl = sharded_nccl(card, u_gloo)
     print("slice: " + json.dumps({"path": "sharded f64 and NCCL", "f64": f64, "nccl": nccl,
                                   "shard_kernel_abs_err": shard_errs, "card": card}))

@@ -26,9 +26,17 @@
 // Pallas kernel of the reference corresponds: on the TPU the loops are XLA
 // programs. The set kernel is one thread that reads one byte.
 //
+// A conditional node's body graph takes kernel, memset, memcpy, empty,
+// child-graph and conditional nodes only; fea_graph_refused names the first
+// node of another type in a body (the sharded ranks' bodies hold the
+// collectives' captured nodes).
+//
 // C interface, loaded with ctypes; every function returns a cudaError_t.
 
 #include <cuda_runtime.h>
+
+#include <cstdio>
+#include <vector>
 
 namespace {
 
@@ -127,6 +135,59 @@ cudaError_t append_chain(cudaGraph_t graph, cudaGraphNode_t* tail, int parent, i
   return cudaSuccess;
 }
 
+// The name of a node type that a conditional node's body refuses, or
+// nullptr for one it takes.
+const char* refused_type(cudaGraphNodeType type) {
+  switch (type) {
+    case cudaGraphNodeTypeKernel:
+    case cudaGraphNodeTypeMemcpy:
+    case cudaGraphNodeTypeMemset:
+    case cudaGraphNodeTypeGraph:
+    case cudaGraphNodeTypeEmpty:
+    case cudaGraphNodeTypeConditional:
+      return nullptr;
+    case cudaGraphNodeTypeHost:
+      return "host";
+    case cudaGraphNodeTypeWaitEvent:
+      return "event wait";
+    case cudaGraphNodeTypeEventRecord:
+      return "event record";
+    case cudaGraphNodeTypeExtSemaphoreSignal:
+      return "external semaphore signal";
+    case cudaGraphNodeTypeExtSemaphoreWait:
+      return "external semaphore wait";
+    case cudaGraphNodeTypeMemAlloc:
+      return "memory allocation";
+    case cudaGraphNodeTypeMemFree:
+      return "memory free";
+    default:
+      return "unknown";
+  }
+}
+
+// The first node of `graph` (its child graphs included) of a type that a
+// conditional node's body refuses: *name its type's name, or nullptr.
+cudaError_t first_refused(cudaGraph_t graph, const char** name) {
+  *name = nullptr;
+  size_t n = 0;
+  FEA_TRY(cudaGraphGetNodes(graph, nullptr, &n));
+  std::vector<cudaGraphNode_t> nodes(n);
+  if (n > 0) FEA_TRY(cudaGraphGetNodes(graph, nodes.data(), &n));
+  for (cudaGraphNode_t node : nodes) {
+    cudaGraphNodeType type;
+    FEA_TRY(cudaGraphNodeGetType(node, &type));
+    if (type == cudaGraphNodeTypeGraph) {
+      cudaGraph_t child;
+      FEA_TRY(cudaGraphChildGraphNodeGetGraph(node, &child));
+      FEA_TRY(first_refused(child, name));
+    } else {
+      *name = refused_type(type);
+    }
+    if (*name != nullptr) return cudaSuccess;
+  }
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
@@ -176,6 +237,16 @@ int fea_graph_try_child(void* child) {
                                                   static_cast<cudaGraph_t>(child));
   cudaGraphDestroy(graph);
   return status;
+}
+
+// Into out (len bytes): the name of the first node type in `graph` that a
+// conditional node's body refuses, or "" where it takes every node.
+int fea_graph_refused(void* graph, char* out, int len) {
+  const char* name = nullptr;
+  out[0] = 0;
+  FEA_TRY(first_refused(static_cast<cudaGraph_t>(graph), &name));
+  if (name != nullptr) snprintf(out, len, "%s", name);
+  return cudaSuccess;
 }
 
 int fea_graph_launch(void* exec, void* stream) {

@@ -7,8 +7,9 @@ spawn start method (CUDA cannot be initialised in a forked child), which
 meet through a `FileStore` in a fresh temporary directory (no network, no
 port) with a timeout on every collective. Rank r calls `fn(comm, *args)`
 with its `Comm` (dist/comm.py) on devices[r]. Where a device is CUDA, the
-kernels' libraries are built in the calling process first, so that the
-ranks load them instead of each starting nvcc. A rank that raises makes
+kernels' libraries (and the graph library of the captured route) are built
+in the calling process first, so that the ranks load them instead of each
+starting nvcc. A rank that raises makes
 `run_sharded` raise (the others are stopped); nothing is caught.
 
 `fn` and its arguments must pickle: `fn` a function of a package module,
@@ -20,6 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import gc
 import os
 import pickle
 import shutil
@@ -35,17 +37,19 @@ from fea_large_tpu_torch.dist.comm import Comm, backend_for
 
 @dataclasses.dataclass
 class ShardedRun:
-    """What `run_sharded` returns: rank 0's value of `fn`, and per rank the
-    kernel launches (the wrappers' `LAUNCHES`, counted per process), the
-    peak device memory (bytes; 0 on the CPU) and the seconds from the
-    spawn to the rank's start, to its joining the group and to the end of
-    `fn` (`seconds`: {"start", "joined", "done"})."""
+    """What `run_sharded` returns: rank 0's value of `fn`, and per rank its
+    value (`results`), the kernel launches (the wrappers' `LAUNCHES` plus
+    the launches of the graphs it replayed, `cuda_graphs.REPLAYED`, counted
+    per process), the peak device memory (bytes; 0 on the CPU) and the
+    seconds from the spawn to the rank's start, to its joining the group
+    and to the end of `fn` (`seconds`: {"start", "joined", "done"})."""
 
     result: object
     launches: list
     peak_bytes: list
     backend: str
     seconds: list
+    results: list
 
     def total_launches(self) -> dict:
         """Launches summed over the ranks: {"struct": {...}, "elem": {...},
@@ -60,19 +64,23 @@ class ShardedRun:
 
 
 def _launch_counts() -> dict:
-    from fea_large_tpu_torch.ops import bcsr_kernels, elem_kernels, struct_kernels
+    from fea_large_tpu_torch.ops import bcsr_kernels, cuda_graphs, elem_kernels, struct_kernels
 
-    return {"struct": dict(struct_kernels.LAUNCHES), "elem": dict(elem_kernels.LAUNCHES),
-            "bcsr": dict(bcsr_kernels.LAUNCHES)}
+    mods = {"struct": struct_kernels.LAUNCHES, "elem": elem_kernels.LAUNCHES,
+            "bcsr": bcsr_kernels.LAUNCHES}
+    return {m: {k: v + cuda_graphs.REPLAYED[f"{m}_{k}"] for k, v in c.items()}
+            for m, c in mods.items()}
 
 
 def build_kernels() -> None:
     """Build the libraries of the kernels the sharded paths launch (the
-    lattice and the element-block sources), one nvcc each, together."""
-    from fea_large_tpu_torch.ops import cuda_build, elem_kernels, struct_kernels
+    lattice and the element-block sources) and of the graph composition,
+    one nvcc each, together."""
+    from fea_large_tpu_torch.ops import cuda_build, cuda_graphs, elem_kernels, struct_kernels
 
-    with ThreadPoolExecutor(2) as pool:
-        list(pool.map(cuda_build.build_library, [struct_kernels.SOURCE, elem_kernels.SOURCE]))
+    with ThreadPoolExecutor(3) as pool:
+        list(pool.map(cuda_build.build_library,
+                      [struct_kernels.SOURCE, elem_kernels.SOURCE, cuda_graphs.SOURCE]))
 
 
 def _rank_main(rank, devices, run_dir, backend, threads, timeout_s, t_spawn):
@@ -85,6 +93,12 @@ def _rank_main(rank, devices, run_dir, backend, threads, timeout_s, t_spawn):
     device = torch.device(devices[rank])
     if device.type == "cuda":
         torch.cuda.set_device(device)
+    if backend == "nccl":
+        # NCCL's default brackets each captured collective with an event
+        # record and an event wait node (captured and uncaptured work may
+        # then mix on one communicator); a conditional node's body takes no
+        # event node, and the ranks' programs hold their collectives there
+        os.environ.setdefault("NCCL_GRAPH_MIXING_SUPPORT", "0")
     size = len(devices)
     store = dist.FileStore(os.path.join(run_dir, "store"), size)
     dist.init_process_group(backend, store=store, rank=rank, world_size=size,
@@ -93,7 +107,7 @@ def _rank_main(rank, devices, run_dir, backend, threads, timeout_s, t_spawn):
     out = fn(Comm(rank, size, device, backend), *args)
     seconds["done"] = time.time() - t_spawn
     record = {
-        "result": out if rank == 0 else None,
+        "result": out,
         "launches": _launch_counts(),
         "peak_bytes": torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0,
         "seconds": seconds,
@@ -102,6 +116,12 @@ def _rank_main(rank, devices, run_dir, backend, threads, timeout_s, t_spawn):
     with open(path + ".tmp", "wb") as f:
         pickle.dump(record, f)
     os.replace(path + ".tmp", path)
+    # a sharded solver's captured graphs hold NCCL's captured work, and
+    # NCCL's teardown waits for them; the solver sits in a reference cycle
+    # (its programs' bodies call its methods), so collect it first
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
     dist.barrier()
     dist.destroy_process_group()
 
@@ -135,7 +155,8 @@ def run_sharded(fn, devices, *args, threads: int = 1, timeout_s: float = 600.0) 
     return ShardedRun(result=records[0]["result"],
                       launches=[r["launches"] for r in records],
                       peak_bytes=[r["peak_bytes"] for r in records], backend=backend,
-                      seconds=[r["seconds"] for r in records])
+                      seconds=[r["seconds"] for r in records],
+                      results=[r["result"] for r in records])
 
 
 # ---------------------------------------------------------------------------
@@ -209,10 +230,14 @@ def solve_rank(comm: Comm, problem: Problem, options, partition_method: str = "s
     at that load factor from u0. With `profile`, the last solve records the
     collectives' host seconds (`Comm.profile`). Returns the solver kind,
     the setup seconds, the memory report and per solve the global u (rank 0
-    only), convergence, the increment records, the seconds and the
-    collectives' seconds and counts, and this rank's peak device memory
-    (bytes; 0 on the CPU); with `probe_coarse`, also the probed coarse
-    matrix (`probe_coarse_matrix`) and its aggregation."""
+    only), convergence, the increment records, the seconds, the
+    collectives' seconds and counts, the host fetches and the programs
+    launched (Newton iterations, further chunks, restarts: one fetch
+    each), this rank's peak device memory (bytes; 0 on the CPU), its
+    route ("captured" or "eager"), and per chunk route its programs' graph
+    nodes and capture seconds; with `probe_coarse`, also the probed coarse
+    matrix (`probe_coarse_matrix`) and its aggregation. Every rank returns
+    the same but u."""
     cuda = comm.device.type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats(comm.device)
@@ -222,6 +247,7 @@ def solve_rank(comm: Comm, problem: Problem, options, partition_method: str = "s
         comm.profile = profile and i == solves - 1
         comm.reset_profile()
         start = None if u0 is None else solver.u_from_global(u0)
+        fetches, launched = solver.fetches, dict(solver.launched)
         _sync(comm)
         t1 = time.perf_counter()
         if increment is None:
@@ -239,12 +265,17 @@ def solve_rank(comm: Comm, problem: Problem, options, partition_method: str = "s
             "u": ug if comm.rank == 0 else None, "converged": bool(converged),
             "history": [dataclasses.asdict(h) for h in history], "solve_s": dt,
             "collective_s": dict(comm.seconds), "collective_calls": dict(comm.calls),
+            "fetches": solver.fetches - fetches,
+            "launched": {k: v - launched[k] for k, v in solver.launched.items()},
         })
+    stats = solver.program_stats()
     out = {"kind": type(solver).__name__, "kmax": solver.part.kmax, "setup_s": setup_s,
            "runs": runs,
            "memory": solver.memory_report(), "n_agg": solver._n_agg,
            "precond_fallbacks": solver.precond_fallbacks, "backend": comm.backend,
-           "peak_bytes": torch.cuda.max_memory_allocated(comm.device) if cuda else 0}
+           "peak_bytes": torch.cuda.max_memory_allocated(comm.device) if cuda else 0,
+           "route": stats["route"], "graph_nodes": stats["graph_nodes"],
+           "capture_s": stats["capture_s"]}
     if probe_coarse:
         ctx = solver._probe_ctx
         out.update(coarse_matrix=solver.probe_coarse_matrix().cpu().numpy(), agg=ctx["agg"],
@@ -258,16 +289,19 @@ def step_rank(comm: Comm, problem: Problem, options, u0, scale: float = 1.0,
     (global [N, 3]) at `scale`, one chunked PCG solve of the Newton system
     (`_step_pcg`), and the residual norm before and after. Returns the
     solver, the shard counts, the PCG iterations, convergence and final
-    relative residual, both norms, the seconds of setup and step, and the
-    memory report."""
+    relative residual, both norms, the seconds of setup and step, the
+    memory report, the route, and the step's fetches and programs
+    launched."""
     solver, setup_s = _solver(comm, problem, options, partition_method)
     u = solver._impose(solver.u_from_global(u0), scale)
     norm0 = float(solver._residual_norm(u, scale))
+    fetches = solver.fetches
     _sync(comm)
     t0 = time.perf_counter()
     u_new, iters, ok, rel = solver._step_pcg(u, scale)
     _sync(comm)
     step_s = time.perf_counter() - t0
+    stats = solver.program_stats()
     part = solver.part
     return {"kind": type(solver).__name__, "n_shards": part.n_shards, "kmax": part.kmax,
             "plane": getattr(getattr(solver, "spart", None), "plane_size", None),
@@ -276,7 +310,8 @@ def step_rank(comm: Comm, problem: Problem, options, u0, scale: float = 1.0,
             else solver._lattice_pool.block,
             "pcg_iters": int(iters), "pcg_ok": bool(ok), "lin_rel": float(rel), "norm0": norm0,
             "norm": float(solver._residual_norm(u_new, scale)), "setup_s": setup_s,
-            "step_s": step_s, "memory": solver.memory_report()}
+            "step_s": step_s, "memory": solver.memory_report(), "route": stats["route"],
+            "fetches": stats["fetches"] - fetches, "launched": stats["launched"]}
 
 
 def run_jobs(comm: Comm, jobs) -> list:

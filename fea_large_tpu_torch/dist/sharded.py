@@ -20,20 +20,55 @@ functions (`ops.soa`, `solvers.linear`) applied to the shard's local
 problem, so the f32 passes of a shard run the same kernels on the card:
 the element-block kernels B6 (tangent action) and B7 (freeze) here, the
 lattice kernels B1-B3 on the structured path (dist/structured_solver.py).
-Both precisions run the same host loop:
+Both precisions run the same loop:
 
   precision="f64"    f64 residual + f64 tangent and PCG (parity path)
   precision="mixed"  f64 residual + f32 tangent and PCG
 
 The f64 residual is the plain f64 element pass, as in the reference.
 
-Every rank runs the same host loop on the same scalars (every scalar the
-loop reads comes out of the fixed-order sum), so the ranks take the same
-branches and issue the same collectives.
+Each rank runs the reference's sharded programs (its `newton_iter_body`,
+`chunk_body` and `prepare_body`) on persistent tensors (`RankState`) and a
+`linear.DevicePCGChunk` whose dot is the global one:
+
+  iter     head (u += x_prev, the f64 residual and its norm, the forcing
+           with the precision floor, the flag `work`); IF(work) {frz
+           (freeze, block-Jacobi diagonal and inverse); init0; arm;
+           WHILE(active) step; fin}
+  run      arm; WHILE(active) step; fin (a further chunk)
+  prepare  resid (the f64 residual); frz; initx (a restart from x0)
+
+head, resid and frz are the rank's bodies, the others the chunk's. The
+reference's prepare refreshes a structured shard's x0 with a forward hop
+(it accepts owner-only layouts); here x0 is always a CG iterate of the
+chunk, consistent on the boundary planes already, so initx takes it as
+it is.
+
+`work` is clear where the norm meets the Newton stop, on the last allowed
+iteration and on a NaN norm: the reference runs its chunk there at tol
+1e30 and the host discards it. A Newton iteration is one launch and one
+batched fetch of (norm, eta, lin_tol, work, k, rr, ok, stop), a further
+chunk and a restart one launch and one fetch each.
+
+The route follows from the comm: on a CUDA device with `comm.capturable`
+(NCCL, or one rank) the bodies are captured once per solver and route and
+the programs composed of them (ops/cuda_graphs.py), collectives inside;
+elsewhere (gloo: ranks on the CPU or sharing a card) the same bodies run
+eagerly, a Python test of each flag in place of its node. A failed capture
+or launch raises. `eager=True` runs the bodies eagerly on the card too (a
+comparison, never a fallback). The two-level -> Jacobi fallback is a
+second route (a zero coarse inverse), made at its first use; it shares
+the rank bodies with the first.
+
+Every flag a program tests comes out of the fixed-order sum, bitwise the
+same on every rank, so the ranks run the same trip counts and issue the
+same collectives; a rank that disagreed would hang, and `run_sharded`'s
+timeout would raise.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 
@@ -42,6 +77,7 @@ import torch
 
 from fea_large_tpu_torch.dist.comm import Comm, LocalComm
 from fea_large_tpu_torch.dist.partition import partition_mesh
+from fea_large_tpu_torch.ops import cuda_graphs
 from fea_large_tpu_torch.ops.soa import (
     ScatterBuckets,
     SoAProblem,
@@ -52,18 +88,28 @@ from fea_large_tpu_torch.ops.soa import (
     soa_internal_force,
 )
 from fea_large_tpu_torch.solvers.linear import (
+    DevicePCGChunk,
     apply_block_jacobi,
     drive_chunked_pcg,
     jacobi_inverse_blocks,
-    pcg_chunk,
-    pcg_init,
 )
 from fea_large_tpu_torch.solvers.newton import (
     IncrementRecord,
     SolveResult,
     SolverOptions,
-    newton_lin_tol,
+    device_forcing,
 )
+
+#: the rank bodies every route shares, in capture order
+RANK_BODIES = ("head", "resid", "frz")
+#: a route's programs, chains of (kind, flag, body) items
+#: (`cuda_graphs.compose`) over the rank bodies and the chunk's
+PROGRAMS = {
+    "iter": ((None, None, "head"),
+             ("if", "work", ((None, None, "frz"), (None, None, "init0")) + DevicePCGChunk.RUN)),
+    "run": DevicePCGChunk.RUN,
+    "prepare": ((None, None, "resid"), (None, None, "frz"), (None, None, "initx")),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,6 +165,51 @@ class ShardedProbe:
 
     Bn_own: torch.Tensor  # f32 [n, 3, modes] per-node basis columns
     color_own: torch.Tensor  # int64 [n] aggregate color (-1 at padding)
+
+
+@dataclasses.dataclass
+class RankState:
+    """The tensors of a rank's programs, written in place (a capture holds
+    their addresses). The host sets the inputs before an `iter` launch and
+    reads the outputs in its one fetch; `frozen` and `inv_blocks` are the
+    outputs of the body frz (a captured body's outputs keep their
+    addresses)."""
+
+    u: torch.Tensor  # f64 [n, 3]: the iterate
+    x_prev: torch.Tensor  # pdt [n, 3]: the direction applied by the next head
+    b: torch.Tensor  # pdt [n, 3]: the masked residual, CG's right-hand side
+    scale: torch.Tensor  # f64 0-d load factor
+    prev_norm: torch.Tensor  # f64 0-d inputs of the forcing
+    norm0: torch.Tensor
+    eta_prev: torch.Tensor
+    stop_newton: torch.Tensor
+    first: torch.Tensor  # bool 0-d: the increment's first iteration
+    last: torch.Tensor  # bool 0-d: the last allowed iteration
+    norm: torch.Tensor  # f64 0-d outputs of head
+    eta: torch.Tensor
+    lin_tol: torch.Tensor
+    tol: torch.Tensor  # pdt 0-d: CG's tolerance, shared with the routes' chunks
+    work: torch.Tensor  # bool 0-d: the tangent work runs
+    runs: torch.Tensor  # int64 [len(RANK_BODIES)]: runs of each rank body
+    frozen: object = None
+    inv_blocks: torch.Tensor | None = None
+
+    @staticmethod
+    def zeros(n: int, dtype, device) -> "RankState":
+        f64 = torch.float64
+
+        def scalar(dt=f64):
+            return torch.zeros((), dtype=dt, device=device)
+
+        return RankState(
+            u=torch.zeros((n, 3), dtype=f64, device=device),
+            x_prev=torch.zeros((n, 3), dtype=dtype, device=device),
+            b=torch.zeros((n, 3), dtype=dtype, device=device),
+            **{k: scalar() for k in ("scale", "prev_norm", "norm0", "eta_prev", "stop_newton",
+                                     "norm", "eta", "lin_tol")},
+            first=scalar(torch.bool), last=scalar(torch.bool), tol=scalar(dtype),
+            work=scalar(torch.bool),
+            runs=torch.zeros(len(RANK_BODIES), dtype=torch.int64, device=device))
 
 
 def _host_geometry(mesh, part, p: int):
@@ -212,10 +303,12 @@ class ShardedNewtonSolver:
     `LocalComm` on the mesh's device by default). The mesh and BC may lie
     on the CPU: each rank puts its shard on `comm.device`. The host loop
     (incremental loading, Eisenstat-Walker forcing, chunked PCG, the
-    two-level -> Jacobi fallback, bisection) is the reference's."""
+    two-level -> Jacobi fallback, bisection) is the reference's, over the
+    programs of the module docstring, captured on a CUDA device with a
+    capturable comm unless `eager`."""
 
     def __init__(self, mesh, material, bc, f_ext=None, options: SolverOptions | None = None,
-                 comm: Comm | None = None, partition_method: str = "slab"):
+                 comm: Comm | None = None, partition_method: str = "slab", eager: bool = False):
         self.mesh = mesh
         self.material = material
         self.options = options or SolverOptions()
@@ -252,6 +345,7 @@ class ShardedNewtonSolver:
         self._build_coarse()
         # the coarse operator is probed THROUGH the sharded tangent action
         self._run_coarse_probe()
+        self._init_programs(eager)
 
     # ------------------------------------------------------------------
     # setup
@@ -358,9 +452,6 @@ class ShardedNewtonSolver:
         No = self.part.n_owned
         return y_loc[:No] + self._halo_reduce(y_loc[No:])
 
-    def _x0(self, x0: torch.Tensor) -> torch.Tensor:
-        return x0
-
     def _dot(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         """Global dot product: the local one, summed over the shards."""
         return self.comm.all_sum(torch.dot(a.reshape(-1), b.reshape(-1)))
@@ -379,14 +470,16 @@ class ShardedNewtonSolver:
         return self.soa.p64 if dtype == torch.float64 else self.soa.p32
 
     def _impose(self, u: torch.Tensor, scale) -> torch.Tensor:
+        """u with the prescribed values at `scale` (a float or a 0-d tensor,
+        which a captured body reads at each run)."""
         d = self.data
-        return d.free_mask * u + (1.0 - d.free_mask) * (float(scale) * d.bc_values)
+        return d.free_mask * u + (1.0 - d.free_mask) * (scale * d.bc_values)
 
     def _residual64(self, u: torch.Tensor, scale) -> torch.Tensor:
         d, p64 = self.data, self.soa.p64
         state = soa_freeze(p64, self.material, self._expand_u(u).T.contiguous())
         f = self._assemble(soa_internal_force(p64, state).T)
-        return (float(scale) * d.f_ext - f) * d.free_mask
+        return (scale * d.f_ext - f) * d.free_mask
 
     def _residual_norm(self, u: torch.Tensor, scale) -> torch.Tensor:
         r = self._residual64(u, scale)
@@ -408,71 +501,223 @@ class ShardedNewtonSolver:
             return za[:, :3] + torch.linalg.cross(za[:, 3:], coarse.dvec, dim=1)
         return za
 
-    def _make_ops(self, coarse, state, inv_blocks, freeN):
-        p = self._p(self._pcg_dtype)
+    def _make_ops(self, coarse):
+        """The masked tangent action and the preconditioner (block-Jacobi,
+        plus the coarse term where `coarse`), reading the frozen state and
+        the Jacobi inverse that frz last wrote."""
+        p, cell, freeN = self._p(self._pcg_dtype), self._cell, self._freeN
 
         def matvec(v):
             vm = v * freeN
-            y = self._assemble(soa_apply_tangent(p, state, self._expand_v(vm).T.contiguous()).T)
+            y = self._assemble(soa_apply_tangent(p, cell.frozen, self._expand_v(vm).T.contiguous()).T)
             return y * freeN + (v - vm)
 
         def precond(r):
-            z = apply_block_jacobi(inv_blocks, freeN, r)
+            z = apply_block_jacobi(cell.inv_blocks, freeN, r)
             if coarse is not None:
                 z = z + freeN * self._coarse_apply(coarse, r)
             return z
 
         return matvec, precond
 
-    def _prepare_common(self, coarse, u, r64, tol, x0):
-        """Freeze, block-Jacobi and PCG init from a computed residual."""
-        pdt = self._pcg_dtype
-        freeN = self.data.free_mask.to(pdt)
+    # ------------------------------------------------------------------
+    # the programs (the reference's fused bodies)
+    def _init_programs(self, eager: bool) -> None:
+        """The rank's state, its bodies (captured now on the captured
+        route, after their warm-up and `Comm.warm`) and the first route."""
+        dev = self.comm.device
+        self.captured = dev.type == "cuda" and self.comm.capturable and not eager
+        self._freeN = self.data.free_mask.to(self._pcg_dtype)
+        self._cell = RankState.zeros(self.part.n_owned, self._pcg_dtype, dev)
+        self._fns = self._rank_bodies()
+        self._bodies = None  # their graphs on the captured route
+        self._routes = {}  # route -> DevicePCGChunk
+        self._graphs = {}  # route -> {program: cuda_graphs.Program}
+        #: per route, the seconds of its capture and compositions
+        self.capture_s = {}
+        self._rank_seen = [0] * len(RANK_BODIES)
+        #: programs launched: Newton iterations, further chunks, restarts
+        self.launched = {"newton": 0, "chunk": 0, "restart": 0}
+        if self.captured:
+            t0 = time.perf_counter()
+            with self._no_profile(), torch.cuda.device(dev):
+                cuda_graphs.warm_up(self._fns.values(), dev)
+                self.comm.warm()
+                self._bodies = {k: cuda_graphs.Body(fn) for k, fn in self._fns.items()}
+            self._cell.runs.zero_()  # the warm-up's runs were eager
+            self.capture_s["rank"] = time.perf_counter() - t0
+        self._route("main")
+
+    def _rank_bodies(self) -> dict:
+        """head, resid and frz on the rank's state (module docstring)."""
+        cell, opts, pdt = self._cell, self.options, self._pcg_dtype
+        use_ew = opts.forcing == "ew"
         p = self._p(pdt)
-        state = soa_freeze(p, self.material, self._expand_u(u).to(pdt).T.contiguous())
-        diag = self._assemble(soa_diag_blocks(p, state).permute(2, 0, 1))
-        inv_blocks = jacobi_inverse_blocks(diag, freeN)
-        matvec, precond = self._make_ops(coarse, state, inv_blocks, freeN)
-        st = pcg_init(matvec, r64.to(pdt), precond, x0=None if x0 is None else self._x0(x0),
-                      tol=float(tol), dot=self._dot)
-        return st, state, inv_blocks, matvec, precond
 
-    def _prepare(self, coarse, u, scale, tol, x0):
-        """Residual, then `_prepare_common` from x0 (a restart)."""
-        r64 = self._residual64(u, scale)
-        st, state, inv_blocks, _, _ = self._prepare_common(
-            coarse, u, r64, tol, x0.to(self._pcg_dtype))
-        return st, state, inv_blocks
+        def head():
+            cell.runs[0].add_(1)
+            cell.u.add_(cell.x_prev.to(torch.float64))
+            r64 = self._residual64(cell.u, cell.scale)
+            norm = torch.sqrt(torch.clamp_min(self._dot(r64, r64), 0.0))
+            norm0 = torch.where(cell.first, norm, cell.norm0)
+            if pdt == torch.float32:
+                floor = 1.2e-6
+            else:
+                floor = torch.clamp_max(2.2e-14 * norm0 / torch.clamp_min(norm, 1e-300), 0.1)
+            eta, lin_tol = device_forcing(norm, cell.prev_norm, cell.eta_prev, cell.first,
+                                          opts.pcg_tol, use_ew, floor, cell.stop_newton,
+                                          opts.ew_eta_min)
+            cell.norm.copy_(norm)
+            cell.eta.copy_(eta)
+            cell.lin_tol.copy_(lin_tol)
+            cell.tol.copy_(lin_tol.to(pdt))
+            cell.work.copy_(~(norm <= cell.stop_newton) & ~cell.last & (norm == norm))
+            cell.b.copy_(r64.to(pdt))
 
-    def _chunk(self, coarse, st, state, inv_blocks, n):
-        freeN = self.data.free_mask.to(self._pcg_dtype)
-        matvec, precond = self._make_ops(coarse, state, inv_blocks, freeN)
-        return pcg_chunk(matvec, st, precond, dot=self._dot,
-                         maxiter=min(self.options.pcg_chunk, int(n)))
+        def resid():
+            cell.runs[1].add_(1)
+            cell.b.copy_(self._residual64(cell.u, cell.scale).to(pdt))
 
-    def _newton_iter(self, coarse, u, x_prev, scale, prev_norm, norm0_prev, eta_prev,
-                     first_it, stop_newton, last_it):
-        """One sharded Newton iteration (the reference's fused program):
-        apply the previous direction, the f64 residual and its norm, the
-        forcing (`newton_lin_tol`: Eisenstat-Walker with the precision
-        floor), then freeze,
-        block-Jacobi and the first CG chunk. The tangent work is skipped
-        (st None) where the iteration cannot take a step: the residual
-        already meets the stop, or this is the last allowed iteration."""
+        def frz():
+            cell.runs[2].add_(1)
+            state = soa_freeze(p, self.material, self._expand_u(cell.u).to(pdt).T.contiguous())
+            diag = self._assemble(soa_diag_blocks(p, state).permute(2, 0, 1))
+            cell.frozen = state
+            cell.inv_blocks = jacobi_inverse_blocks(diag, self._freeN)
+
+        return {"head": head, "resid": resid, "frz": frz}
+
+    @contextlib.contextmanager
+    def _no_profile(self):
+        """The comm's host timing off (a capture takes no host step)."""
+        profile, self.comm.profile = self.comm.profile, False
+        try:
+            yield
+        finally:
+            self.comm.profile = profile
+
+    def _route(self, name: str) -> DevicePCGChunk:
+        """The chunk of route `name` ("main": the solver's preconditioner;
+        "fallback": the same with a zero coarse inverse, whose coarse term
+        is exactly zero), made at its first use; on the captured route its
+        bodies are captured then and the route's programs composed of
+        them and of the rank bodies. (On the main route the chunk's
+        warm-up reads frz's captured outputs before a replay has written
+        them: values it discards, as init0 and initx set the state.)"""
+        chunk = self._routes.get(name)
+        if chunk is not None:
+            return chunk
+        coarse = self.coarse
+        if name == "fallback":
+            coarse = dataclasses.replace(coarse, acinv=torch.zeros_like(coarse.acinv))
+        matvec, precond = self._make_ops(coarse)
+        cell, dev = self._cell, self.comm.device
+        t0 = time.perf_counter()
+        with self._no_profile():
+            chunk = DevicePCGChunk(matvec, precond, (self.part.n_owned, 3), self._pcg_dtype, dev,
+                                   capture=self.captured, dot=self._dot, b=cell.b, tol=cell.tol)
+            if self.captured:
+                bodies = {**self._bodies, **chunk.bodies}
+                with torch.cuda.device(dev):
+                    self._graphs[name] = {
+                        prog: cuda_graphs.compose(chain, bodies, self._flags(chunk))
+                        for prog, chain in PROGRAMS.items()}
+                self.capture_s[name] = time.perf_counter() - t0
+        self._routes[name] = chunk
+        return chunk
+
+    def _flags(self, chunk: DevicePCGChunk):
+        """The flag tensors of the programs on `chunk`'s route, by name."""
+        return {"work": self._cell.work, "active": chunk.state.active}.__getitem__
+
+    def _launch(self, route: str, prog: str) -> DevicePCGChunk:
+        """Run the program `prog` of `route`: one launch of its graph, or
+        its bodies eagerly. No fetch. Returns the route's chunk."""
+        chunk = self._route(route)
+        if self.captured:
+            with torch.cuda.device(self.comm.device):
+                self._graphs[route][prog].launch()
+        else:
+            cuda_graphs.run_eager(PROGRAMS[prog], {**self._fns, **chunk.fns},
+                                  self._flags(chunk))
+        return chunk
+
+    def _fetch(self, chunk: DevicePCGChunk, extra=()):
+        """The one batched fetch after a launch on `chunk`: its state, the
+        values of `extra`, and the rank bodies' runs (their replayed
+        kernel launches go to `cuda_graphs.REPLAYED`)."""
+        runs = self._cell.runs
+        st, vals = chunk.fetch_with((*extra, *(runs[i] for i in range(len(RANK_BODIES)))))
+        n = len(extra)
+        counts = [int(v) for v in vals[n:]]
+        if self._bodies is not None:
+            cuda_graphs.tally({k: b.launches for k, b in self._bodies.items()}, {
+                k: c - seen for k, c, seen in zip(RANK_BODIES, counts, self._rank_seen)})
+        self._rank_seen = counts
+        return st, vals[:n]
+
+    def _newton_iter(self, route, prev_norm, norm0_prev, eta_prev, first_it, stop_newton,
+                     last_it):
+        """One sharded Newton iteration, the reference's fused program (the
+        `iter` program on `route`): one launch and one fetch. Returns (the
+        first chunk's state, or None where the tangent work was skipped,
+        norm, eta, lin_tol)."""
+        cell, opts = self._cell, self.options
+        for t, v in ((cell.prev_norm, prev_norm), (cell.norm0, norm0_prev),
+                     (cell.eta_prev, eta_prev), (cell.stop_newton, stop_newton),
+                     (cell.first, first_it), (cell.last, last_it)):
+            t.fill_(v)
+        self._route(route).n.fill_(min(opts.pcg_chunk, opts.pcg_maxiter))
+        chunk = self._launch(route, "iter")
+        self.launched["newton"] += 1
+        st, (norm, eta, lin_tol, work) = self._fetch(
+            chunk, (cell.norm, cell.eta, cell.lin_tol, cell.work))
+        return (st if work > 0.0 else None), norm, eta, lin_tol
+
+    def _drive(self, route, tol, first=None):
+        """`drive_chunked_pcg` on `route` at `tol`, from `first` (the
+        Newton iteration's first chunk, fetched) or from a `prepare` from
+        zero; restarts are `prepare` from x0. Returns (x, iterations,
+        converged, rel); x may be the chunk's buffer."""
+        chunk = self._route(route)
         opts = self.options
-        u = u + x_prev.to(u.dtype)
-        r64 = self._residual64(u, scale)
-        norm = float(torch.sqrt(torch.clamp(self._dot(r64, r64), min=0.0)))
-        if norm <= stop_newton or last_it or norm != norm:
-            return u, None, None, None, norm, eta_prev, None
-        norm0 = norm if first_it else norm0_prev
-        lin_tol, eta = newton_lin_tol(opts, 0 if first_it else 1, [prev_norm, norm], norm0,
-                                      eta_prev)
-        st, state, inv_blocks, matvec, precond = self._prepare_common(
-            coarse, u, r64, lin_tol, None)
-        st = pcg_chunk(matvec, st, precond, dot=self._dot,
-                       maxiter=min(opts.pcg_chunk, opts.pcg_maxiter))
-        return u, st, state, inv_blocks, norm, eta, lin_tol
+
+        def prepare(x0):
+            if x0 is None and first is not None:
+                return first
+            if x0 is None:
+                chunk.state.x.zero_()
+            else:
+                chunk.state.x.copy_(x0)
+            self._cell.tol.fill_(tol)
+            self._launch(route, "prepare")
+            self.launched["restart"] += 1
+            return self._fetch(chunk)[0]
+
+        def run(st, n):
+            chunk.n.fill_(min(opts.pcg_chunk, int(n)))
+            self._launch(route, "run")
+            self.launched["chunk"] += 1
+            return self._fetch(chunk)[0]
+
+        return drive_chunked_pcg(prepare, run, tol=tol, chunk_iters=opts.pcg_chunk,
+                                 maxiter=opts.pcg_maxiter)
+
+    @property
+    def fetches(self) -> int:
+        """Host fetches so far, over the routes."""
+        return sum(c.fetches for c in self._routes.values())
+
+    def program_stats(self) -> dict:
+        """The route ("captured" or "eager"), the fetches and the programs
+        launched so far, and on the captured route the graph nodes of each
+        route's programs and the capture seconds (the rank bodies', and
+        each route's chunk bodies' and compositions')."""
+        return {"route": "captured" if self.captured else "eager", "fetches": self.fetches,
+                "launched": dict(self.launched),
+                "graph_nodes": {r: {p: g.nodes for p, g in gs.items()}
+                                for r, gs in self._graphs.items()},
+                "capture_s": dict(self.capture_s)}
 
     # ------------------------------------------------------------------
     # the coarse operator
@@ -561,18 +806,9 @@ class ShardedNewtonSolver:
         iterations, converged, final relative residual)."""
         opts = self.options
         tol = opts.pcg_tol if lin_tol is None else lin_tol
-        cell = {}
-
-        def prepare(x0):
-            x0 = torch.zeros_like(u) if x0 is None else x0.to(u.dtype)
-            st, cell["state"], cell["inv_blocks"] = self._prepare(self.coarse, u, scale, tol, x0)
-            return st
-
-        def chunk(st, n):
-            return self._chunk(self.coarse, st, cell["state"], cell["inv_blocks"], n)
-
-        x, total, converged, rel = drive_chunked_pcg(
-            prepare, chunk, tol=tol, chunk_iters=opts.pcg_chunk, maxiter=opts.pcg_maxiter)
+        self._cell.scale.fill_(float(scale))
+        self._cell.u.copy_(u)
+        x, total, converged, rel = self._drive("main", tol)
         return u + x.to(u.dtype), total, converged, rel
 
     # ------------------------------------------------------------------
@@ -625,14 +861,17 @@ class ShardedNewtonSolver:
 
     def _newton(self, u, scale):
         """Newton iteration at the load factor `scale`, the reference's
-        sharded loop: one `_newton_iter` per iteration (the direction of
+        sharded loop: one `iter` program per iteration (the direction of
         the previous iteration is applied at the start of the next), the
         first CG chunk continued by `drive_chunked_pcg`, and the two-level
         -> Jacobi fallback. Returns (u, converged, record)."""
         opts = self.options
         t0 = time.perf_counter()
         scale = float(scale)
-        u = self._impose(u, scale)
+        cell = self._cell
+        cell.scale.fill_(scale)
+        cell.u.copy_(self._impose(u, cell.scale))
+        cell.x_prev.zero_()
         norms, pcg_iters = [], []
         norm0 = None
         stop_n = None
@@ -640,17 +879,15 @@ class ShardedNewtonSolver:
         prev_norm = 1.0
         # two-level -> Jacobi fallback: on near-critical states the coarse
         # space can aim the preconditioner at a negative tangent direction
-        # and break CG down where block-Jacobi still converges. `coarse` is
-        # swapped for a copy with a zero inverse, whose coarse term is
-        # exactly zero.
-        coarse = self.coarse
-        x_prev = torch.zeros((self.part.n_owned, 3), dtype=self._pcg_dtype,
-                             device=self.comm.device)
+        # and break CG down where block-Jacobi still converges. The rest of
+        # the increment runs the "fallback" route, whose zero coarse
+        # inverse makes the coarse term exactly zero.
+        route = "main"
         for it in range(opts.max_newton):
             stop_dev = opts.newton_atol if norm0 is None else stop_n
-            u, st0, state, inv_blocks, norm, eta_v, tol_v = self._newton_iter(
-                coarse, u, x_prev, scale, prev_norm, norm0 or 1.0, eta, norm0 is None,
-                stop_dev, it == opts.max_newton - 1)
+            st0, norm, eta_v, tol_v = self._newton_iter(
+                route, prev_norm, norm0 or 1.0, eta, norm0 is None, stop_dev,
+                it == opts.max_newton - 1)
             if norm != norm:  # NaN: poisoned state; fail -> bisection
                 break
             norms.append(norm)
@@ -659,60 +896,34 @@ class ShardedNewtonSolver:
                 stop_n = max(opts.newton_rtol * norm0, opts.newton_atol)
             if norm <= stop_n:
                 rec = IncrementRecord(scale, it, norms, pcg_iters, time.perf_counter() - t0)
-                return u, True, rec
+                return cell.u.clone(), True, rec
             if st0 is None:
                 # the final allowed iteration: its direction could never be
                 # applied (the update is deferred to the next iteration)
                 break
             prev_norm = norm
             eta = eta_v
-            cell = {"state": state, "inv_blocks": inv_blocks}
-
-            def prepare(x0, _u=u, _tol=tol_v, _coarse=coarse):
-                if x0 is None:
-                    return st0
-                st, cell["state"], cell["inv_blocks"] = self._prepare(
-                    _coarse, _u, scale, _tol, x0.to(torch.float64))
-                return st
-
-            def chunk(st, n, _coarse=coarse):
-                return self._chunk(_coarse, st, cell["state"], cell["inv_blocks"], n)
-
-            x, lin_iters, lin_ok, lin_rel = drive_chunked_pcg(
-                prepare, chunk, tol=tol_v, chunk_iters=opts.pcg_chunk,
-                maxiter=opts.pcg_maxiter)
+            x, lin_iters, lin_ok, lin_rel = self._drive(route, tol_v, first=st0)
             pcg_iters.append(int(lin_iters))
-            x_prev = x
+            cell.x_prev.copy_(x)
             # inexact Newton: accept a stagnated step that made substantial
             # progress; an early breakdown at rel ~ O(1) aborts -> bisection
             accepted = bool(lin_ok) or float(lin_rel) <= 1e-3
-            if not lin_ok and coarse is not None and coarse is self.coarse:
+            if not lin_ok and self.coarse is not None and route == "main":
                 # the first two-level breakdown of this increment: Jacobi
                 # alone for the rest of it, and where the broken-down
                 # direction was not acceptable, this solve again
-                coarse = dataclasses.replace(self.coarse,
-                                             acinv=torch.zeros_like(self.coarse.acinv))
+                route = "fallback"
                 self.precond_fallbacks += 1
                 if not accepted:
-
-                    def prepare_fb(x0, _u=u, _tol=tol_v, _c=coarse):
-                        xx = torch.zeros_like(_u) if x0 is None else x0.to(torch.float64)
-                        st, cell["state"], cell["inv_blocks"] = self._prepare(
-                            _c, _u, scale, _tol, xx)
-                        return st
-
-                    x, fb_iters, lin_ok, lin_rel = drive_chunked_pcg(
-                        prepare_fb,
-                        lambda st, n, _c=coarse: self._chunk(
-                            _c, st, cell["state"], cell["inv_blocks"], n),
-                        tol=tol_v, chunk_iters=opts.pcg_chunk, maxiter=opts.pcg_maxiter)
+                    x, fb_iters, lin_ok, lin_rel = self._drive(route, tol_v)
                     pcg_iters[-1] += int(fb_iters)
-                    x_prev = x
+                    cell.x_prev.copy_(x)
                     accepted = bool(lin_ok) or float(lin_rel) <= 1e-3
             if not accepted:
                 break
         rec = IncrementRecord(scale, len(norms), norms, pcg_iters, time.perf_counter() - t0)
-        return u, False, rec
+        return cell.u.clone(), False, rec
 
     def solve(self, u0=None, callback=None, start_factor: float = 0.0) -> SolveResult:
         """Incremental loading from `start_factor` to 1 in `n_steps`

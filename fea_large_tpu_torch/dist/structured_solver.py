@@ -26,9 +26,10 @@ partials into the owner's right plane, one forward hop refreshing the
 non-owned left planes) restores consistency. Dots weight by the ownership
 mask so that shared plane slots count once.
 
-The host loop is `ShardedNewtonSolver`'s: this class swaps the partition,
-the exchange and the coarse transfer only, so the two sharded paths cannot
-drift in solver semantics.
+The loop and its programs are `ShardedNewtonSolver`'s: this class swaps
+the partition, the exchange and the coarse transfer only, so the two
+sharded paths cannot drift in solver semantics; the boundary-plane hops
+run inside the programs' bodies.
 """
 
 from __future__ import annotations
@@ -164,11 +165,11 @@ def make_sharded_solver(mesh, material, bc, f_ext=None, options: SolverOptions |
 
 class StructuredShardedSolver(ShardedNewtonSolver):
     """Sharded solver for Kuhn lattice boxes (see the module docstring):
-    `ShardedNewtonSolver`'s host loop and shard arithmetic on the
-    boundary-plane exchange."""
+    `ShardedNewtonSolver`'s loop, programs and shard arithmetic on the
+    boundary-plane exchange; `eager` as there."""
 
     def __init__(self, mesh, material, bc, f_ext=None, options: SolverOptions | None = None,
-                 comm: Comm | None = None):
+                 comm: Comm | None = None, eager: bool = False):
         self.mesh = mesh
         self.material = material
         self.options = options or SolverOptions()
@@ -210,6 +211,7 @@ class StructuredShardedSolver(ShardedNewtonSolver):
         )
         self._build_coarse_structured()
         self._run_coarse_probe()
+        self._init_programs(eager)
 
     # ------------------------------------------------------------------
     def _build_coarse_structured(self):
@@ -282,9 +284,6 @@ class StructuredShardedSolver(ShardedNewtonSolver):
 
     def _assemble(self, y_loc: torch.Tensor) -> torch.Tensor:
         return self._reduce_gather(y_loc)
-
-    def _x0(self, x0: torch.Tensor) -> torch.Tensor:
-        return self._gather(x0)  # accepts owner-only layouts
 
     def _dot(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         """Ownership-weighted global dot: boundary-plane slots are held by

@@ -9,9 +9,13 @@ IF(flag) or under `While(flag)`, a flag being a 0-d bool tensor on the card
 read when the chain reaches it (and, for WHILE, again after each run of
 its chain), and instantiates it; conditionals nest. `launch()` runs it on
 the current stream. The device-resident Newton loop
-(solvers/device_loop.py) and the PCG chunks (solvers/linear.py) are built
-from these. A failed capture, composition or launch raises; nothing runs
-eagerly in its place.
+(solvers/device_loop.py), the PCG chunks (solvers/linear.py) and the
+sharded ranks' programs (dist/sharded.py) are built from these: each
+writes its programs as chains of (kind, flag, what) items, which
+`compose` turns into a `Program` of captured bodies and `run_eager` runs
+with the bodies' functions (the CPU's route); `warm_up` is the first run
+of the functions before their capture. A failed capture, composition or
+launch raises; nothing runs eagerly in its place.
 
 Launch counts: the kernel wrappers count a launch when they are called. A
 capture calls them and launches nothing, so `Body` records the counts its
@@ -63,6 +67,23 @@ def collect_garbage() -> None:
     gc.collect()
 
 
+def warm_up(fns, device) -> None:
+    """Run each function of `fns` once, in order, on a side stream of
+    `device`, after collecting garbage (`collect_garbage`), and wait for
+    the device: the first runs a capture needs (the allocator's blocks,
+    the kernels' libraries, a process group's connections)."""
+    collect_garbage()
+    with torch.cuda.device(device):
+        current = torch.cuda.current_stream(device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            for fn in fns:
+                fn()
+        current.wait_stream(side)
+        torch.cuda.synchronize(device)
+
+
 def tally(per_capture: dict, runs: dict) -> None:
     """Add to `REPLAYED` what `runs[body]` replays of each body launched,
     given each body's launches per capture (`per_capture[body]`)."""
@@ -77,6 +98,7 @@ def _library():
         "fea_graph_init": [],
         "fea_graph_compose": [ctypes.c_int, P, P, P, P, P, P],
         "fea_graph_try_child": [P],
+        "fea_graph_refused": [P, ctypes.c_char_p, ctypes.c_int],
         "fea_graph_launch": [P, P],
         "fea_graph_node_count": [P, P],
         "fea_graph_destroy": [P, P],
@@ -97,16 +119,22 @@ class Body:
     side stream, with the cyclic garbage collector paused; `fn` must read
     and write only tensors that outlive the Body, or allocate inside the
     capture). `nodes` is its node count, `launches` the kernel launches one
-    replay makes, by name."""
+    replay makes, by name, and `refused` the name of the first node type in
+    it that a conditional node's body does not take ("" where none; the
+    collectives of a sharded rank are captured into its bodies).
+
+    The capture's error mode is "thread_local": it refuses the unsafe CUDA
+    calls of this thread only, so that another thread's (the process
+    group's watchdog querying its events) does not end it."""
 
     def __init__(self, fn):
-        _library()
+        lib = _library()
         self.graph = torch.cuda.CUDAGraph(keep_graph=True)
         before = launch_counts()
         collecting = gc.isenabled()
         gc.disable()  # no graph may be freed inside the capture (`collect_garbage`)
         try:
-            with torch.cuda.graph(self.graph):
+            with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
                 fn()
         finally:
             if collecting:
@@ -115,9 +143,12 @@ class Body:
             _set_counts(before)
         self.launches = {k: after[k] - before[k] for k in after if after[k] > before[k]}
         count = ctypes.c_size_t()
-        _check("fea_graph_node_count", _library().fea_graph_node_count(
-            ctypes.c_void_p(self.graph.raw_cuda_graph()), ctypes.byref(count)))
+        raw = ctypes.c_void_p(self.graph.raw_cuda_graph())
+        _check("fea_graph_node_count", lib.fea_graph_node_count(raw, ctypes.byref(count)))
         self.nodes = count.value
+        name = ctypes.create_string_buffer(64)
+        _check("fea_graph_refused", lib.fea_graph_refused(raw, name, len(name)))
+        self.refused = name.value.decode()
 
 
 class While:
@@ -136,12 +167,17 @@ class Program:
     counts the nodes of one pass with every condition set and every loop
     run once, the nested ones included: the bodies' nodes, per IF its set
     kernel and the IF node, per WHILE two set kernels and the WHILE node.
-    A failed composition raises."""
+    A failed composition raises, and so does a body under a conditional
+    that holds a node type CUDA refuses there (`Body.refused`), naming it."""
 
     def __init__(self, items):
         self._items = list(items)  # the bodies and flags must outlive the graph
         flat = []  # (parent, kind, body, flag pointer), in pre-order
         self.nodes = self._flatten(self._items, -1, flat)
+        for parent, _, body, _ in flat:
+            if body is not None and parent >= 0 and body.refused:
+                raise RuntimeError(f"a body under an IF or WHILE node holds a {body.refused} "
+                                   "node, which CUDA does not take in a conditional's body")
         n = len(flat)
         parents = (ctypes.c_int * n)(*(f[0] for f in flat))
         kinds = (ctypes.c_int * n)(*(f[1] for f in flat))
@@ -190,3 +226,34 @@ def child_graph_error(program: Program) -> int:
     holds a conditional node, which is why nested chains are appended into
     the conditional nodes' own body graphs."""
     return _library().fea_graph_try_child(program._graph)
+
+
+def _chain_items(chain, bodies: dict, flag) -> list:
+    out = []
+    for kind, name, what in chain:
+        what = bodies[what] if isinstance(what, str) else _chain_items(what, bodies, flag)
+        cond = None if kind is None else flag(name)
+        out.append((what, While(cond) if kind == "while" else cond))
+    return out
+
+
+def compose(chain, bodies: dict, flag) -> Program:
+    """The `Program` of a chain of (kind, flag, what) items: kind None (run
+    once), "if" or "while"; flag the name of the item's 0-d bool tensor,
+    `flag(name)` (None where kind is None); what the name of a `Body` in
+    `bodies`, or a nested chain."""
+    return Program(_chain_items(chain, bodies, flag))
+
+
+def run_eager(chain, fns: dict, flag) -> None:
+    """A chain of `compose` with the bodies' functions `fns` run eagerly,
+    a Python `while` or `if` on each flag in place of its node (one host
+    read of the flag per test)."""
+    for kind, name, what in chain:
+        while kind is None or bool(flag(name)):
+            if isinstance(what, str):
+                fns[what]()
+            else:
+                run_eager(what, fns, flag)
+            if kind != "while":
+                break

@@ -314,16 +314,9 @@ class DeviceLoop:
         """Warm every body up once on a scratch state on a side stream, then
         capture each body and compose the solve program."""
         t0 = time.perf_counter()
-        cuda_graphs.collect_garbage()
         with self._on_device():
             scratch = LoopState.zeros(n_nodes, self.max_newton, self.device)
-            side = torch.cuda.Stream(self.device)
-            side.wait_stream(torch.cuda.current_stream(self.device))
-            with torch.cuda.stream(side):
-                for fn in self._bodies(scratch).values():
-                    fn()
-            torch.cuda.current_stream(self.device).wait_stream(side)
-            torch.cuda.synchronize(self.device)
+            cuda_graphs.warm_up(self._bodies(scratch).values(), self.device)
             del scratch
             self._kept = {name: cuda_graphs.Body(fn) for name, fn in self._bodies(self.state).items()}
             self.per_capture = {name: body.launches for name, body in self._kept.items()}
@@ -332,17 +325,8 @@ class DeviceLoop:
             torch.cuda.synchronize(self.device)
         self.capture_s = time.perf_counter() - t0
 
-    def _items(self, chain) -> list:
-        """`cuda_graphs.Program` items of a chain of `PROGRAMS`."""
-        out = []
-        for kind, flag, what in chain:
-            what = self._kept[what] if isinstance(what, str) else self._items(what)
-            cond = None if kind is None else self.state.flag(flag)
-            out.append((what, cuda_graphs.While(cond) if kind == "while" else cond))
-        return out
-
     def _compose(self, prog: str) -> None:
-        self._graphs[prog] = cuda_graphs.Program(self._items(PROGRAMS[prog]))
+        self._graphs[prog] = cuda_graphs.compose(PROGRAMS[prog], self._kept, self.state.flag)
         self.graph_nodes[prog] = self._graphs[prog].nodes
 
     # -- the host side -----------------------------------------------------
@@ -356,18 +340,6 @@ class DeviceLoop:
             if prog not in self._graphs:
                 self._compose(prog)
             self._graphs[prog].launch()
-
-    def _run_eager(self, chain, eager: dict) -> None:
-        """A chain of `PROGRAMS` with its bodies run eagerly, a Python
-        `while` or `if` on each flag in place of its node."""
-        for kind, flag, what in chain:
-            while kind is None or bool(self.state.flag(flag)):
-                if isinstance(what, str):
-                    eager[what]()
-                else:
-                    self._run_eager(what, eager)
-                if kind != "while":
-                    break
 
     def solve(self, u0: torch.Tensor, scale: float) -> DeviceLoopResult:
         """One increment from u0 at the load factor `scale`."""
@@ -389,7 +361,7 @@ class DeviceLoop:
         if self._graphs is not None:
             self.replay("solve")
         else:
-            self._run_eager(PROGRAMS["solve"], self._bodies(st))
+            cuda_graphs.run_eager(PROGRAMS["solve"], self._bodies(st), st.flag)
         f64 = torch.float64
         flags = torch.stack([t.to(f64) for t in (st.it, st.conv, st.failed, st.exhausted, st.bad,
                                                  st.eta, st.total_cg)])

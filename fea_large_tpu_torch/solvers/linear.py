@@ -12,6 +12,9 @@ Three forms of PCG:
     of (k, rr, ok, stop), and an f64 step's solve and its restart one
     launch and one fetch; on the CPU the same bodies run eagerly, a Python
     test of `active` in place of the WHILE node.
+    The sharded ranks (dist/sharded.py) run its bodies too, with their
+    global dot (a fixed-order sum over the ranks), in the programs of the
+    reference's sharded loop.
   * `DevicePCG`, `device_pcg_init`, `device_pcg_step`: the state and the
     bodies both the chunk and the device-resident Newton loop
     (solvers/device_loop.py, under nested WHILE and IF nodes) are made
@@ -19,11 +22,12 @@ Three forms of PCG:
     in 0-d device tensors, updated in place (the addresses a captured
     graph reads stay fixed). The stop max(tol ||b||, atol) and the loop condition are
     formed in the vectors' dtype, f32 on the mixed path, as the
-    reference's are.
-  * `PCGState`, `pcg_init`, `pcg_chunk`: a host loop over device tensors
-    that fetches (p.q, r.r) once per iteration and tests the stop in
-    Python f64, for the sharded ranks only (dist/sharded.py: their dots
-    are collectives, which a graph does not capture).
+    reference's are. Each takes the `dot` of its vectors (default the
+    local one).
+  * `PCGState`, `pcg_init`, `pcg_chunk`, `pcg`: the reference's public
+    functions as a host loop over device tensors that fetches (p.q, r.r)
+    once per iteration and tests the stop in Python f64. No solver runs
+    them.
 `drive_chunked_pcg` is the chunked control loop (restarts, best iterate,
 budget) over either chunked form.
 Self-dots are clamped at zero at the source (r.r, r.z and ||b|| are
@@ -115,8 +119,8 @@ class PCGState:
 
 def pcg_init(matvec, b, preconditioner=None, x0=None, tol=1e-10, atol=0.0,
              dot=None) -> PCGState:
-    """The host loop's `pcg_init` (the sharded ranks'; see the module
-    docstring): ||b||, the stop and r0 . r0 fetched to the host."""
+    """The host loop's `pcg_init` (see the module docstring): ||b||, the
+    stop and r0 . r0 fetched to the host."""
     preconditioner = preconditioner or (lambda r: r)
     dot = dot or _dot
     b_norm = math.sqrt(max(float(dot(b, b)), 0.0))
@@ -138,8 +142,7 @@ def pcg_chunk(matvec, state: PCGState, preconditioner=None, dot=None,
     """Up to `maxiter` further CG iterations (stops early on convergence or
     breakdown); an exact continuation of the Krylov recurrence. The host
     loop: one fetch of (p.q > 0, r.r) per iteration and the stop test in
-    Python f64. Only the sharded ranks run it (dist/sharded.py); every
-    single-device solve runs `DevicePCGChunk`."""
+    Python f64. The solvers run `DevicePCGChunk` instead."""
     preconditioner = preconditioner or (lambda r: r)
     dot = dot or _dot
     s = dataclasses.replace(state)
@@ -222,13 +225,15 @@ def _set_active(s: DevicePCG) -> None:
 
 
 def device_pcg_init(s: DevicePCG, b, preconditioner, tol, cap, *, matvec=None, x0=None,
-                    atol=0.0) -> None:
+                    atol=0.0, dot=None) -> None:
     """The reference's `pcg_init` into `s`: from x0 = 0 (r0 = b exactly, no
     product) or, given `x0` and `matvec`, from x0 with r0 = b - A x0 (`x0`
     may be `s.x` itself: the restart from the last iterate); z0 = p0 = M^-1
     r0, and the stop max(tol ||b||, atol) in b's dtype. `tol` and `cap` are
     0-d tensors (the forcing term and the iteration cap of this solve),
-    `atol` a float."""
+    `atol` a float, `dot(a, b)` the 0-d dot of two vectors (default the
+    local one)."""
+    dot = dot or _dot
     if x0 is None:
         s.x.zero_()
         s.r.copy_(b)
@@ -238,9 +243,9 @@ def device_pcg_init(s: DevicePCG, b, preconditioner, tol, cap, *, matvec=None, x
         s.r.copy_(b - matvec(s.x))
     s.z.copy_(preconditioner(s.r))
     s.p.copy_(s.z)
-    s.rz.copy_(torch.clamp_min(_dot(s.r, s.z), 0.0))
-    bb = torch.clamp_min(_dot(b, b), 0.0)
-    s.rr.copy_(bb if x0 is None else torch.clamp_min(_dot(s.r, s.r), 0.0))
+    s.rz.copy_(torch.clamp_min(dot(s.r, s.z), 0.0))
+    bb = torch.clamp_min(dot(b, b), 0.0)
+    s.rr.copy_(bb if x0 is None else torch.clamp_min(dot(s.r, s.r), 0.0))
     s.bnorm.copy_(torch.sqrt(bb))
     s.stop.copy_(torch.clamp_min(tol * s.bnorm, atol))
     s.k.zero_()
@@ -249,22 +254,24 @@ def device_pcg_init(s: DevicePCG, b, preconditioner, tol, cap, *, matvec=None, x
     _set_active(s)
 
 
-def device_pcg_step(s: DevicePCG, matvec, preconditioner) -> None:
+def device_pcg_step(s: DevicePCG, matvec, preconditioner, dot=None) -> None:
     """One CG iteration of `pcg_chunk`'s body on `s`, in place, then the
     loop condition for the next. The caller runs it only while `s.active`
-    (a WHILE node in a graph, a Python test on the CPU)."""
+    (a WHILE node in a graph, a Python test on the CPU). `dot` as for
+    `device_pcg_init`."""
+    dot = dot or _dot
     q = matvec(s.p)
-    pq = _dot(s.p, q)
+    pq = dot(s.p, q)
     pos = pq > 0.0  # breakdown guard: K must be SPD
     alpha = torch.where(pos, s.rz / pq, torch.zeros_like(pq))
     s.x.add_(alpha * s.p)
     s.r.sub_(alpha * q)
     s.z.copy_(preconditioner(s.r))
-    rz_new = torch.clamp_min(_dot(s.r, s.z), 0.0)
+    rz_new = torch.clamp_min(dot(s.r, s.z), 0.0)
     beta = torch.where(s.rz != 0.0, rz_new / s.rz, torch.zeros_like(rz_new))
     s.p.mul_(beta).add_(s.z)
     s.rz.copy_(rz_new)
-    s.rr.copy_(torch.clamp_min(_dot(s.r, s.r), 0.0))
+    s.rr.copy_(torch.clamp_min(dot(s.r, s.r), 0.0))
     s.k.add_(1)
     s.ok.logical_and_(pos)
     _set_active(s)
@@ -291,40 +298,53 @@ class DevicePCGChunk:
     only tensors that outlive the chunk (the caller refreshes them in place
     between solves: a capture holds their addresses).
 
+    `dot` is the 0-d dot of two vectors (default the local one; the
+    sharded ranks' global one), and `b` and `tol` may be tensors the
+    caller owns and writes in place. The bodies are `fns` by name; the
+    sharded ranks (dist/sharded.py) compose their programs of them and of
+    their own bodies.
+
     On the card (`capture`, the default there) the bodies are warmed up
-    once on a side stream and captured into CUDA graphs at construction,
-    and four programs are composed of them (ops/cuda_graphs.py): init0,
-    initx, run = arm -> WHILE(active) {step} -> fin, and restart = init0 ->
-    run -> keep -> initx -> run. A chunk of n iterations, or a solve and
-    its restart, is then one launch and one fetch. `capture=False` runs the
-    bodies eagerly wherever the tensors are, with a Python test of `active`
-    in place of the WHILE node (the CPU's route; on the card, a
-    comparison). A failed capture or launch raises. `fetches` counts the
-    fetches, `runs` (on the device) the runs of each body; the replays'
-    kernel launches go to `cuda_graphs.REPLAYED` at each fetch."""
+    once on a side stream and captured into CUDA graphs at construction
+    (`bodies`), and four programs are composed of them at their first
+    launch (ops/cuda_graphs.py): init0, initx, run = arm -> WHILE(active)
+    {step} -> fin, and restart = init0 -> run -> keep -> initx -> run. A
+    chunk of n iterations, or a solve and its restart, is then one launch
+    and one fetch. `capture=False` runs the bodies eagerly wherever the
+    tensors are, with a Python test of `active` in place of the WHILE node
+    (the CPU's route; on the card, a comparison). A failed capture or
+    launch raises. `fetches` counts the fetches, `runs` (on the device)
+    the runs of each body, whichever program ran it; the replays' kernel
+    launches go to `cuda_graphs.REPLAYED` at each fetch. `capture_s` is
+    the seconds of the capture and of the compositions."""
 
     BODIES = ("init0", "initx", "arm", "step", "fin", "keep")
-    RUN = (("arm", None), ("step", "while"), ("fin", None))
-    PROGRAMS = {"init0": (("init0", None),), "initx": (("initx", None),), "run": RUN,
-                "restart": (("init0", None),) + RUN + (("keep", None), ("initx", None)) + RUN}
+    #: programs as chains of (kind, flag, body) items (`cuda_graphs.compose`)
+    RUN = ((None, None, "arm"), ("while", "active", "step"), (None, None, "fin"))
+    PROGRAMS = {"init0": ((None, None, "init0"),), "initx": ((None, None, "initx"),), "run": RUN,
+                "restart": ((None, None, "init0"),) + RUN
+                + ((None, None, "keep"), (None, None, "initx")) + RUN}
 
-    def __init__(self, matvec, preconditioner, shape, dtype, device, *, capture=None, atol=0.0):
+    def __init__(self, matvec, preconditioner, shape, dtype, device, *, capture=None, atol=0.0,
+                 dot=None, b=None, tol=None):
         self.device = torch.device(device)
         self.matvec, self.preconditioner, self.atol = matvec, preconditioner, float(atol)
+        self.dot = dot or _dot
         self.state = DevicePCG.zeros(shape, dtype, self.device)
-        self.b = torch.zeros(shape, dtype=dtype, device=self.device)
-        self.tol = torch.zeros((), dtype=dtype, device=self.device)
+        self.b = torch.zeros(shape, dtype=dtype, device=self.device) if b is None else b
+        self.tol = torch.zeros((), dtype=dtype, device=self.device) if tol is None else tol
         self.n = torch.zeros((), dtype=torch.int64, device=self.device)
         self.k1 = torch.zeros((), dtype=torch.int64, device=self.device)
         self.ok1 = torch.zeros((), dtype=torch.bool, device=self.device)
         self.runs = torch.zeros(len(self.BODIES), dtype=torch.int64, device=self.device)
         self._seen = [0] * len(self.BODIES)
-        self._bodies = self._make_bodies()
+        self.fns = self._make_bodies()
+        self.bodies = None
         self.fetches = 0
         self.capture_s = 0.0
         self.per_capture = {}
         self.graph_nodes = {}
-        self._graphs = None
+        self._graphs = {}
         if (self.device.type == "cuda") if capture is None else capture:
             self._capture()
             self.runs.zero_()  # the warm-up's runs were eager
@@ -332,7 +352,7 @@ class DevicePCGChunk:
     def _make_bodies(self) -> dict:
         # the bodies hold the tensors, not the chunk: no reference cycle, so
         # a chunk and its graphs go when its last reference does
-        s, matvec, precond = self.state, self.matvec, self.preconditioner
+        s, matvec, precond, dot = self.state, self.matvec, self.preconditioner, self.dot
         b, tol, n, runs, atol = self.b, self.tol, self.n, self.runs, self.atol
         k1, ok1 = self.k1, self.ok1
 
@@ -341,11 +361,11 @@ class DevicePCGChunk:
 
         def init0():
             count(0)
-            device_pcg_init(s, b, precond, tol, n, atol=atol)
+            device_pcg_init(s, b, precond, tol, n, atol=atol, dot=dot)
 
         def initx():
             count(1)
-            device_pcg_init(s, b, precond, tol, n, matvec=matvec, x0=s.x, atol=atol)
+            device_pcg_init(s, b, precond, tol, n, matvec=matvec, x0=s.x, atol=atol, dot=dot)
 
         def arm():
             count(2)
@@ -354,7 +374,7 @@ class DevicePCGChunk:
 
         def step():
             count(3)
-            device_pcg_step(s, matvec, precond)
+            device_pcg_step(s, matvec, precond, dot)
 
         def fin():
             count(4)
@@ -370,49 +390,38 @@ class DevicePCGChunk:
                 "keep": keep}
 
     def _capture(self) -> None:
-        """Warm every body up once on a side stream, then capture each body
-        and compose the programs."""
+        """Warm every body up once on a side stream, then capture each."""
         from fea_large_tpu_torch.ops import cuda_graphs
 
         t0 = time.perf_counter()
-        cuda_graphs.collect_garbage()
         with torch.cuda.device(self.device):
-            current = torch.cuda.current_stream(self.device)
-            side = torch.cuda.Stream(self.device)
-            side.wait_stream(current)
-            with torch.cuda.stream(side):
-                for fn in self._bodies.values():
-                    fn()
-            current.wait_stream(side)
-            torch.cuda.synchronize(self.device)
-            bodies = {name: cuda_graphs.Body(fn) for name, fn in self._bodies.items()}
-            self.per_capture = {name: b.launches for name, b in bodies.items()}
-            active = cuda_graphs.While(self.state.active)
-            self._graphs = {
-                prog: cuda_graphs.Program([(bodies[body], None if cond is None else active)
-                                           for body, cond in items])
-                for prog, items in self.PROGRAMS.items()
-            }
-            self._kept = bodies  # the programs replay the bodies' graphs
-            self.graph_nodes = {prog: g.nodes for prog, g in self._graphs.items()}
+            cuda_graphs.warm_up(self.fns.values(), self.device)
+            self.bodies = {name: cuda_graphs.Body(fn) for name, fn in self.fns.items()}
+            self.per_capture = {name: b.launches for name, b in self.bodies.items()}
             torch.cuda.synchronize(self.device)
         self.capture_s = time.perf_counter() - t0
 
     @property
     def captured(self) -> bool:
-        return self._graphs is not None
+        return self.bodies is not None
+
+    def _flag(self, name: str) -> torch.Tensor:
+        return getattr(self.state, name)  # "active"
 
     def _launch(self, prog: str) -> None:
-        if self._graphs is not None:
-            with torch.cuda.device(self.device):
-                self._graphs[prog].launch()
+        from fea_large_tpu_torch.ops import cuda_graphs
+
+        if self.bodies is None:
+            cuda_graphs.run_eager(self.PROGRAMS[prog], self.fns, self._flag)
             return
-        for body, cond in self.PROGRAMS[prog]:
-            if cond is None:
-                self._bodies[body]()
-            else:
-                while bool(self.state.active):
-                    self._bodies[body]()
+        with torch.cuda.device(self.device):
+            if prog not in self._graphs:
+                t0 = time.perf_counter()
+                self._graphs[prog] = cuda_graphs.compose(self.PROGRAMS[prog], self.bodies,
+                                                         self._flag)
+                self.graph_nodes[prog] = self._graphs[prog].nodes
+                self.capture_s += time.perf_counter() - t0
+            self._graphs[prog].launch()
 
     def start(self, b, tol, x0=None) -> None:
         """`pcg_init`: b (None: the last one) and the tolerance `tol` (a
@@ -445,32 +454,34 @@ class DevicePCGChunk:
         self.tol.fill_(tol)
         self.n.fill_(int(n))
         self._launch("restart")
-        st, k1, ok1 = self._fetch()
-        return k1, ok1, st
+        st, (k1, ok1) = self.fetch_with((self.k1, self.ok1))
+        return int(k1), ok1 > 0.0, st
 
     def fetch(self) -> PCGState:
         """The one batched fetch of (k, rr, ok, stop, ||b||) and the bodies'
         run counters: the state as `PCGState`, its vectors the chunk's
         buffers (valid until the next `start`)."""
-        return self._fetch()[0]
+        return self.fetch_with(())[0]
 
-    def _fetch(self) -> tuple[PCGState, int, bool]:
+    def fetch_with(self, extra) -> tuple[PCGState, list]:
+        """`fetch()` with the 0-d tensors `extra` in the same batch: (the
+        state, their values as floats)."""
         s = self.state
         f64 = torch.float64
-        scalars = (s.k, s.rr, s.ok, s.stop, s.bnorm, self.k1, self.ok1)
+        scalars = (s.k, s.rr, s.ok, s.stop, s.bnorm, *extra)
         vals = torch.cat([torch.stack([t.to(f64) for t in scalars]),
                           self.runs.to(f64)]).tolist()
         self.fetches += 1
         runs = [int(v) for v in vals[len(scalars):]]
-        if self._graphs is not None:
+        if self.bodies is not None:
             from fea_large_tpu_torch.ops import cuda_graphs
 
             cuda_graphs.tally(self.per_capture, {
                 name: r - seen for name, r, seen in zip(self.BODIES, runs, self._seen)})
         self._seen = runs
-        k, rr, ok, stop, bnorm, k1, ok1 = vals[:len(scalars)]
+        k, rr, ok, stop, bnorm = vals[:5]
         return (PCGState(x=s.x, r=s.r, z=s.z, p=s.p, rz=s.rz, rr=rr, k=int(k), ok=ok > 0.0,
-                         stop=stop, bnorm=bnorm), int(k1), ok1 > 0.0)
+                         stop=stop, bnorm=bnorm), vals[5:len(scalars)])
 
 
 def drive_chunked_pcg(prepare, chunk, *, tol, chunk_iters, maxiter):

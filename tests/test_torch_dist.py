@@ -7,11 +7,13 @@ per-shard pieces).
 Bounds, relative to max |u|: 1e-10 for the f64 solves (the reference
 tests' own), 1e-7 for the mixed two-level solve against the reference's
 sharded mixed solve (tests/test_dist.py's), 1e-12 for one shard against
-the single-device f64 solve. Newton counts are equal; the PCG lists are
-equal on the f64 paths and within one iteration per Newton step on the
-mixed path (f32 sums in another order); the probed coarse matrix is within
-5e-6 of the host Galerkin product's largest entry (tests/test_dist.py's
-bound). Repeated solves are bitwise equal.
+the single-device f64 solve. Newton counts and PCG lists are equal (on the
+mixed path since the ranks run CG on the device, its stop tested in f32
+as the reference's); the probed coarse matrix is within 5e-6 of the host
+Galerkin product's largest entry (tests/test_dist.py's bound). Repeated
+solves are bitwise equal. Every rank fetches once per Newton iteration,
+once per further PCG chunk and once per restart, the reference's
+contract, and holds the same increment records.
 
 The CLI's sharded `run` of tasks/distributed_compression_kuhn.json cut to
 2 shards is held against the reference's `run` of that copy, recorded
@@ -134,7 +136,7 @@ def runs():
     assert r2.backend == r4.backend == "gloo"
     return {"tet4": r2.result[0], "maxiter": r2.result[1], "kuhn": r4.result[0],
             "kuhn_generic": r4.result[1], "mixed": r4.result[2], "probe3": r4.result[3],
-            "probe6": r4.result[4]}
+            "probe6": r4.result[4], "ranks2": r2.results, "ranks4": r4.results}
 
 
 def _single(case, opts):
@@ -198,17 +200,108 @@ def test_sharded_mixed_two_level_matches_reference(runs):
     """Mixed precision, two-level (3 modes), Eisenstat-Walker forcing on the
     neo-Hookean TET4 box over 4 shards: the reference's sharded mixed solve
     within 1e-7 and the single-device f64 solve within 1e-7, the same
-    Newton count, PCG lists within one iteration per Newton step, bitwise
-    repeats."""
+    Newton count, the reference's PCG lists, bitwise repeats."""
     out = runs["mixed"]
     a, b = out["runs"]
     assert a["converged"] and np.array_equal(a["u"], b["u"]) and _same_records(a, b)
     u_ref, hist_ref = _ref_sharded("tet4nh", RefSharded, MIXED, 4)
     _close(a["u"], u_ref, 1e-7)
     assert [h["newton_iters"] for h in a["history"]] == [h.newton_iters for h in hist_ref]
-    for got, want in zip(_pcg(a["history"]), _pcg(hist_ref)):
-        assert len(got) == len(want) and all(abs(x - y) <= 1 for x, y in zip(got, want))
+    assert _pcg(a["history"]) == _pcg(hist_ref)
     _close(a["u"], _single("tet4nh", F64).u.numpy(), 1e-7)
+
+
+def _solve_jobs(runs):
+    """(label, every rank's value) of each solve job of the two groups."""
+    labels2, labels4 = ("tet4", "maxiter"), ("kuhn", "kuhn_generic", "mixed", "probe3", "probe6")
+    for labels, ranks in ((labels2, runs["ranks2"]), (labels4, runs["ranks4"])):
+        for j, label in enumerate(labels):
+            yield label, [rank[j] for rank in ranks]
+
+
+def test_sharded_fetches_follow_the_reference_contract(runs):
+    """Every rank of both groups runs the eager route (gloo) and fetches
+    once per Newton iteration (one per residual norm recorded), once per
+    further PCG chunk and once per restart, the reference's sharded loop's
+    contract (`jax.device_get` per program). The step of pcg_maxiter 7 in
+    chunks of 5 is a prepare and two chunks: three fetches."""
+    for label, ranks in _solve_jobs(runs):
+        for out in ranks:
+            assert out["route"] == "eager", label
+            if label == "maxiter":
+                assert out["launched"] == {"newton": 0, "chunk": 2, "restart": 1}
+                assert out["fetches"] == 3
+                continue
+            for r in out["runs"]:
+                n = r["launched"]
+                assert n["newton"] == sum(len(h["residual_norms"]) for h in r["history"])
+                assert r["fetches"] == n["newton"] + n["chunk"] + n["restart"] > 0, label
+
+
+def test_sharded_records_identical_on_every_rank(runs):
+    """Every rank holds the same increment records, fetches and programs
+    launched as rank 0 (their control flow is driven by the fixed-order
+    sums, bitwise the same on every rank)."""
+    def rank_view(out):
+        if "runs" not in out:  # the step job
+            return {k: out[k] for k in ("pcg_iters", "pcg_ok", "lin_rel", "norm0", "norm",
+                                        "fetches", "launched")}
+        return [([{k: v for k, v in h.items() if k != "wall_time"} for h in r["history"]],
+                 r["fetches"], r["launched"], r["converged"]) for r in out["runs"]]
+
+    for label, ranks in _solve_jobs(runs):
+        views = [rank_view(out) for out in ranks]
+        assert all(v == views[0] for v in views[1:]), label
+
+
+@pytest.mark.parametrize("case", ["tet4", "kuhn"])
+def test_one_shard_chunk_with_sharded_dot_is_the_local_dot(case):
+    """At one shard (LocalComm) a `DevicePCGChunk` over the rank's operator
+    with the rank's global dot (the ownership-weighted, fixed-order sum)
+    is bitwise the chunk with the single-process dot: the same x, r,
+    iterations and r.r."""
+    from fea_large_tpu_torch.solvers.linear import DevicePCGChunk
+
+    mesh, mat, bc = _case(case)[0]
+    cls = StructuredShardedSolver if case == "kuhn" else ShardedNewtonSolver
+    opts = SolverOptions(**dict(MIXED, agg_size=8))
+    s = cls(mesh, NeoHookean(1.0, 0.6), bc, options=opts)
+    u = s._impose(s.zero_u(), 0.5)
+    s._step_pcg(u, 0.5)  # freezes the tangent at u and forms the Jacobi blocks
+    matvec, precond = s._make_ops(s.coarse)
+    out = []
+    for dot in (s._dot, None):
+        chunk = DevicePCGChunk(matvec, precond, (s.part.n_owned, 3), torch.float32, "cpu",
+                               dot=dot)
+        chunk.start(s._cell.b, 1e-6)
+        st = chunk.run(200)
+        out.append((st.x.clone(), st.r.clone(), st.k, st.rr))
+    (x1, r1, k1, rr1), (x2, r2, k2, rr2) = out
+    assert k1 == k2 > 3 and rr1 == rr2
+    assert torch.equal(x1, x2) and torch.equal(r1, r2)
+
+
+def test_fallback_route_is_block_jacobi():
+    """The two-level -> Jacobi fallback route (a zero coarse inverse, made
+    at its first use) solves the Newton system as the block-Jacobi solver
+    does: the same iterations and x, on one shard; on the CPU neither
+    route is captured."""
+    mesh, mat, bc = _case("tet4nh")[0]
+    two = ShardedNewtonSolver(mesh, mat, bc, options=SolverOptions(**MIXED))
+    jac = ShardedNewtonSolver(mesh, mat, bc, options=SolverOptions(
+        **dict(MIXED, preconditioner="jacobi")))
+    assert "fallback" not in two._routes
+    got = []
+    for s, route in ((two, "fallback"), (jac, "main")):
+        s._cell.scale.fill_(1.0)
+        s._cell.u.copy_(s._impose(s.zero_u(), 1.0))
+        x, iters, ok, _ = s._drive(route, 1e-6)
+        got.append((x.clone(), iters, ok))
+    assert set(two._routes) == {"main", "fallback"}
+    assert got[0][1] == got[1][1] > 5 and got[0][2] and got[1][2]
+    assert torch.equal(got[0][0], got[1][0])
+    assert not any(c.captured for c in two._routes.values())
+    assert two.program_stats()["graph_nodes"] == {}
 
 
 @pytest.mark.parametrize("modes", [3, 6])
