@@ -300,9 +300,9 @@ HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 
 #: the JAX reference's n=4 runs (fea_large_tpu, resid_df=False,
-#: pallas=False, bench settings), measured on CPU: the host loop
-#: (device_loop=False) and the device loop (device_loop=True,
-#: `_mixed_solve_fn`, bench.py's route)
+#: pallas=False, bench settings), measured on CPU, where both packages
+#: store the coarse inverse in f32: the host loop (device_loop=False) and
+#: the device loop (device_loop=True, `_mixed_solve_fn`, bench.py's route)
 REFERENCE_N4 = {"newton_iters": 5, "pcg_iters": [5, 7, 15, 21, 14],
                 "residual0": 0.014014692693970307}
 REFERENCE_N4_DEVICE_LOOP = {"newton_iters": 5, "pcg_iters": [5, 7, 15, 21, 14],
@@ -311,9 +311,54 @@ REFERENCE_5TET_N4 = {"newton_iters": 5, "pcg_iters": [4, 4, 11, 15, 16],
                      "residual0": 0.014014692693970307}
 REFERENCE_5TET_N4_DEVICE_LOOP = {"newton_iters": 5, "pcg_iters": [4, 4, 11, 15, 16],
                                  "residual0": 0.014014692693970307}
+#: the same four runs with the reference's accelerator storage of the
+#: explicit coarse inverse (bf16: the reference's `_store_acinv`,
+#: fea_large_tpu/solvers/multilevel.py:584, patched to its bf16 branch),
+#: measured on CPU by
+#: tests/reference_bf16_lists.py: the card stores the inverse in bf16 as the
+#: reference's accelerator does (`multilevel._store_acinv`), so its n=4 runs
+#: are held to these
+REFERENCE_N4_BF16 = {"newton_iters": 5, "pcg_iters": [5, 7, 15, 21, 14],
+                     "residual0": 0.014014692693970307}
+REFERENCE_N4_DEVICE_LOOP_BF16 = {"newton_iters": 5, "pcg_iters": [5, 7, 15, 21, 14],
+                                 "residual0": 0.014014692693970307}
+REFERENCE_5TET_N4_BF16 = {"newton_iters": 5, "pcg_iters": [4, 4, 11, 15, 16],
+                          "residual0": 0.014014692693970307}
+REFERENCE_5TET_N4_DEVICE_LOOP_BF16 = {"newton_iters": 5, "pcg_iters": [4, 4, 11, 15, 16],
+                                      "residual0": 0.014014692693970307}
 #: the TPU's PCG list of bench.py's default route (BENCH_r05.json: the
-#: reference's device loop on a TPU v5e)
+#: reference's device loop on a TPU v5e, its inverse stored in bf16)
 TPU_PCG = [10, 8, 17, 28, 28]
+#: the storage of the explicit coarse inverses on the card: every
+#: two-level space (single device and sharded ranks) in bf16, the
+#: three-level level-2 inverse in f32 (the reference stores only the
+#: former in bf16); the stored apply `coarse_solve` against the f64
+#: product of the same bf16 inputs rounded once to bf16, relative to its
+#: largest entry (one bf16 rounding of another order's f32 sum)
+TWO_LEVEL_STORAGE = torch.bfloat16
+LEVEL2_STORAGE = torch.float32
+STORED_APPLY_BOUND = 2.0**-8
+#: the figures of this script's last run with every inverse stored in
+#: f32, printed beside this run's (NVIDIA H100 80GB HBM3, 700.00 W;
+#: PERF.md section 5): PCG list, s/step (device loop: median; 9a-9b: per
+#: solve; 9e: per solve on 4 cards), peak device memory (B; 9a-9b rank 0),
+#: the coarse gemv's ms (phase 6)
+F32_STORAGE = {
+    "kuhn": {"pcg_iters": [10, 8, 17, 28, 26], "s_per_step": 0.014675, "peak_bytes": 2056428544,
+             "gemv_ms": 0.0918},
+    "5tet": {"pcg_iters": [7, 6, 13, 18, 18], "s_per_step": 0.023921,
+             "peak_bytes": 13054352896, "gemv_ms": 0.5553},
+    "8a three_level": {"pcg_iters": [8, 8, 26, 33, 27], "s_per_step": 0.013915,
+                       "peak_bytes": 2607056384},
+    "8b two_level modes 12": {"pcg_iters": [3, 6, 17, 28, 28], "s_per_step": 0.017762,
+                              "peak_bytes": 3725524992},
+    "sharded kuhn": {"pcg_iters": [8, 10, 20, 24, 18], "s_per_step": [0.5774, 0.4437],
+                     "peak_bytes": 2646573056},
+    "sharded 5tet": {"pcg_iters": [7, 6, 13, 18, 17], "s_per_step": [0.4959, 0.3591],
+                     "peak_bytes": 10500409856},
+    "9e": {"pcg_iters": [8, 10, 20, 24, 18], "s_per_step": [0.01763, 0.01756],
+           "peak_bytes": [2646880768, 733988352, 733988352, 733988352]},
+}
 #: phases 3-4: timed solves of each loop (s/step: their median and range),
 #: u of the device loop against the host loop relative to max |u| (the
 #: reference's bound for its budget hand-over, tests/test_solvers.py), and
@@ -409,6 +454,20 @@ REFERENCE_SHARDED_TASKS = {
     "distributed_compression.json": [(5, [1, 4, 13, 30, 149]), (5, [1, 4, 13, 30, 153])],
     "distributed_compression_kuhn.json": [(5, [1, 3, 12, 24, 35]), (5, [1, 3, 11, 27, 39])],
 }
+#: the same with the reference's accelerator storage (bf16), measured on
+#: CPU by tests/reference_bf16_lists.py; and the storage the card's ranks
+#: choose: bf16, save on the Kuhn task, whose bf16 copy of the inverse is
+#: not positive definite (`multilevel._bf16_where_definite`; ROADMAP C1:
+#: the reference stores it in bf16 all the same and its CG stalls), so the
+#: card keeps f32 there. Each task is held to the reference's list of the
+#: storage its ranks chose.
+REFERENCE_SHARDED_TASKS_BF16 = {
+    "distributed_compression.json": [(5, [1, 4, 13, 30, 150]), (5, [1, 4, 13, 30, 180])],
+    "distributed_compression_kuhn.json": [(6, [1, 3, 5042, 400, 653, 11]),
+                                          (6, [1, 3, 5042, 404, 662, 11])],
+}
+SHARDED_TASK_STORAGE = {"distributed_compression.json": "bfloat16",
+                        "distributed_compression_kuhn.json": "float32"}
 #: the sharded paths' kernels (B1-B3 on a lattice, B6-B7 on a 5-tet box)
 SHARDED_KERNELS = {"kuhn": ("struct_freeze", "struct_apply", "struct_diag"),
                    "5tet": ("elem_apply", "elem_freeze")}
@@ -866,16 +925,22 @@ def phase_kernel_checks(device):
     print(f"phase 2: {time.perf_counter() - t0:.1f} s")
 
 
-def solve_n4(build, opts, reference, label, device):
+def solve_n4(build, opts, references, label, device):
+    """bench.py's settings on a box n=4 against the reference's run with
+    its accelerator storage, `references` (bf16 list, f32 list beside)."""
     label = f"{label} {'device' if opts.get('device_loop', True) else 'host'} loop"
     mesh = build(4, 4, 4, element_type="tet10", device=device)
     bc = bench_bc(mesh)
     solver = NewtonSolver(mesh, NeoHookean(1.0, 0.6), bc, options=SolverOptions(**opts))
     _, ok, rec = solver._newton(bench_start(mesh, bc), 1.0)
-    ref = reference
+    ref, ref32 = references
     print(f"{label} n=4: newton {rec.newton_iters} pcg {rec.pcg_iters} |R0| "
-          f"{rec.residual_norms[0]!r} (reference: newton {ref['newton_iters']} pcg "
-          f"{ref['pcg_iters']} |R0| {ref['residual0']!r})")
+          f"{rec.residual_norms[0]!r} (reference, inverse stored in bf16: newton "
+          f"{ref['newton_iters']} pcg {ref['pcg_iters']} |R0| {ref['residual0']!r}; PCG equal: "
+          f"{rec.pcg_iters == ref['pcg_iters']}; in f32: pcg {ref32['pcg_iters']}); coarse "
+          f"inverse stored {str(solver._coarse.acinv.dtype).removeprefix('torch.')}")
+    check(solver._coarse.acinv.dtype == TWO_LEVEL_STORAGE,
+          f"{label} n=4: the coarse inverse is stored in {TWO_LEVEL_STORAGE}")
     check(ok and rec.newton_iters == ref["newton_iters"], f"{label} n=4 Newton count")
     check(len(rec.pcg_iters) == len(ref["pcg_iters"])
           and all(abs(a - b) <= 1 for a, b in zip(rec.pcg_iters, ref["pcg_iters"])),
@@ -930,6 +995,52 @@ def timed_solves(label, run, reps):
     return runs
 
 
+def coarse_storage(label, acinv, want):
+    """The storage of an explicit coarse inverse on the card: its dtype
+    (checked against `want`), dim and bytes, printed and returned."""
+    nbytes = acinv.numel() * acinv.element_size()
+    dtype = str(acinv.dtype).removeprefix("torch.")
+    print(f"  {label} coarse inverse: stored {dtype}, dim {acinv.shape[0]}, {nbytes} B "
+          f"({nbytes / 2**20:.1f} MiB)")
+    check(acinv.dtype == want, f"{label}: the coarse inverse is stored in {want}")
+    return {"dtype": dtype, "dim": acinv.shape[0], "bytes": nbytes}
+
+
+def stored_apply(label, coarse):
+    """`coarse_solve` on the card with the stored inverse against the f64
+    product of the same inputs (the stored inverse, rc rounded to its
+    dtype) rounded once to that dtype: within STORED_APPLY_BOUND of the
+    largest entry, rc's dtype kept, and a repeat bitwise equal (cuBLAS's
+    product is deterministic on one stream). Returns (relative error,
+    entries that differ from the once-rounded product)."""
+    g = torch.Generator(device=coarse.acinv.device).manual_seed(0)
+    rc = torch.randn((coarse.n_agg, coarse.modes), generator=g, device=coarse.acinv.device)
+    got = coarse.coarse_solve(rc)
+    again = coarse.coarse_solve(rc)
+    stored = coarse.acinv.dtype
+    exact = (coarse.acinv.double() @ rc.reshape(-1).to(stored).double()).to(stored).float()
+    diff = (got.reshape(-1) - exact).abs()
+    err = float(diff.max() / exact.abs().max())
+    flips = int((diff > 0).sum())
+    print(f"  {label} stored apply ({str(stored).removeprefix('torch.')} x {rc.shape[0]}x"
+          f"{rc.shape[1]}): against the f64 product rounded once, {err:.3e} of max |x| (bound "
+          f"{STORED_APPLY_BOUND:.4g}), {flips} of {exact.numel()} entries differ; repeat "
+          f"bitwise: {torch.equal(got, again)}")
+    check(got.dtype == rc.dtype and got.shape == rc.shape, f"{label}: the apply keeps rc's dtype")
+    check(err <= STORED_APPLY_BOUND, f"{label}: the stored apply rounds once to its dtype")
+    check(torch.equal(got, again), f"{label}: the stored apply is bitwise repeatable")
+    return err, flips
+
+
+def beside_f32(label, pcg, s_per_step, peak):
+    """One line: this run's PCG list, s/step and peak device memory beside
+    those with the inverse stored in f32 (F32_STORAGE)."""
+    old = F32_STORAGE[label]
+    print(f"  {label}, inverse stored as above, beside f32 storage: PCG {pcg} (f32 "
+          f"{old['pcg_iters']}), s/step {s_per_step} (f32 {old['s_per_step']}), peak "
+          f"{peak} B (f32 {old['peak_bytes']})")
+
+
 def full_width(label, build, opts, keys, device, card):
     """bench.py's default route at full width: setup, then the device loop
     (the first solve captures its graphs; then LOOP_REPS timed solves), then
@@ -962,6 +1073,8 @@ def full_width(label, build, opts, keys, device, card):
     print(f"{label} n={n}: {mesh.n_nodes} nodes, {mesh.n_elements} tets, {mesh.n_dof} DOF; "
           f"mesh {t_mesh:.2f} s, solver setup {t_setup:.2f} s "
           f"(coarse: {solver._coarse.n_agg} aggregates, dim {solver._coarse.acinv.shape[0]})")
+    storage = coarse_storage(label, solver._coarse.acinv, TWO_LEVEL_STORAGE)
+    storage["apply_rel_err"], storage["apply_entries_off"] = stored_apply(label, solver._coarse)
     # the device loop: the first solve builds and captures it
     setup_peak, held = torch.cuda.max_memory_allocated(), torch.cuda.memory_allocated()
     t2 = time.perf_counter()
@@ -1038,6 +1151,7 @@ def full_width(label, build, opts, keys, device, card):
     check(red_cpu <= 1e-6, "host-recomputed residual reduction <= 1e-6")
     dsteps = [dt / r.newton_iters for _, r, dt in dev_runs]
     hsteps = [dt / r.newton_iters for _, r, dt in host_runs]
+    beside_f32(label, recd.pcg_iters, statistics.median(dsteps), peak)
     summary = {
         "path": label, "n_dof": mesh.n_dof, "newton_iters": recd.newton_iters,
         "pcg_iters": recd.pcg_iters, "pcg_iters_host_loop": rech.pcg_iters,
@@ -1051,7 +1165,7 @@ def full_width(label, build, opts, keys, device, card):
         "body_runs_per_solve": runs, "setup_s": t_setup, "peak_bytes": peak,
         "setup_peak_bytes": setup_peak, "device_loop_bytes": held,
         "launches": launches, "setup_launches": in_setup, "host_loop_launches": host_launches,
-        "card": card,
+        "coarse": storage, "card": card,
     }
     if label == "kuhn":
         summary["pcg_iters_tpu"] = TPU_PCG
@@ -1190,11 +1304,14 @@ def entry_on_card(device, card):
 def phase_kuhn(device, card):
     print(f"== phase 3: Kuhn path ({card})")
     t0 = time.perf_counter()
-    solve_n4(box_mesh_kuhn, dict(BENCH, resid_df=False, **HOST_LOOP), REFERENCE_N4,
+    solve_n4(box_mesh_kuhn, dict(BENCH, resid_df=False, **HOST_LOOP),
+             (REFERENCE_N4_BF16, REFERENCE_N4),
              "kuhn resid_df=False", device)
-    solve_n4(box_mesh_kuhn, dict(BENCH, resid_df=False), REFERENCE_N4_DEVICE_LOOP,
+    solve_n4(box_mesh_kuhn, dict(BENCH, resid_df=False),
+             (REFERENCE_N4_DEVICE_LOOP_BF16, REFERENCE_N4_DEVICE_LOOP),
              "kuhn resid_df=False", device)
-    solver = solve_n4(box_mesh_kuhn, KUHN, REFERENCE_N4_DEVICE_LOOP, "kuhn resid_df=None", device)
+    solver = solve_n4(box_mesh_kuhn, KUHN, (REFERENCE_N4_DEVICE_LOOP_BF16, REFERENCE_N4_DEVICE_LOOP),
+                      "kuhn resid_df=None", device)
     check(solver._resid_df, "resid_df=None routes the fused residual on the card")
     keys = [k for k in KERNELS if k.startswith("struct_")]
     out = full_width("kuhn", box_mesh_kuhn, KUHN, keys, device, card)
@@ -1207,12 +1324,15 @@ def phase_kuhn(device, card):
 def phase_5tet(device, card):
     print(f"== phase 4: 5-tet path ({card})")
     t0 = time.perf_counter()
-    solve_n4(box_mesh, dict(FIVE_TET, resid_df=False, **HOST_LOOP), REFERENCE_5TET_N4,
+    solve_n4(box_mesh, dict(FIVE_TET, resid_df=False, **HOST_LOOP),
+             (REFERENCE_5TET_N4_BF16, REFERENCE_5TET_N4),
              "5tet resid_df=False", device)
-    solve_n4(box_mesh, dict(FIVE_TET, resid_df=False), REFERENCE_5TET_N4_DEVICE_LOOP,
+    solve_n4(box_mesh, dict(FIVE_TET, resid_df=False),
+             (REFERENCE_5TET_N4_DEVICE_LOOP_BF16, REFERENCE_5TET_N4_DEVICE_LOOP),
              "5tet resid_df=False", device)
-    solver = solve_n4(box_mesh, FIVE_TET, REFERENCE_5TET_N4_DEVICE_LOOP, "5tet resid_df=None",
-                      device)
+    solver = solve_n4(box_mesh, FIVE_TET,
+                      (REFERENCE_5TET_N4_DEVICE_LOOP_BF16, REFERENCE_5TET_N4_DEVICE_LOOP),
+                      "5tet resid_df=None", device)
     check(solver._resid_df, "resid_df=None routes the fused residual B9 on the card")
     keys = [k for k in KERNELS if k.startswith("elem_")]
     out = full_width("5tet", box_mesh, FIVE_TET, keys, device, card)
@@ -1518,13 +1638,18 @@ def cg_iteration_split(solver, matvec, precond, iteration_ms, label):
     r = st.pcg.r.clone()
     rc = coarse.restrict(r)
     xc = coarse.coarse_solve(rc)
+    # an f32 copy of the stored inverse, made here only: the product the
+    # port ran before the bf16 storage, timed beside it
+    acinv32, rc32 = coarse.acinv.float(), rc.reshape(-1).clone()
+    dim, stored = coarse.acinv.shape[0], str(coarse.acinv.dtype).removeprefix("torch.")
     pieces = {
         "masked matvec": lambda: matvec(st.pcg.p),
         "preconditioner": lambda: precond(r),
         "block-Jacobi": lambda: apply_block_jacobi(st.inv_blocks, free32, r),
         "coarse apply": lambda: coarse.apply(r),
         "coarse restrict": lambda: coarse.restrict(r),
-        f"coarse gemv ({coarse.acinv.shape[0]}^2)": lambda: coarse.coarse_solve(rc),
+        f"coarse gemv ({dim}^2, {stored})": lambda: coarse.coarse_solve(rc),
+        f"coarse gemv ({dim}^2, f32 copy)": lambda: acinv32 @ rc32,
         "coarse prolong": lambda: coarse.prolong(xc),
     }
     out = {name: graph_ms(fn) for name, fn in pieces.items()}
@@ -1535,10 +1660,15 @@ def cg_iteration_split(solver, matvec, precond, iteration_ms, label):
     out["iteration less cg step (derived)"] = iteration_ms - out["cg step"]
     out["dots, axpys, flags (derived)"] = (out["cg step"] - out["masked matvec"]
                                            - out["preconditioner"])
-    gemv_bytes = coarse.acinv.numel() * coarse.acinv.element_size()
+    del acinv32
     print(f"  {label} replayed PCG iteration {iteration_ms:.4f} ms, its pieces each captured "
-          f"alone (ms): " + ", ".join(f"{k} {v:.4f}" for k, v in out.items())
-          + f"; the gemv's bytes bound {1e3 * gemv_bytes / HBM_BYTES_S:.4f} ms")
+          f"alone (ms): " + ", ".join(f"{k} {v:.4f}" for k, v in out.items()))
+    for what, dtype in ((stored, coarse.acinv.dtype), ("f32 copy", torch.float32)):
+        bound_ms = 1e3 * dim * dim * dtype.itemsize / HBM_BYTES_S  # the inverse, read once
+        ms = out[f"coarse gemv ({dim}^2, {what})"]
+        out[f"coarse gemv bound ({what})"] = bound_ms
+        print(f"  {label} coarse gemv, inverse {what}: {ms:.4f} ms against its bytes bound "
+              f"{bound_ms:.4f} ms ({100 * bound_ms / ms:.0f}% of bound)")
     return out
 
 
@@ -2024,19 +2154,33 @@ def host_builders_phase8(solver, k0):
           f"host (K0 reused); probed Ac vs host Ac: max |diff| {diff:.3e} = {diff / scale:.3e} of "
           f"max |Ac| (bound {HOST_AC_BOUND})")
     check(diff <= HOST_AC_BOUND * scale, "the probed coarse matrix matches the host Galerkin product")
-    spaces = {}
-    for route in ("device", "host"):
-        if route == "host":
-            os.environ["FEA_COARSE_INVERT"] = "host"
-        try:
-            t0 = time.perf_counter()
-            spaces[route] = ml.build_coarse_space(mesh, mat, bc, modes=6, soa=solver._soa)
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
-        finally:
-            os.environ.pop("FEA_COARSE_INVERT", None)
-        check(spaces[route].setup["invert"] == route, f"the {route} inverse route was taken")
-        print(f"  build_coarse_space, inverse on the {route}: {dt:.2f} s ({spaces[route].setup})")
+    spaces, inverses = {}, {}
+    store = ml._store_acinv
+
+    def keep_inverse(acinv, dtype):  # each route's f32 inverse, before its storage
+        inverses[route] = acinv
+        return store(acinv, dtype)
+
+    ml._store_acinv = keep_inverse
+    try:
+        for route in ("device", "host"):
+            if route == "host":
+                os.environ["FEA_COARSE_INVERT"] = "host"
+            try:
+                t0 = time.perf_counter()
+                spaces[route] = ml.build_coarse_space(mesh, mat, bc, modes=6, soa=solver._soa)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+            finally:
+                os.environ.pop("FEA_COARSE_INVERT", None)
+            check(spaces[route].setup["invert"] == route, f"the {route} inverse route was taken")
+            print(f"  build_coarse_space, inverse on the {route}: {dt:.2f} s "
+                  f"({spaces[route].setup})")
+            coarse_storage(f"8c {route} route", spaces[route].acinv, TWO_LEVEL_STORAGE)
+            check(torch.equal(spaces[route].acinv, store(inverses[route], torch.float32)),
+                  f"8c: the {route} route stores its f32 inverse by the storage rule")
+    finally:
+        ml._store_acinv = store
     # the f64 inverse of the same ridged Ac: how far each f32 route is from it
     A64 = torch.as_tensor(Ac, dtype=torch.float64, device=dev)
     d64 = torch.diagonal(A64)
@@ -2044,7 +2188,7 @@ def host_builders_phase8(solver, k0):
     eig = torch.linalg.eigvalsh(A64)
     inv64 = torch.cholesky_inverse(torch.linalg.cholesky(A64))
     inv_scale = float(inv64.abs().max())
-    a, b = spaces["host"].acinv, spaces["device"].acinv
+    a, b = inverses["host"], inverses["device"]
     err = float((a - b).abs().max()) / inv_scale
     err_host = float((a.double() - inv64).abs().max()) / inv_scale
     err_dev = float((b.double() - inv64).abs().max()) / inv_scale
@@ -2219,7 +2363,10 @@ def phase_more(device, card, kuhn_pcg):
     finally:
         ml._host_k0_csr = build_k0
     sp = solver._coarse
-    three.update(n_agg1=sp.n_agg1, n_agg2=sp.n_agg2, level2_dim=sp.ac2inv.shape[0])
+    three.update(n_agg1=sp.n_agg1, n_agg2=sp.n_agg2, level2_dim=sp.ac2inv.shape[0],
+                 coarse=coarse_storage("8a three-level, level 2", sp.ac2inv, LEVEL2_STORAGE))
+    beside_f32("8a three_level", three["pcg_iters"], three["device_loop"]["s_per_step"],
+                three["peak_bytes"])
     print(f"  levels: n1 = {sp.n_agg1} aggregates, n2 = {sp.n_agg2}, level-2 dim "
           f"{sp.ac2inv.shape[0]}; Newton {three['newton_iters']}, PCG {three['pcg_iters']} "
           f"(phase 3, two-level modes 6: PCG {kuhn_pcg})")
@@ -2229,7 +2376,10 @@ def phase_more(device, card, kuhn_pcg):
     del solver, sp
     torch.cuda.empty_cache()
     solver, twelve = mixed_phase8("8b two_level modes 12", mesh, bc, TWELVE_MODES, mesh_cpu, card)
-    twelve.update(n_agg=solver._coarse.n_agg, coarse_dim=solver._coarse.acinv.shape[0])
+    twelve.update(n_agg=solver._coarse.n_agg, coarse_dim=solver._coarse.acinv.shape[0],
+                  coarse=coarse_storage("8b modes 12", solver._coarse.acinv, TWO_LEVEL_STORAGE))
+    beside_f32("8b two_level modes 12", twelve["pcg_iters"], twelve["device_loop"]["s_per_step"],
+                twelve["peak_bytes"])
     print(f"  coarse: {solver._coarse.n_agg} aggregates, dim {solver._coarse.acinv.shape[0]}, "
           f"probing {twelve['setup']['device_s']:.2f} s on the card; PCG {twelve['pcg_iters']} "
           f"(phase 3, modes 6: {kuhn_pcg})")
@@ -2359,6 +2509,13 @@ def sharded_check(label, job, run, single, card):
     rec = a["history"][0]
     print(f"  {label} sharded: {out['kind']}, setup {out['setup_s']:.2f} s (rank 0), coarse "
           f"{out['n_agg']} aggregates")
+    inverses = [r[job]["coarse_inverse"] for r in run.results]
+    print(f"  {label} sharded coarse inverse on every rank: {inverses}, replicated "
+          f"{out['memory']['static_coarse_replicated']} B a rank")
+    check(all(c == {"dtype": "bfloat16", "dim": inverses[0]["dim"]} for c in inverses),
+          f"9 {label}: every rank stores the coarse inverse in bf16")
+    check(out["memory"]["static_coarse_replicated"] == 2 * inverses[0]["dim"] ** 2,
+          f"9 {label}: the memory report counts the bf16 inverse's bytes")
     for i, r in enumerate((a, b)):
         h = r["history"][0]
         print(f"  {label} sharded solve {i}: {r['solve_s']:.3f} s, newton {h['newton_iters']}, "
@@ -2400,8 +2557,10 @@ def sharded_check(label, job, run, single, card):
                           "s_per_step": solve1 / rec1.newton_iters},
         "collective_s": coll, "collective_calls": calls, "peak_bytes_rank0": out["peak_bytes"],
         "peak_bytes_per_rank_9ab": run.peak_bytes, "launches": launches,
-        "launches_per_rank": per_rank, "programs": programs, "card": card,
+        "launches_per_rank": per_rank, "programs": programs, "coarse": inverses[0],
+        "card": card,
     }
+    beside_f32(f"sharded {label}", rec["pcg_iters"], summary["s_per_step"], out["peak_bytes"])
     print("slice: " + json.dumps(summary))
     return launches, a["u"]
 
@@ -2496,7 +2655,7 @@ def sharded_tasks_and_tools(device, card):
     from fea_large_tpu_torch.dist.launch import Problem, run_jobs, run_sharded, solve_rank
 
     jobs = []
-    for name in REFERENCE_SHARDED_TASKS:
+    for name in REFERENCE_SHARDED_TASKS_BF16:
         task = load_task(REPO / "tasks" / name, device="cpu")
         check(task.partition.n_shards == 8, f"{name} asks for 8 shards")
         jobs.append((solve_rank, dict(
@@ -2506,12 +2665,19 @@ def sharded_tasks_and_tools(device, card):
     run = run_sharded(run_jobs, [str(device)] * 8, jobs)
     print(f"  9d: the two task files on 8 ranks ({run.backend}): "
           f"{group_seconds(run, time.perf_counter() - t0)}")
-    for (name, ref), res in zip(REFERENCE_SHARDED_TASKS.items(), run.result):
+    for name, res in zip(REFERENCE_SHARDED_TASKS_BF16, run.result):
         r = res["runs"][0]
         got = [(h["newton_iters"], h["pcg_iters"]) for h in r["history"]]
+        stored = res["coarse_inverse"]["dtype"]
+        ref = (REFERENCE_SHARDED_TASKS_BF16 if stored == "bfloat16"
+               else REFERENCE_SHARDED_TASKS)[name]
         print(f"  {name}: {res['kind']}, setup {res['setup_s']:.2f} s, converged "
-              f"{r['converged']}, {r['solve_s']:.2f} s, "
-              f"(newton, pcg) per increment {got}; reference {ref}")
+              f"{r['converged']}, {r['solve_s']:.2f} s, coarse inverse {res['coarse_inverse']}, "
+              f"(newton, pcg) per increment {got}; reference, inverse stored in {stored} {ref} "
+              f"(PCG equal: {[g[1] for g in got] == [x[1] for x in ref]}; stored in bf16 "
+              f"{REFERENCE_SHARDED_TASKS_BF16[name]}, in f32 {REFERENCE_SHARDED_TASKS[name]})")
+        check(stored == SHARDED_TASK_STORAGE[name],
+              f"9d {name}: the coarse inverse is stored in {SHARDED_TASK_STORAGE[name]}")
         check(r["converged"] and [g[0] for g in got] == [x[0] for x in ref],
               f"9d {name}: the reference's Newton counts")
     check(run.result[1]["kind"] == "StructuredShardedSolver"
@@ -2568,6 +2734,8 @@ def sharded_nccl(card, gloo_u):
     a, b = out["runs"]
     h = a["history"][0]
     check(run.backend == "nccl", "9e runs on NCCL")
+    check(all(r["coarse_inverse"]["dtype"] == "bfloat16" for r in run.results),
+          "9e: every rank stores the coarse inverse in bf16")
     programs = sharded_programs("9e", run.results, "captured")
     diff = float(np.abs(a["u"] - gloo_u).max())
     print(f"  9e: {SHARDED_RANKS} ranks ({run.backend}), one per card, captured: setup "
@@ -2577,10 +2745,13 @@ def sharded_nccl(card, gloo_u):
           f"{run.peak_bytes} B; max |u - u(gloo)| {diff:.3e}")
     check(np.array_equal(a["u"], gloo_u) and np.array_equal(a["u"], b["u"]),
           "9e: NCCL bitwise equal to the gloo run")
+    beside_f32("9e", h["pcg_iters"], [r["solve_s"] / h["newton_iters"] for r in (a, b)],
+                run.peak_bytes)
     return {"backend": run.backend, "setup_s": out["setup_s"],
             "solve_s": [a["solve_s"], b["solve_s"]], "pcg_iters": h["pcg_iters"],
             "s_per_step": [r["solve_s"] / h["newton_iters"] for r in (a, b)],
-            "peak_bytes": run.peak_bytes, "programs": programs}
+            "peak_bytes": run.peak_bytes, "programs": programs,
+            "coarse": out["coarse_inverse"]}
 
 
 def one_rank_solver(cls, mesh, bc, opts, eager):
@@ -2685,6 +2856,7 @@ def sharded_one_rank(device, card, singles):
         torch.cuda.reset_peak_memory_stats()
         solver, setup_s = one_rank_solver(cls, mesh, bc, opts, False)
         check(solver.captured, f"9f {label}: one rank on the card takes the captured route")
+        storage = coarse_storage(f"9f {label} one rank", solver.coarse.acinv, TWO_LEVEL_STORAGE)
         u1, hist1, dt1 = one_rank_solve(f"9f {label} captured", solver)
         u2, hist2, dt2 = one_rank_solve(f"9f {label} captured", solver)
         peak = torch.cuda.max_memory_allocated()
@@ -2733,7 +2905,7 @@ def sharded_one_rank(device, card, singles):
                       "capture_s": stats["capture_s"], "graph_nodes": stats["graph_nodes"],
                       "precond_fallbacks": fallbacks, "peak_bytes": peak,
                       "launches": launches[label], "replayed": replayed,
-                      "increment": increment}
+                      "increment": increment, "coarse": storage}
         del mesh, bc
         gc.collect()
         torch.cuda.empty_cache()

@@ -1,11 +1,15 @@
 """Numeric configuration of the PyTorch port.
 
 The mixed-precision path computes residuals in f64 and the tangent, its
-preconditioners and PCG in f32. Two dense f32 products sit on that path:
-the Gram product that forms the explicit coarse inverse and the coarse
-apply `acinv @ rc` (solvers/multilevel.py). Both must run in full f32, so
-TF32 is switched off explicitly for matrix products and convolutions
-instead of relying on PyTorch's defaults.
+preconditioners and PCG in f32. Two dense products sit on that path: the
+Gram product that forms the explicit coarse inverse, which must run in
+full f32, so TF32 is switched off explicitly for matrix products and
+convolutions instead of relying on PyTorch's defaults; and the coarse
+apply `acinv @ rc` (solvers/multilevel.py), which on the card reads the
+inverse stored in bf16 (`multilevel._store_acinv`, the reference's
+accelerator storage). Its products must accumulate in f32 and round the
+result to bf16 once, as the reference's bf16 dot does, so cuBLAS's
+reduced-precision reduction is switched off too.
 
 There is no global device: every builder takes a `device` argument, and
 tensors carry it from there. The command-line entry point (cli.py) runs on
@@ -21,6 +25,7 @@ import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 #: dtype of residuals, coordinates and the converged displacement (the
 #: frozen tangent, its preconditioners and PCG are float32).

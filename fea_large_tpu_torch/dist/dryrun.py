@@ -145,6 +145,8 @@ def _report_large(out, mesh, n_devices, t_build) -> list:
     rep = out["memory"]
     target_owned = 10_000_000 / 3 / 8
     f = target_owned / max(rep["owned_nodes"], 1)
+    # the inverse's bytes as stored (bf16 on a card, f32 on the CPU), the
+    # same on every shard at any scale
     repl = rep["static_coarse_replicated"]
     total_10m = (rep["total_per_shard"] - repl) * f + repl
     print(

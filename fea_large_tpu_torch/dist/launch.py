@@ -234,8 +234,9 @@ def solve_rank(comm: Comm, problem: Problem, options, partition_method: str = "s
     collectives' seconds and counts, the host fetches and the programs
     launched (Newton iterations, further chunks, restarts: one fetch
     each), this rank's peak device memory (bytes; 0 on the CPU), its
-    route ("captured" or "eager"), and per chunk route its programs' graph
-    nodes and capture seconds; with `probe_coarse`, also the probed coarse
+    route ("captured" or "eager"), per chunk route its programs' graph
+    nodes and capture seconds, and the coarse inverse's storage dtype and
+    dim (None without a coarse space); with `probe_coarse`, also the probed coarse
     matrix (`probe_coarse_matrix`) and its aggregation. Every rank returns
     the same but u."""
     cuda = comm.device.type == "cuda"
@@ -275,7 +276,10 @@ def solve_rank(comm: Comm, problem: Problem, options, partition_method: str = "s
            "precond_fallbacks": solver.precond_fallbacks, "backend": comm.backend,
            "peak_bytes": torch.cuda.max_memory_allocated(comm.device) if cuda else 0,
            "route": stats["route"], "graph_nodes": stats["graph_nodes"],
-           "capture_s": stats["capture_s"]}
+           "capture_s": stats["capture_s"],
+           "coarse_inverse": None if solver.coarse is None else {
+               "dtype": str(solver.coarse.acinv.dtype).removeprefix("torch."),
+               "dim": solver.coarse.acinv.shape[0]}}
     if probe_coarse:
         ctx = solver._probe_ctx
         out.update(coarse_matrix=solver.probe_coarse_matrix().cpu().numpy(), agg=ctx["agg"],

@@ -152,7 +152,7 @@ class ShardedCoarse:
     transfer: object
     valid: torch.Tensor  # [n] 1 on the nodes this shard restricts (owned)
     dvec: torch.Tensor | None  # [n, 3] normalized rotational arm (modes 6)
-    acinv: torch.Tensor  # [modes*Nc, modes*Nc]
+    acinv: torch.Tensor  # [modes*Nc, modes*Nc], stored as `multilevel._store_acinv` says
     n_agg: int
     modes: int
 
@@ -756,22 +756,36 @@ class ShardedNewtonSolver:
 
     def _run_coarse_probe(self):
         """Probe the coarse operator (every rank), then on rank 0 assemble
-        the dense Ac, ridge, factor and invert it, and send the inverse to
-        the other ranks: every rank applies the same bits. Frees the probe
-        tables."""
+        the dense Ac, ridge, factor and invert it, store it by the
+        single-device rule (`multilevel._store_acinv`: bf16 on the card
+        where that copy stays positive definite), and send the f32 inverse
+        and that choice to the other ranks, which round it the same way:
+        gloo never sends bf16, and every rank applies the same bits. Frees
+        the probe tables."""
         if self.coarse is None:
             return
-        from fea_large_tpu_torch.solvers.multilevel import _invert_factor, _ridge_and_factor
+        from fea_large_tpu_torch.solvers.multilevel import (
+            _invert_factor,
+            _ridge_and_factor,
+            _store_acinv,
+        )
 
         ctx = self._probe_ctx
         pdt = self._pcg_dtype
         Z = self._probe_sweep(ctx["tables"], ctx["cm"])
-        acinv = None
+        acinv = stored = bf16 = None
         if self.comm.rank == 0:
             acinv = _invert_factor(_ridge_and_factor(self._assemble_coarse(Z, ctx, pdt)))
+            stored = _store_acinv(acinv, pdt)
+            bf16 = torch.tensor([int(stored.dtype == torch.bfloat16)], dtype=torch.int32,
+                                device=self.comm.device)
         nc = ctx["nc"]
         acinv = self.comm.broadcast(acinv, (nc, nc), pdt)
-        self.coarse = dataclasses.replace(self.coarse, acinv=acinv)
+        bf16 = bool(self.comm.broadcast(bf16, (1,), torch.int32))
+        if stored is None:
+            stored = acinv.to(torch.bfloat16) if bf16 else acinv
+        del acinv
+        self.coarse = dataclasses.replace(self.coarse, acinv=stored)
         self._probe_ctx = {k: v for k, v in ctx.items() if k in ("agg", "dvec", "modes")}
 
     def _probe_tables(self, agg, color, Bn):

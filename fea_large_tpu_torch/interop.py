@@ -103,18 +103,22 @@ def coarse_space_from_numpy(agg, dvec, acinv, modes, device="cuda"):
     normalized arms dvec [N, 3] (modes 6 and 12; None for 3) and the
     explicit inverse acinv [modes*Nc, modes*Nc], with the aggregate
     transfer of an unstructured mesh (`AggregateTransfer`: on a lattice
-    the same sums as its pooled transfer, in another order)."""
-    from fea_large_tpu_torch.solvers.multilevel import AggregateTransfer, CoarseSpace
+    the same sums as its pooled transfer, in another order). The inverse
+    is taken as it comes, f32 or bf16 (numpy's `ml_dtypes.bfloat16`, which
+    f32 holds exactly), and stored on `device` by the port's rule
+    (`multilevel._store_acinv`)."""
+    from fea_large_tpu_torch.solvers import multilevel as ml
 
     dev = as_device(device)
     agg = np.asarray(agg).astype(np.int64)
     d = None if dvec is None else np.asarray(dvec, np.float32)
-    return CoarseSpace(
-        acinv=torch.tensor(np.asarray(acinv), dtype=torch.float32, device=dev),
+    inv = torch.tensor(np.asarray(acinv).astype(np.float32), device=dev)
+    return ml.CoarseSpace(
+        acinv=ml._store_acinv(inv, torch.float32),
         dvec=None if d is None else torch.tensor(d, device=dev),
         n_agg=int(agg.max()) + 1,
         modes=int(modes),
-        pool=AggregateTransfer.build(agg, dev),
+        pool=ml.AggregateTransfer.build(agg, dev),
         dvec_T=None if d is None else torch.tensor(np.ascontiguousarray(d.T), device=dev),
     )
 

@@ -21,7 +21,9 @@
     Cholesky-factored and inverted explicitly (symmetric) once, on the
     mesh's device, or on the host (`_host_invert_coarse`: where the device
     build runs out of memory, or FEA_COARSE_INVERT=host); every apply is
-    one dense f32 matvec.
+    one dense matvec. On the card the inverse is stored in bf16, as the
+    reference stores it on its accelerator (`_store_acinv`); on the CPU it
+    stays f32.
 
 The three-level space (`build_multilevel_space`) adds a large middle level
 solved by its 3x3 block diagonal, telescoped onto a small dense level:
@@ -70,7 +72,8 @@ class _SetupClock:
 class CoarseSpace:
     """Aggregation transfer + explicit coarse inverse.
 
-    acinv  f32[modes*Nc, modes*Nc] symmetric explicit inverse of Ac
+    acinv  [modes*Nc, modes*Nc] symmetric explicit inverse of Ac, bf16 on
+           the card and f32 on the CPU (`_store_acinv`)
     dvec   f32[N, 3] normalized arm (modes 6 and 12), else None
     dvec_T f32[3, N] the same, component-first (`apply_T`)
     pool   the transfer: a `LatticePool` on Kuhn lattices, an
@@ -113,7 +116,9 @@ class CoarseSpace:
         return za
 
     def coarse_solve(self, rc: torch.Tensor) -> torch.Tensor:
-        """Ac^-1 rc as one dense matvec with the explicit inverse."""
+        """Ac^-1 rc as one dense matvec with the explicit inverse, in its
+        storage dtype: rc rounded to it, the product accumulated in f32 and
+        rounded to it once (config.py), the result cast back to rc's dtype."""
         x = self.acinv @ rc.reshape(-1).to(self.acinv.dtype)
         return x.reshape(rc.shape).to(rc.dtype)
 
@@ -578,6 +583,37 @@ def _device_invert(Ac: torch.Tensor, clock: _SetupClock):
                 "host after device out of memory")
 
 
+def _store_acinv(acinv: torch.Tensor, dtype) -> torch.Tensor:
+    """The explicit coarse inverse in its storage dtype: bf16 where it is
+    f32, the PCG's `dtype` is f32 and it lives on the card (unless its bf16
+    copy is not positive definite: `_bf16_where_definite`), else unchanged
+    (the CPU and the f64 path keep full precision), the reference's rule
+    for its accelerator (`fea_large_tpu/solvers/multilevel.py:584`). Every
+    CG iteration streams the inverse once, so its bytes bound the apply;
+    bf16 rounding (~4e-3 relative, symmetry kept entry by entry) changes
+    the preconditioner M, never the CG fixed point."""
+    if acinv.dtype == torch.float32 and dtype == torch.float32 and acinv.device.type == "cuda":
+        return _bf16_where_definite(acinv)
+    return acinv
+
+
+def _bf16_where_definite(acinv: torch.Tensor) -> torch.Tensor:
+    """acinv rounded to bf16 where the rounded copy is still positive
+    definite (its f32 Cholesky succeeds), else acinv as it is, with one
+    line on stderr. Where the coarse operator is ill-conditioned, the
+    rounding can exceed the inverse's smallest eigenvalue and make M
+    indefinite, and CG stalls: on tasks/distributed_compression_kuhn.json
+    (dim 432, condition 8.2e3) the bf16 copy has 6 negative eigenvalues,
+    and the reference, which stores it all the same, runs pcg_maxiter
+    (5,000) CG iterations and the block-Jacobi fallback in a Newton step."""
+    stored = acinv.to(torch.bfloat16)
+    if int(torch.linalg.cholesky_ex(stored.float()).info) == 0:
+        return stored
+    print(f"[setup] coarse inverse: its bf16 copy is not positive definite at dim "
+          f"{acinv.shape[0]}; stored in f32", file=sys.stderr, flush=True)
+    return acinv
+
+
 def build_coarse_space(mesh, material, bc, agg_size: int | None = None,
                        modes: int = 3, soa=None) -> CoarseSpace:
     """Assemble and invert the coarse operator at the reference state u=0,
@@ -588,7 +624,8 @@ def build_coarse_space(mesh, material, bc, agg_size: int | None = None,
     builder's). Aggregates: `agg_size` nodes each, or the default target
     of 5,000, 2,500 or 1,250 aggregates for 3, 6 or 12 modes (the dense
     factor's size held at ~15k), scaled as in `default_agg_size`.
-    FEA_COARSE_INVERT=host builds the inverse on the host."""
+    FEA_COARSE_INVERT=host builds the inverse on the host. Every route
+    stores the inverse by `_store_acinv`."""
     if modes not in (3, 6, 12):
         raise ValueError(f"coarse modes must be 3, 6 or 12, got {modes}")
     if modes == 12 and soa is None:
@@ -656,7 +693,7 @@ def build_coarse_space(mesh, material, bc, agg_size: int | None = None,
         route = "device"
     clock.lap("device_s")
     return CoarseSpace(
-        acinv=acinv,
+        acinv=_store_acinv(acinv, torch.float32),
         dvec=None if dvec_np is None else torch.as_tensor(dvec_np, dtype=torch.float32, device=dev),
         n_agg=n_agg,
         modes=modes,
@@ -680,7 +717,8 @@ class MultilevelSpace:
     t1     node -> level-1 aggregate transfer (`AggregateTransfer`)
     dinv1  f32[Nc1, 3, 3] masked inverse diagonal blocks of P1^T K0 P1
     t2     level-1 -> level-2 aggregate transfer
-    ac2inv f32[3 Nc2, 3 Nc2] explicit inverse of Ac2 = P2^T A1 P2
+    ac2inv f32[3 Nc2, 3 Nc2] explicit inverse of Ac2 = P2^T A1 P2 (f32 on
+           the card too: the reference does not store it in bf16)
     setup  host and device seconds of the build, and the inverse's route
     """
 
