@@ -1,0 +1,6 @@
+"""solve_s: the window's seconds over the increments it converged."""
+
+
+def read(run):
+    done = run.completed
+    return run.window_s / len(done) if done else None
