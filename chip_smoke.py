@@ -126,7 +126,12 @@ Phases:
      chunk's run, beside the eager `pcg_chunk`), the pieces of a replayed
      PCG iteration
      (Kuhn and 5-tet), each captured into a CUDA graph of its own and
-     replayed, and the Kuhn and the 5-tet solves with the
+     replayed, the program's device spans over three device-loop solves of
+     each (a Newton iteration's head, block-Jacobi, a PCG iteration, and
+     the spans' sum against the launches' CUDA events: `span_solves`) and
+     over three 5-tet `step_fn` calls (`span_steps`),
+     %globaltimer's tick and its offset against the profiler's kernel
+     starts (`span_clock`), and the Kuhn and the 5-tet solves with the
      plain and the fused f64 residual in turns; with `--against CHECKOUT
      ...` (other checkouts of this repository: an earlier commit, or a
      variant of a kernel source, e.g. unpacked by `git archive` into
@@ -225,6 +230,7 @@ is printed. Without a CUDA device it stops in phase 0.
 """
 
 import argparse
+import contextlib
 import copy
 import ctypes
 import dataclasses
@@ -286,6 +292,7 @@ from fea_large_tpu_torch.solvers.newton import (
     _residual_df_fn,
     _residual_soa_fn,
 )
+from fea_large_tpu_torch.utils import profiling
 
 #: f32 kernel vs f32 plain version: rounding in another summation order
 KERNEL_BOUND = 2e-5
@@ -488,6 +495,11 @@ ELEM_SRC = "fea_large_tpu_torch/csrc/elem_kernels.cu"
 BCSR_SRC = "fea_large_tpu_torch/csrc/bcsr_kernels.cu"
 #: a yardstick outside the port: the card's measured f64 multiply-add rate
 PROBE_SOURCE = cuda_build.CSRC / "probe_kernels.cu"
+PROBE_SIGNATURES = {
+    "fea_probe_dfma": [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_double, ctypes.c_double, ctypes.c_void_p],
+    "fea_probe_globaltimer": [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
+}
 KERNELS = {  # name -> (LAUNCHES dict, key, source, TPU kernel it replaces)
     "struct_freeze": (sk.LAUNCHES, "freeze", STRUCT_SRC, "fea_large_tpu/ops/pallas_structured.py:538"),
     "struct_apply": (sk.LAUNCHES, "apply", STRUCT_SRC, "fea_large_tpu/ops/pallas_structured.py:120"),
@@ -1540,18 +1552,175 @@ def time_calls(calls, points, npe, table):
 ITERATION_RUN = 16
 
 
-def loop_iteration_ms(solver, label):
-    """Phase 6: one PCG iteration of each loop, on the state the device
-    loop's last solve left: the device loop's `cg` program (WHILE(active)
-    over the CG body, as nested in its solve program) armed for
-    ITERATION_RUN iterations (stop 0, cap k + ITERATION_RUN; CUDA events
-    around each launch, median of 5, over the iterations a launch ran);
-    the host loop's, a run of ITERATION_RUN iterations of a captured PCG
-    chunk (its WHILE node, tol 0) on the same frozen state and right-hand
-    side, and the eager `pcg_chunk` (the reference's host-loop form) beside
-    it (host clock ending in a synchronise, median of 5); then one
-    replayed `head` (x set to 0, so u stays). The next solve resets the
+def spans_now() -> dict:
+    """The program's device-span totals now, {span: (runs, ns)}."""
+    return {name: tuple(v) for name, v in profiling.SPAN_TOTALS.items()}
+
+
+def spans_since(before: dict) -> dict:
+    """{span: (runs, ns)} gained since `before` (`spans_now`), spans that ran."""
+    out = {}
+    for name, (runs, ns) in profiling.SPAN_TOTALS.items():
+        d = (runs - before[name][0], ns - before[name][1])
+        if d[0]:
+            out[name] = d
+    return out
+
+
+@contextlib.contextmanager
+def timed_launches():
+    """CUDA events around each launch of a composed program
+    (`cuda_graphs.Program.launch`) in the block: yields the list of (start,
+    end) pairs."""
+    launch, pairs = cuda_graphs.Program.launch, []
+
+    def timed(program):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        launch(program)
+        end.record()
+        pairs.append((start, end))
+
+    cuda_graphs.Program.launch = timed
+    try:
+        yield pairs
+    finally:
+        cuda_graphs.Program.launch = launch
+
+
+def span_report(label, gained, per, launch_ms):
+    """Print each span's runs and ms a run, and the spans' sum against the
+    launches' CUDA-event ms (`launch_ms`); returns {span: ms a run}."""
+    total = 1e-6 * sum(ns for _, ns in gained.values())
+    print(f"  {label} spans over {per}: " + ", ".join(
+        f"{k} {r} x {1e-6 * ns / r:.4f} ms" for k, (r, ns) in gained.items())
+        + f"; sum {total:.3f} ms against the launches' CUDA events {launch_ms:.3f} ms "
+        f"({100 * total / launch_ms:.2f}%)")
+    return {k: 1e-6 * ns / r for k, (r, ns) in gained.items()}
+
+
+def span_solves(solver, u0, label, n=3):
+    """Phase 6: n device-loop solves from u0 at the load factor 1 (their
+    graphs already captured), each launch timed by CUDA events, and what
+    the program's device spans say of them: each span's ms a run, a Newton
+    iteration's head (every span of a Newton iteration but its CG
+    iterations and its tail, over the heads run) and the spans' sum
+    against the launches' time. The loop's state is the last solve's."""
+    before = spans_now()
+    with timed_launches() as pairs:
+        for _ in range(n):
+            solver._newton(u0, 1.0)
+    torch.cuda.synchronize()
+    gained = spans_since(before)
+    launch_ms = sum(a.elapsed_time(b) for a, b in pairs)
+    ms = span_report(f"{label} device loop", gained, f"{n} solves", launch_ms)
+    head = 1e-6 * sum(ns for k, (_, ns) in gained.items()
+                      if k not in ("pcg_iteration", "newton_tail")) / gained["freeze"][0]
+    print(f"  {label} Newton iteration's head (spans): {head:.4f} ms")
+    return {"head_ms": head, "span_ms": ms, "launches": len(pairs),
+            "spans_over_launches": 1e-6 * sum(ns for _, ns in gained.values()) / launch_ms}
+
+
+def span_steps(solver, u0, label, n=3):
+    """`span_solves` for n `step_fn` calls (after one that builds the
+    chunk): the step's eager set-up up to its chunk's first body (spans
+    residual64, freeze, jacobi, step_refresh) a step, and the chunk's spans
+    (pcg_init, pcg_control, pcg_iteration) against its launches' CUDA
+    events."""
+    solver.step_fn(u0, 1.0)
+    torch.cuda.synchronize()
+    before = spans_now()
+    with timed_launches() as pairs:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            solver.step_fn(u0, 1.0)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    gained = spans_since(before)
+    launch_ms = sum(a.elapsed_time(b) for a, b in pairs)
+    chunk = {k: v for k, v in gained.items() if k.startswith("pcg_")}
+    ms = span_report(f"{label} step chunk", chunk, f"{n} steps", launch_ms)
+    prepare = 1e-6 * sum(ns for k, (_, ns) in gained.items() if k not in chunk) / n
+    print(f"  {label} step: set-up (spans) {prepare:.4f} ms, chunk's spans "
+          f"{1e-6 * sum(ns for _, ns in chunk.values()) / n:.4f} ms, host clock "
+          f"{wall_ms / n:.4f} ms a step")
+    return {"prepare_ms": prepare, "span_ms": ms, "step_ms": wall_ms / n}
+
+
+def span_clock(device, n=64, stamps=24):
+    """The span stamp's clock on this card: %globaltimer's tick (the steps
+    between n successive distinct readings one thread sees; probe kernel),
+    and the reading against the profiler's clock and the host's: `stamps`
+    eager stamps under torch.profiler, each launched on an idle card (after
+    a synchronise) and followed by a copy of its reading and 10-80 ms of a
+    busy card (`torch.cuda._sleep`). Per stamp: CUPTI's start (ns) less the
+    reading (the offset), CUPTI's start less the host's launch call in the
+    trace (both the trace's clock) and the reading less the host's
+    `time.time_ns()` before the launch; a drift of one clock against
+    another is the slope of these over the readings (ppm)."""
+    lib = cuda_build.load(PROBE_SOURCE, PROBE_SIGNATURES)
+    out = torch.zeros(n + 1, dtype=torch.int64, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    check(lib.fea_probe_globaltimer(out.data_ptr(), n, stream) == 0, "the timer probe launched")
+    steps = torch.diff(out).tolist()
+    table = profiling._table(device)
+    readings = torch.zeros((stamps, 2), dtype=torch.int64, device=device)
+    host = []
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for i in range(stamps):
+            torch.cuda.synchronize(device)
+            host.append(time.time_ns())
+            profiling.close_span(device)  # a stamp that opens nothing
+            readings[i].copy_(table.open)
+            torch.cuda._sleep(20_000_000 * (1 + i % 8))  # cycles: ~10-80 ms
+        torch.cuda.synchronize(device)
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    os.unlink(path)
+    corr = {(e.get("args") or {}).get("correlation"): float(e["ts"]) for e in events
+            if e.get("cat") == "cuda_runtime" and e.get("name", "").startswith("cudaLaunchKernel")}
+    starts = sorted((float(e["ts"]), corr.get((e.get("args") or {}).get("correlation")))
+                    for e in events
+                    if e.get("cat") == "kernel" and "stamp_kernel" in e.get("name", ""))
+    check(len(starts) == stamps and all(c is not None for _, c in starts),
+          f"the trace holds the {stamps} stamps and their launch calls")
+    reading = readings[:, 1].tolist()
+    series = {"offset": [1e3 * ts - r for (ts, _), r in zip(starts, reading)],
+              "launch_to_start": [1e3 * (ts - call) for ts, call in starts],
+              "reading_less_host": [r - h for r, h in zip(reading, host)]}
+    span_ns = reading[-1] - reading[0]
+    out = {"tick_ns": statistics.median(steps), "tick_min_ns": min(steps), "span_s": 1e-9 * span_ns}
+    print(f"  %globaltimer: tick {statistics.median(steps)} ns (median of {n} steps; "
+          f"min {min(steps)}, max {max(steps)}); {stamps} eager stamps over "
+          f"{1e-9 * span_ns:.3f} s:")
+    for name, v in series.items():
+        rel = [1e-3 * (x - v[0]) for x in v]
+        out[f"{name}_spread_us"] = max(rel) - min(rel)
+        out[f"{name}_drift_ppm"] = 1e6 * (v[-1] - v[0]) / span_ns
+        print(f"    {name}: spread {max(rel) - min(rel):.3f} us, drift "
+              f"{out[f'{name}_drift_ppm']:.2f} ppm; each less the first (us) "
+              f"{[round(x, 3) for x in rel]}")
+    return out
+
+
+def loop_iteration_ms(solver, u0, label):
+    """Phase 6: the device loop's spans over three solves from u0
+    (`span_solves`: a Newton iteration's head among them), then one PCG
+    iteration of each loop, on the state the device loop's last solve left:
+    the device loop's `cg` program (WHILE(active) over the CG body, as
+    nested in its solve program) armed for ITERATION_RUN iterations (stop
+    0, cap k + ITERATION_RUN; CUDA events around each launch, median of
+    5, over the iterations a launch ran); the host loop's, a run of
+    ITERATION_RUN iterations of a captured PCG chunk (its WHILE node, tol
+    0) on the same frozen state and right-hand side, and the eager
+    `pcg_chunk` (the reference's host-loop form) beside it (host clock
+    ending in a synchronise, median of 5). The next solve resets the
     state."""
+    spans = span_solves(solver, u0, label)
     loop = solver._device_loop
     st, k = loop.state, ITERATION_RUN
 
@@ -1590,16 +1759,16 @@ def loop_iteration_ms(solver, label):
         eager.append((time.perf_counter() - t0) * 1e3 / max(pst.k, 1))
     host_ms, eager_ms = statistics.median(host[1:]), statistics.median(eager[1:])
     split = cg_iteration_split(solver, matvec, precond, dev_ms, label)
-    st.pcg.x.zero_()
-    head_ms = cuda_ms(lambda: loop.replay("head"), n=5)
+    head_ms = spans["head_ms"]
     print(f"  {label} PCG iteration: device loop {dev_ms:.4f} ms (replayed, {per_launch:g} a "
-          f"launch of its cg program), host "
+          f"launch of its cg program; its span in the solves "
+          f"{spans['span_ms']['pcg_iteration']:.4f} ms), host "
           f"loop {host_ms:.4f} ms (a PCG chunk's run of {k}, replayed, one fetch), eager "
-          f"pcg_chunk {eager_ms:.4f} ms; device loop head (u += x, freeze, f64 residual, forcing, "
-          f"block-Jacobi, pcg_init) {head_ms:.4f} ms")
+          f"pcg_chunk {eager_ms:.4f} ms; device loop head (u += x, freeze, residual, forcing, "
+          f"block-Jacobi, pcg_init; spans) {head_ms:.4f} ms")
     return {"pcg_iteration_ms_device_loop": dev_ms, "pcg_iteration_ms_host_loop": host_ms,
             "pcg_iteration_ms_eager": eager_ms, "head_ms_device_loop": head_ms,
-            "pcg_iteration_split_ms": split}
+            "spans_device_loop": spans, "pcg_iteration_split_ms": split}
 
 
 def graph_ms(fn, n=10):
@@ -2989,8 +3158,7 @@ def f64_rate(device, register_operands, blocks_per_sm=8, iters=4096):
     multiply-adds at full occupancy), with both factors constant or, as in
     the kernels, all three operands in registers: what the f64 kernels'
     arithmetic could reach at best, beside the data sheet's PEAK_FLOPS."""
-    P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    lib = cuda_build.load(PROBE_SOURCE, {"fea_probe_dfma": [P, I, I, I, D, D, P]})
+    lib = cuda_build.load(PROBE_SOURCE, PROBE_SIGNATURES)
     blocks = blocks_per_sm * torch.cuda.get_device_properties(device).multi_processor_count
     out = torch.empty(blocks * 256, dtype=torch.float64, device=device)
 
@@ -3063,8 +3231,10 @@ def phase_timings(kuhn, five_tet, bcsr, card, against=()):
     mat = NeoHookean(1.0, 0.6)
     table = {}
     solver, u0 = kuhn[:2]
-    loops = {"kuhn": loop_iteration_ms(solver, "Kuhn"),
-             "5tet": loop_iteration_ms(five_tet[0], "5-tet")}
+    loops = {"kuhn": loop_iteration_ms(solver, u0, "Kuhn"),
+             "5tet": loop_iteration_ms(five_tet[0], five_tet[1], "5-tet"),
+             "5tet_step": span_steps(five_tet[0], five_tet[1], "5-tet"),
+             "span_clock": span_clock(solver.mesh.device)}
     print("slice: " + json.dumps({"path": "loop iterations", **loops, "card": card}))
     errs = lattice_timings(solver.mesh, table, against)
     time_passes(newton_pcg_passes(solver, u0, mat, soa.soa_freeze, _residual_df_fn))

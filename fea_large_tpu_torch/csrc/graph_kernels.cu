@@ -26,6 +26,11 @@
 // Pallas kernel of the reference corresponds: on the TPU the loops are XLA
 // programs. The set kernel is one thread that reads one byte.
 //
+// The span stamp (utils/profiling.py) is one thread too: it reads
+// %globaltimer, the card's nanosecond clock (the one CUPTI stamps a trace's
+// kernels with), closes the span open on the card and opens the next. A
+// captured body starts with one, so its span's count is its runs.
+//
 // A conditional node's body graph takes kernel, memset, memcpy, empty,
 // child-graph and conditional nodes only; fea_graph_refused names the first
 // node of another type in a body (the sharded ranks' bodies hold the
@@ -42,6 +47,23 @@ namespace {
 
 __global__ void set_condition_kernel(cudaGraphConditionalHandle handle, const bool* flag) {
   cudaGraphSetConditional(handle, *flag ? 1u : 0u);
+}
+
+// table: int64 [spans, 2] (runs, nanoseconds) of each span; open: int64
+// [2], the open span (-1: none) and the clock when it opened; runs: a
+// body's run counter to increment, or null.
+__global__ void stamp_kernel(long long* table, long long* open, int next, long long* runs) {
+  unsigned long long now;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+  const long long t = static_cast<long long>(now);
+  const long long was = open[0];
+  if (was >= 0) {
+    table[2 * was] += 1;
+    table[2 * was + 1] += t - open[1];
+  }
+  open[0] = next;
+  open[1] = t;
+  if (runs != nullptr) *runs += 1;
 }
 
 cudaError_t add_node(cudaGraphNode_t* out, cudaGraph_t graph, const cudaGraphNode_t* deps,
@@ -196,7 +218,18 @@ extern "C" {
 // graph cannot load it.
 int fea_graph_init() {
   cudaFuncAttributes attr;
-  return cudaFuncGetAttributes(&attr, set_condition_kernel);
+  cudaError_t status = cudaFuncGetAttributes(&attr, set_condition_kernel);
+  return status != cudaSuccess ? status : cudaFuncGetAttributes(&attr, stamp_kernel);
+}
+
+// Launch the span stamp on `stream` (captured where the stream captures):
+// close the span open in `open`, adding it to `table`, open span `next`
+// (-1: none) and add one to *runs where runs is not null.
+int fea_span_stamp(void* table, void* open, int next, void* runs, void* stream) {
+  stamp_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<long long*>(table), static_cast<long long*>(open), next,
+      static_cast<long long*>(runs));
+  return cudaGetLastError();
 }
 
 // Compose n items into a new graph and instantiate it. The items are in
@@ -236,6 +269,9 @@ int fea_graph_try_child(void* child) {
   cudaError_t status = cudaGraphAddChildGraphNode(&node, graph, nullptr, 0,
                                                   static_cast<cudaGraph_t>(child));
   cudaGraphDestroy(graph);
+  // the refusal is the answer, not a fault: clear it, so that the next
+  // launch's cudaGetLastError (the span stamp's) does not report it
+  cudaGetLastError();
   return status;
 }
 

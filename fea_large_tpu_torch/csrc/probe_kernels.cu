@@ -11,6 +11,9 @@
 // and z are registers of the thread, as the operands of the kernels'
 // multiply-adds are (three 64-bit register reads an instruction); without,
 // they are the same two constants for every thread (one register read).
+//
+// A second yardstick: the tick of %globaltimer, the clock the span stamp
+// (csrc/graph_kernels.cu) reads, as one thread sees it change.
 
 #include <cuda_runtime.h>
 
@@ -39,9 +42,31 @@ dfma_kernel(double* __restrict__ out, int iters, double a, double b) {
   out[(size_t)blockIdx.x * kThreads + threadIdx.x] = sum;
 }
 
+// out[0..n]: n + 1 successive distinct readings of %globaltimer.
+__global__ void globaltimer_kernel(long long* out, int n) {
+  unsigned long long last, now;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(last));
+  out[0] = static_cast<long long>(last);
+  for (int i = 1; i <= n;) {
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+    if (now != last) {
+      out[i++] = static_cast<long long>(now);
+      last = now;
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
+
+// out: n + 1 int64, the successive distinct readings of %globaltimer that
+// one thread sees.
+int fea_probe_globaltimer(long long* out, int n, void* stream) {
+  if (n <= 0) return (int)cudaErrorInvalidValue;
+  globaltimer_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(out, n);
+  return (int)cudaGetLastError();
+}
 
 // out: blocks * 256 doubles. Does blocks * 256 * iters * 8 multiply-adds,
 // with the factors in registers (regs != 0) or constant.

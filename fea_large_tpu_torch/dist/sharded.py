@@ -99,9 +99,12 @@ from fea_large_tpu_torch.solvers.newton import (
     SolverOptions,
     device_forcing,
 )
+from fea_large_tpu_torch.utils import profiling
 
-#: the rank bodies every route shares, in capture order
+#: the rank bodies every route shares, in capture order, and the span each
+#: opens (utils/profiling.py; frz's holds the rank's block-Jacobi set-up)
 RANK_BODIES = ("head", "resid", "frz")
+RANK_SPANS = ("residual64", "residual64", "freeze")
 #: a route's programs, chains of (kind, flag, body) items
 #: (`cuda_graphs.compose`) over the rank bodies and the chunk's
 PROGRAMS = {
@@ -553,9 +556,13 @@ class ShardedNewtonSolver:
         cell, opts, pdt = self._cell, self.options, self._pcg_dtype
         use_ew = opts.forcing == "ew"
         p = self._p(pdt)
+        device = self.comm.device
+
+        def count(i):  # the body's span opens; its runs count
+            profiling.stamp(device, RANK_SPANS[i], cell.runs, i)
 
         def head():
-            cell.runs[0].add_(1)
+            count(0)
             cell.u.add_(cell.x_prev.to(torch.float64))
             r64 = self._residual64(cell.u, cell.scale)
             norm = torch.sqrt(torch.clamp_min(self._dot(r64, r64), 0.0))
@@ -575,11 +582,11 @@ class ShardedNewtonSolver:
             cell.b.copy_(r64.to(pdt))
 
         def resid():
-            cell.runs[1].add_(1)
+            count(1)
             cell.b.copy_(self._residual64(cell.u, cell.scale).to(pdt))
 
         def frz():
-            cell.runs[2].add_(1)
+            count(2)
             state = soa_freeze(p, self.material, self._expand_u(cell.u).to(pdt).T.contiguous())
             diag = self._assemble(soa_diag_blocks(p, state).permute(2, 0, 1))
             cell.frozen = state
@@ -640,6 +647,7 @@ class ShardedNewtonSolver:
         else:
             cuda_graphs.run_eager(PROGRAMS[prog], {**self._fns, **chunk.fns},
                                   self._flags(chunk))
+        profiling.close_span(self.comm.device)
         return chunk
 
     def _fetch(self, chunk: DevicePCGChunk, extra=()):

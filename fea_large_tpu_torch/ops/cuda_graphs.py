@@ -22,6 +22,9 @@ capture calls them and launches nothing, so `Body` records the counts its
 capture added (`Body.launches`) and takes them back; what the replays
 launch is added to `REPLAYED` by `tally`, from the bodies' runs that the
 programs count on the card.
+
+`stamp` launches the span stamp of utils/profiling.py (one thread, in
+csrc/graph_kernels.cu beside the set kernel); no launch counter counts it.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from fea_large_tpu_torch.ops import bcsr_kernels as bk
 from fea_large_tpu_torch.ops import cuda_build
 from fea_large_tpu_torch.ops import elem_kernels as ek
 from fea_large_tpu_torch.ops import struct_kernels as sk
+from fea_large_tpu_torch.utils import profiling
 
 SOURCE = cuda_build.CSRC / "graph_kernels.cu"
 _READY: set = set()
@@ -71,7 +75,10 @@ def warm_up(fns, device) -> None:
     """Run each function of `fns` once, in order, on a side stream of
     `device`, after collecting garbage (`collect_garbage`), and wait for
     the device: the first runs a capture needs (the allocator's blocks,
-    the kernels' libraries, a process group's connections)."""
+    the kernels' libraries, a process group's connections). The device's
+    open span is closed before and after (`profiling.close_span`): no
+    span covers the capture's host time."""
+    profiling.close_span(device)
     collect_garbage()
     with torch.cuda.device(device):
         current = torch.cuda.current_stream(device)
@@ -80,6 +87,7 @@ def warm_up(fns, device) -> None:
         with torch.cuda.stream(side):
             for fn in fns:
                 fn()
+            profiling.close_span(device)
         current.wait_stream(side)
         torch.cuda.synchronize(device)
 
@@ -102,11 +110,22 @@ def _library():
         "fea_graph_launch": [P, P],
         "fea_graph_node_count": [P, P],
         "fea_graph_destroy": [P, P],
+        "fea_span_stamp": [P, P, ctypes.c_int, P, P],
     })
     if SOURCE not in _READY:
         _check("fea_graph_init", lib.fea_graph_init())
         _READY.add(SOURCE)
     return lib
+
+
+def stamp(table: torch.Tensor, open_: torch.Tensor, nxt: int, runs_ptr: int | None) -> None:
+    """Launch the span stamp on the current stream: close the span open
+    in `open_` into `table`, open span `nxt` (-1: none), and add one to the
+    int64 at `runs_ptr` where it is given (utils/profiling.py)."""
+    stream = torch.cuda.current_stream(table.device).cuda_stream
+    _check("fea_span_stamp", _library().fea_span_stamp(
+        ctypes.c_void_p(table.data_ptr()), ctypes.c_void_p(open_.data_ptr()), nxt,
+        ctypes.c_void_p(runs_ptr), ctypes.c_void_p(stream)))
 
 
 def _check(fn: str, err: int) -> None:

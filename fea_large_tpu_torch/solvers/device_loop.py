@@ -50,6 +50,13 @@ The kernel wrappers count launches when they are called, that is at
 warm-up here (a capture takes its counts back, ops/cuda_graphs.py);
 `REPLAYED` counts what the graphs launch: the launches of each body's
 capture times the runs of that body, which the bodies count on the device.
+
+Each body starts with a span stamp (utils/profiling.py) that counts its
+runs and opens its span: pre `freeze`, resid32 `residual32`, resid64
+`residual64`, post `newton_check`, cg `pcg_iteration`, tail `newton_tail`;
+two more inside post open `jacobi` (the diagonal blocks and their inverse)
+and `pcg_init`. A stamp after the launch closes the last; the fetch reads
+the device's span table with the rest.
 """
 
 from __future__ import annotations
@@ -75,19 +82,20 @@ from fea_large_tpu_torch.solvers.newton import (
     _residual_soa_fn,
     device_forcing,
 )
+from fea_large_tpu_torch.utils import profiling
 
-#: the bodies in order, and the programs composed of them: chains of
-#: (kind, flag, what), kind None (run once), "if" or "while" on the
-#: `LoopState` bool `flag`, `what` a body or a chain; "solve" is the one the
-#: solves launch, "head" (a Newton iteration up to `pcg_init`) and "cg" (a
-#: CG run) are composed on first `replay` only (phase 6's timings)
+#: the bodies in order, the span each opens, and the programs composed of
+#: them: chains of (kind, flag, what), kind None (run once), "if" or
+#: "while" on the `LoopState` bool `flag`, `what` a body or a chain;
+#: "solve" is the one the solves launch, "cg" (a CG run) is composed on
+#: first `replay` only (phase 6's timings)
 BODIES = ("pre", "resid32", "resid64", "post", "cg", "tail")
+SPANS = ("freeze", "residual32", "residual64", "newton_check", "pcg_iteration", "newton_tail")
 HEAD = ((None, None, "pre"), ("if", "use32", "resid32"), ("if", "use64", "resid64"),
         (None, None, "post"))
 CG = (("while", "active", "cg"),)
 PROGRAMS = {
     "solve": (("while", "running", HEAD + CG + ((None, None, "tail"),)),),
-    "head": HEAD,
     "cg": CG,
 }
 
@@ -235,9 +243,13 @@ class DeviceLoop:
         use_ew = opts.forcing == "ew"
         soa, soa64, material, coarse = s._soa, s._soa64, s.material, s._coarse
         free32, free32_T = self.free32, self.free32_T
+        device = self.device
+
+        def count(i):  # the body's span opens; its runs count
+            profiling.stamp(device, SPANS[i], st.runs, i)
 
         def pre():
-            st.runs[0].add_(1)
+            count(0)
             st.u.add_(st.pcg.x.to(torch.float64))
             st.frozen = soa_freeze(soa, material, st.u.to(torch.float32).T.contiguous())
             use32 = (st.it > 0) & (st.prev_norm > 3e-2 * st.norm0)
@@ -245,20 +257,20 @@ class DeviceLoop:
             st.use64.copy_(~st.use32)
 
         def resid32():
-            st.runs[1].add_(1)
+            count(1)
             f_int_T = soa_internal_force(soa, st.frozen)
             b = (st.scale32 * self.f_ext32 - f_int_T.T) * free32
             st.b.copy_(b)
             st.norm.copy_(torch.linalg.norm(b).to(torch.float64))
 
         def resid64():
-            st.runs[2].add_(1)
+            count(2)
             b64, norm = self._resid64(st.u, st.scale, soa64, material, s.bc, s.f_ext)
             st.b.copy_(b64)
             st.norm.copy_(norm)
 
         def post():
-            st.runs[3].add_(1)
+            count(3)
             first = st.it == 0
             st.norm0.copy_(torch.where(first, st.norm, st.norm0))
             st.stop_n.copy_(torch.clamp_min(opts.newton_rtol * st.norm0, opts.newton_atol))
@@ -273,19 +285,21 @@ class DeviceLoop:
             # the last allowed iteration's direction could never be applied
             discard = (st.it + 1 >= self.max_newton) & ~st.skip
             tol = torch.where(st.skip | discard, 1e30, lin_tol).to(torch.float32)
+            profiling.stamp(device, "jacobi")
             diag = soa_diag_blocks(soa, st.frozen).permute(2, 0, 1)
             st.inv_blocks = jacobi_inverse_blocks(diag, free32)
+            profiling.stamp(device, "pcg_init")
             cap = torch.clamp_max(self.budget - st.total_cg, opts.pcg_maxiter)
             device_pcg_init(st.pcg, st.b, _mixed_precond(st.inv_blocks, free32, coarse), tol, cap)
 
         def cg():
-            st.runs[4].add_(1)
+            count(4)
             device_pcg_step(
                 st.pcg, lambda v: _mixed_matvec(soa, st.frozen, free32_T, v),
                 _mixed_precond(st.inv_blocks, free32, coarse))
 
         def tail():
-            st.runs[5].add_(1)
+            count(5)
             p = st.pcg
             ok = p.ok & torch.isfinite(p.rr)
             st.total_cg.add_(p.k)
@@ -314,7 +328,7 @@ class DeviceLoop:
         """Warm every body up once on a scratch state on a side stream, then
         capture each body and compose the solve program."""
         t0 = time.perf_counter()
-        with self._on_device():
+        with profiling.SETUP.phase("setup.capture", self.state.u), self._on_device():
             scratch = LoopState.zeros(n_nodes, self.max_newton, self.device)
             cuda_graphs.warm_up(self._bodies(scratch).values(), self.device)
             del scratch
@@ -331,44 +345,51 @@ class DeviceLoop:
 
     # -- the host side -----------------------------------------------------
     def replay(self, prog: str) -> None:
-        """Launch the captured program `prog` ("solve", "head" or "cg";
-        composed at its first replay) on the card's current stream (the
-        card only)."""
+        """Launch the captured program `prog` ("solve", or "cg", composed
+        at its first replay) on the card's current stream (the card only),
+        then close the span its last body opened."""
         if self._graphs is None:
             raise RuntimeError("the device loop has graphs on the card only")
         with self._on_device():
             if prog not in self._graphs:
                 self._compose(prog)
             self._graphs[prog].launch()
+            profiling.close_span(self.device)
 
     def solve(self, u0: torch.Tensor, scale: float) -> DeviceLoopResult:
         """One increment from u0 at the load factor `scale`."""
         if self.stale():  # NewtonSolver._device_solve builds a new loop instead
             raise RuntimeError("the solver's inputs changed after its device loop was built")
         st = self.state
-        st.u.copy_(self.solver.bc.impose(u0, scale))
-        st.pcg.x.zero_()
-        st.scale.fill_(scale)
-        st.scale32.fill_(scale)
-        for t in (st.it, st.total_cg, st.norms, st.cgs, st.runs):
-            t.zero_()
-        st.prev_norm.fill_(1.0)
-        st.eta.fill_(0.5)
-        st.norm0.fill_(1.0)
-        for t in (st.done, st.conv, st.bad, st.failed, st.exhausted):
-            t.fill_(False)
-        st.running.fill_(True)
-        if self._graphs is not None:
-            self.replay("solve")
-        else:
-            cuda_graphs.run_eager(PROGRAMS["solve"], self._bodies(st), st.flag)
+        with profiling.span("fea.loop.reset"):
+            st.u.copy_(self.solver.bc.impose(u0, scale))
+            st.pcg.x.zero_()
+            st.scale.fill_(scale)
+            st.scale32.fill_(scale)
+            for t in (st.it, st.total_cg, st.norms, st.cgs, st.runs):
+                t.zero_()
+            st.prev_norm.fill_(1.0)
+            st.eta.fill_(0.5)
+            st.norm0.fill_(1.0)
+            for t in (st.done, st.conv, st.bad, st.failed, st.exhausted):
+                t.fill_(False)
+            st.running.fill_(True)
+        with profiling.span("fea.loop.launch"):
+            if self._graphs is not None:
+                self.replay("solve")
+            else:
+                cuda_graphs.run_eager(PROGRAMS["solve"], self._bodies(st), st.flag)
+                profiling.close_span(self.device)
         f64 = torch.float64
-        flags = torch.stack([t.to(f64) for t in (st.it, st.conv, st.failed, st.exhausted, st.bad,
-                                                 st.eta, st.total_cg)])
-        vals = torch.cat([st.norms, st.cgs.to(f64), flags, st.runs.to(f64)]).tolist()
-        m = self.max_newton
+        m, nb = self.max_newton, len(BODIES)
+        with profiling.span("fea.loop.fetch"):
+            flags = torch.stack([t.to(f64) for t in (st.it, st.conv, st.failed, st.exhausted,
+                                                     st.bad, st.eta, st.total_cg)])
+            vals = torch.cat([st.norms, st.cgs.to(f64), flags, st.runs.to(f64),
+                              profiling.span_table(self.device).to(f64)]).tolist()
+        profiling.read_spans(self.device, vals[2 * m + 7 + nb:])
         n_it, conv, failed, exhausted, bad, eta, total = vals[2 * m: 2 * m + 7]
-        runs = dict(zip(BODIES, (int(v) for v in vals[2 * m + 7:])))
+        runs = dict(zip(BODIES, (int(v) for v in vals[2 * m + 7:2 * m + 7 + nb])))
         cuda_graphs.tally(self.per_capture, runs)
         self.runs = runs
         n_it = int(n_it)

@@ -43,6 +43,7 @@ import time
 import torch
 
 from fea_large_tpu_torch.ops.smallmat import inv3
+from fea_large_tpu_torch.utils import profiling
 
 
 def dense_cholesky_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -316,9 +317,15 @@ class DevicePCGChunk:
     launch raises. `fetches` counts the fetches, `runs` (on the device)
     the runs of each body, whichever program ran it; the replays' kernel
     launches go to `cuda_graphs.REPLAYED` at each fetch. `capture_s` is
-    the seconds of the capture and of the compositions."""
+    the seconds of the capture and of the compositions.
+
+    Each body starts with a span stamp (utils/profiling.py) that counts its
+    runs and opens its span (`SPANS`); a stamp after each launch closes the
+    last, and the fetch reads the device's span table with the rest."""
 
     BODIES = ("init0", "initx", "arm", "step", "fin", "keep")
+    SPANS = ("pcg_init", "pcg_init", "pcg_control", "pcg_iteration", "pcg_control",
+             "pcg_control")
     #: programs as chains of (kind, flag, body) items (`cuda_graphs.compose`)
     RUN = ((None, None, "arm"), ("while", "active", "step"), (None, None, "fin"))
     PROGRAMS = {"init0": ((None, None, "init0"),), "initx": ((None, None, "initx"),), "run": RUN,
@@ -355,9 +362,10 @@ class DevicePCGChunk:
         s, matvec, precond, dot = self.state, self.matvec, self.preconditioner, self.dot
         b, tol, n, runs, atol = self.b, self.tol, self.n, self.runs, self.atol
         k1, ok1 = self.k1, self.ok1
+        device, spans = self.device, self.SPANS
 
-        def count(i):
-            runs[i].add_(1)
+        def count(i):  # the body's span opens; its runs count
+            profiling.stamp(device, spans[i], runs, i)
 
         def init0():
             count(0)
@@ -394,7 +402,7 @@ class DevicePCGChunk:
         from fea_large_tpu_torch.ops import cuda_graphs
 
         t0 = time.perf_counter()
-        with torch.cuda.device(self.device):
+        with profiling.SETUP.phase("setup.capture", self.b), torch.cuda.device(self.device):
             cuda_graphs.warm_up(self.fns.values(), self.device)
             self.bodies = {name: cuda_graphs.Body(fn) for name, fn in self.fns.items()}
             self.per_capture = {name: b.launches for name, b in self.bodies.items()}
@@ -411,31 +419,34 @@ class DevicePCGChunk:
     def _launch(self, prog: str) -> None:
         from fea_large_tpu_torch.ops import cuda_graphs
 
-        if self.bodies is None:
-            cuda_graphs.run_eager(self.PROGRAMS[prog], self.fns, self._flag)
-            return
-        with torch.cuda.device(self.device):
-            if prog not in self._graphs:
-                t0 = time.perf_counter()
-                self._graphs[prog] = cuda_graphs.compose(self.PROGRAMS[prog], self.bodies,
-                                                         self._flag)
-                self.graph_nodes[prog] = self._graphs[prog].nodes
-                self.capture_s += time.perf_counter() - t0
-            self._graphs[prog].launch()
+        with profiling.span("fea.chunk.launch"):
+            if self.bodies is None:
+                cuda_graphs.run_eager(self.PROGRAMS[prog], self.fns, self._flag)
+            else:
+                with torch.cuda.device(self.device):
+                    if prog not in self._graphs:
+                        t0 = time.perf_counter()
+                        self._graphs[prog] = cuda_graphs.compose(self.PROGRAMS[prog],
+                                                                 self.bodies, self._flag)
+                        self.graph_nodes[prog] = self._graphs[prog].nodes
+                        self.capture_s += time.perf_counter() - t0
+                    self._graphs[prog].launch()
+            profiling.close_span(self.device)
 
     def start(self, b, tol, x0=None) -> None:
         """`pcg_init`: b (None: the last one) and the tolerance `tol` (a
         float, rounded to the vectors' dtype), from zero or from `x0`
         (which may be `state.x`). No fetch."""
-        if b is not None:
-            self.b.copy_(b)
-        self.tol.fill_(tol)
-        if x0 is None:
-            self._launch("init0")
-            return
-        if x0 is not self.state.x:
-            self.state.x.copy_(x0)
-        self._launch("initx")
+        with profiling.span("fea.chunk.start"):
+            if b is not None:
+                self.b.copy_(b)
+            self.tol.fill_(tol)
+            if x0 is None:
+                self._launch("init0")
+                return
+            if x0 is not self.state.x:
+                self.state.x.copy_(x0)
+            self._launch("initx")
 
     def run(self, n: int) -> PCGState:
         """`pcg_chunk`: up to n further iterations (stops early on
@@ -469,10 +480,13 @@ class DevicePCGChunk:
         s = self.state
         f64 = torch.float64
         scalars = (s.k, s.rr, s.ok, s.stop, s.bnorm, *extra)
-        vals = torch.cat([torch.stack([t.to(f64) for t in scalars]),
-                          self.runs.to(f64)]).tolist()
+        with profiling.span("fea.chunk.fetch"):
+            vals = torch.cat([torch.stack([t.to(f64) for t in scalars]), self.runs.to(f64),
+                              profiling.span_table(self.device).to(f64)]).tolist()
         self.fetches += 1
-        runs = [int(v) for v in vals[len(scalars):]]
+        nr = len(scalars) + len(self.BODIES)
+        profiling.read_spans(self.device, vals[nr:])
+        runs = [int(v) for v in vals[len(scalars):nr]]
         if self.bodies is not None:
             from fea_large_tpu_torch.ops import cuda_graphs
 

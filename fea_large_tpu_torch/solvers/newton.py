@@ -111,6 +111,7 @@ from fea_large_tpu_torch.solvers.multilevel import (
     build_multilevel_space,
     two_level_preconditioner,
 )
+from fea_large_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -452,6 +453,12 @@ class NewtonSolver:
         #: CPU; False: eagerly wherever the tensors are (a comparison on the
         #: card, never a fallback)
         self._capture_chunks = None
+        with profiling.SETUP.phase("setup.solver", self.f_ext):
+            self._build()
+
+    def _build(self) -> None:
+        """The set-up of the route of `options` (the class docstring)."""
+        mesh, material, bc = self.mesh, self.material, self.bc
         if self.options.precision == "f64":
             if self.options.linear in ("pcg_bcsr", "direct"):
                 self.bcsr = BCSRStructure.build(mesh.conn_host, mesh.n_nodes, mesh.device)
@@ -464,14 +471,16 @@ class NewtonSolver:
         else:
             self._resid_df = bool(self.options.resid_df) and supported
         if self.options.preconditioner == "two_level":
-            self._coarse = build_coarse_space(
-                mesh, material, bc, agg_size=self.options.agg_size,
-                modes=self.options.coarse_modes, soa=self._soa,
-            )
+            with profiling.SETUP.phase("setup.coarse", self.f_ext):
+                self._coarse = build_coarse_space(
+                    mesh, material, bc, agg_size=self.options.agg_size,
+                    modes=self.options.coarse_modes, soa=self._soa,
+                )
         elif self.options.preconditioner == "three_level":
-            self._coarse = build_multilevel_space(
-                mesh, material, bc, agg_size1=self.options.agg_size or 16,
-            )
+            with profiling.SETUP.phase("setup.coarse", self.f_ext):
+                self._coarse = build_multilevel_space(
+                    mesh, material, bc, agg_size1=self.options.agg_size or 16,
+                )
 
     @property
     def geom(self):
@@ -589,14 +598,25 @@ class NewtonSolver:
         `_mixed_prepare_fn`): the f64 residual `r64` (the plain f64 SoA
         pass when not given), the f32 freeze and block-Jacobi. Returns the
         mixed route's chunk (`_mixed_route`) over the solver's
-        preconditioner, its operands refreshed, and b32."""
-        if r64 is None:
-            r64, _ = _residual_soa_fn(u, scale, self._soa64, self.material, self.bc, self.f_ext)
-        free32 = self.bc.free_mask.to(torch.float32)
-        state = self._freeze(u)
-        diag = soa_diag_blocks(self._soa, state).permute(2, 0, 1)
-        route = self._mixed_route(state, jacobi_inverse_blocks(diag, free32))
-        return route.chunk(self._mixed_key()), r64.to(torch.float32)
+        preconditioner, its operands refreshed, and b32. Its device spans:
+        `residual64` (where it computes r64), `freeze`, `jacobi`, then
+        `step_refresh` (the operand copies and the chunk's start, up to the
+        chunk's first body)."""
+        device = self.mesh.device
+        with profiling.span("fea.step.prepare"):
+            if r64 is None:
+                profiling.stamp(device, "residual64")
+                r64, _ = _residual_soa_fn(u, scale, self._soa64, self.material, self.bc,
+                                          self.f_ext)
+            free32 = self.bc.free_mask.to(torch.float32)
+            profiling.stamp(device, "freeze")
+            state = self._freeze(u)
+            profiling.stamp(device, "jacobi")
+            diag = soa_diag_blocks(self._soa, state).permute(2, 0, 1)
+            inv_blocks = jacobi_inverse_blocks(diag, free32)
+            profiling.stamp(device, "step_refresh")
+            route = self._mixed_route(state, inv_blocks)
+            return route.chunk(self._mixed_key()), r64.to(torch.float32)
 
     def _step_mixed(self, u, scale, lin_tol=None, r64=None):
         """One mixed-precision Newton step: `_mixed_prepare`, then
@@ -616,12 +636,13 @@ class NewtonSolver:
         (u + x, iterations, no breakdown, ||r||); on every other route
         `_step`."""
         opts = self.options
-        if opts.precision != "mixed":
-            return self._step(u, scale)
-        chunk, b = self._mixed_prepare(u, scale)
-        chunk.start(b, _to_f32(opts.pcg_tol))
-        st = chunk.run(opts.pcg_chunk)
-        return u + st.x.to(u.dtype), st.k, st.ok, math.sqrt(st.rr)
+        with profiling.span("fea.step"):
+            if opts.precision != "mixed":
+                return self._step(u, scale)
+            chunk, b = self._mixed_prepare(u, scale)
+            chunk.start(b, _to_f32(opts.pcg_tol))
+            st = chunk.run(opts.pcg_chunk)
+            return u + st.x.to(u.dtype), st.k, st.ok, math.sqrt(st.rr)
 
     def _freeze(self, u):
         """f32 tangent state at u [N, 3]."""
@@ -768,6 +789,11 @@ class NewtonSolver:
     def _newton(self, u, scale):
         """Newton iteration at the fixed load factor `scale`:
         (u, converged, IncrementRecord)."""
+        with profiling.span("fea.increment"):
+            return self._newton_route(u, scale)
+
+    def _newton_route(self, u, scale):
+        """`_newton` on the route of `options`."""
         opts = self.options
         if opts.precision == "mixed":
             return self._newton_mixed(u, scale)
