@@ -18,9 +18,10 @@ f64 paths, the examples and the sharded paths, and checks them:
     resid_df=None, the fused f64 residual B5 (csrc/struct_kernels.cu);
   * the 5-tet path, `FEA_BENCH_MESH=5tet FEA_BENCH_PALLAS=1` (mixed):
     TET10 5-tet box n=36, 1,027,083 DOF, aggregates of 100 nodes, the
-    element-block kernels B6-B8 (csrc/elem_kernels.cu), which every f32
-    pass of an unstructured mesh runs on the card, the coarse-space probes
-    included, and, with resid_df=None, the fused f64 residual B9;
+    element-block kernels B6-B8 and the block-Jacobi diagonal's two
+    kernels (csrc/elem_kernels.cu), which every f32 pass of an
+    unstructured mesh runs on the card, the coarse-space probes included,
+    and, with resid_df=None, the fused f64 residual B9;
   * the f64 assembled path of config 2 (linear="pcg_bcsr",
     precision="f64", block-Jacobi PCG) with the tolerances of bench.py's
     f64 mode (pcg_tol 1e-8): the same 5-tet box, nnzb 9,184,321, the BCSR
@@ -46,7 +47,8 @@ Phases:
   2. kernel checks, each kernel against its plain PyTorch version on the
      same inputs: B1-B5 on TET10 and TET4 Kuhn lattices n=21 (C = 9,261 =
      289*32 + 13 cells; B2 also on n=22, whose C is a multiple of 8, where
-     its blocks do not overlap), B6-B9 on TET10 and TET4 5-tet boxes n=13
+     its blocks do not overlap), B6-B9 and the unstructured diagonal
+     (`elem_diag`) on TET10 and TET4 5-tet boxes n=13
      (E = 10,985 = 85*128 + 105 elements), every freeze and f64 residual
      for all three materials, B1-B9 also on the TET10 meshes with the
      5-point rule (`n_quad=5`, the (5, 10) instances), and B10 in f64 and
@@ -56,9 +58,9 @@ Phases:
      32 lanes a row; a block of B1-B5 holds 32 cells times the 6 tet
      slots). Bounds relative to the largest entry: 2e-5 for the f32
      kernels, 1e-12 for the f64 ones. B1, B3, B4, B5 (all three materials)
-     and B10 (f64 and f32), whose sums cross threads, and B2 (all three
-     materials) are launched twice on the same inputs and must give
-     bitwise-equal outputs;
+     and B10 (f64 and f32), whose sums cross threads, B2 (all three
+     materials) and the unstructured diagonal are launched twice on the
+     same inputs and must give bitwise-equal outputs;
   3. the Kuhn path: n=4 on the host loop (resid_df=False) and on the
      device loop (resid_df=False and None) against the JAX reference's
      counts of each loop (measured on CPU), then full width with
@@ -114,7 +116,8 @@ Phases:
   6. timings at full width: each kernel and its plain version with CUDA
      events around each call (median of 10: `ms`, `plain_ms`; the host's
      launch path is in it when the kernel is shorter than its wrapper's
-     host time) beside its bound, the same kernel queued behind a busy
+     host time) beside its bound (the unstructured diagonal also as its
+     two kernels apart, `diag_parts`), the same kernel queued behind a busy
      card (20 launches between one pair of events: `device_ms`, without
      the host's launch path) and the host's microseconds per launch; B2,
      B4 and B5 also on the n=36 lattice, whose C is a multiple of 8 (rows
@@ -475,9 +478,9 @@ REFERENCE_SHARDED_TASKS_BF16 = {
 }
 SHARDED_TASK_STORAGE = {"distributed_compression.json": "bfloat16",
                         "distributed_compression_kuhn.json": "float32"}
-#: the sharded paths' kernels (B1-B3 on a lattice, B6-B7 on a 5-tet box)
+#: the sharded paths' kernels (B1-B3 on a lattice; B6, B7 and the diagonal on a 5-tet box)
 SHARDED_KERNELS = {"kuhn": ("struct_freeze", "struct_apply", "struct_diag"),
-                   "5tet": ("elem_apply", "elem_freeze")}
+                   "5tet": ("elem_apply", "elem_freeze", "elem_diag")}
 #: phase 9f: one rank in this process (LocalComm) on the captured route,
 #: a solve() of this many increments at 9a's and 9b's widths
 ONE_RANK_STEPS = 2
@@ -510,6 +513,7 @@ KERNELS = {  # name -> (LAUNCHES dict, key, source, TPU kernel it replaces)
     "elem_freeze": (ek.LAUNCHES, "freeze", ELEM_SRC, "fea_large_tpu/ops/pallas_kernels.py:176"),
     "elem_force": (ek.LAUNCHES, "force", ELEM_SRC, "fea_large_tpu/ops/pallas_kernels.py:307"),
     "elem_resid": (ek.LAUNCHES, "resid", ELEM_SRC, "fea_large_tpu/ops/pallas_residual.py:349"),
+    "elem_diag": (ek.LAUNCHES, "diag", ELEM_SRC, "none (the reference's ops/soa.py forms it in jnp)"),
     "bcsr_spmv": (bk.LAUNCHES, "spmv", BCSR_SRC, "fea_large_tpu/ops/pallas_kernels.py:376"),
 }
 
@@ -670,10 +674,11 @@ def phase_build():
         print(f"{src.name}: {path.name} (nvcc {seconds:.1f} s{'' if seconds else ', reused'})")
         name = None
         for line in log.splitlines():  # ptxas -v: entry function, spills, registers
-            m = re.search(r"([a-z]+_kernel)I([fd]?)((?:Li\d+E)*)", line)
-            if "Compiling entry function" in line and m:
-                args = ([m.group(2)] if m.group(2) else []) + re.findall(r"Li(\d+)E", m.group(3))
-                name = f"{m.group(1)}<{', '.join(args)}>"
+            m = re.search(r"([a-z_]+_kernel)(?:I([fd]?)((?:Li\d+E)*)|E)", line)
+            if "Compiling entry function" in line:
+                args = ([m.group(2)] if m and m.group(2) else []) + re.findall(
+                    r"Li(\d+)E", m.group(3) or "") if m else []
+                name = f"{m.group(1)}<{', '.join(args)}>" if m else None
             elif name and ("spill" in line or "registers" in line):
                 print(f"  ptxas {name}: {line.split(':')[-1].strip()}")
                 m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
@@ -829,10 +834,21 @@ def lattice_calls(x, materials):
     return calls
 
 
+def diag_traffic(p, E, npe):
+    """What the unstructured diagonal moves besides its state and geometry
+    (the bound's bytes, as tensors): the slot scratch written by the element
+    pass and read by the nodal sum (counted twice), and the buckets' idx,
+    mask and inv, read once."""
+    slots = torch.empty((npe * E, ek.SLOT_PAD), device=p.gradN.device)
+    return (slots, slots, *p.buckets.idx, *p.buckets.mask, p.buckets.inv)
+
+
 def element_calls(x, materials):
-    """{name: (kernel call, plain call, inputs, material kind)} of B6-B8."""
+    """{name: (kernel call, plain call, inputs, material kind)} of B6-B8
+    and of the unstructured diagonal (its element pass and nodal sum)."""
     q, npe, ue, ve, gradN, rows = x["q"], x["npe"], x["ue"], x["ve"], x["gradN"], x["rows"]
-    dV = x["p"].detJxW
+    p = x["p"]
+    dV = p.detJxW
     kw = dict(npe=npe, q=q)
     ue64, gradN64, dV64 = x["ue64"], x["gradN64"], x["dV64"]
     calls = {}
@@ -850,6 +866,9 @@ def element_calls(x, materials):
     calls["elem_force"] = (lambda: ek.elem_force(gradN, dV, *rows[:2], **kw),
                            lambda: ek.elem_force_plain(gradN, dV, *rows[:2], **kw),
                            (gradN, dV, *rows[:2]), 1)
+    calls["elem_diag"] = (lambda: ek.elem_diag(gradN, dV, *rows, p.buckets, **kw),
+                          lambda: ek.elem_diag_plain(gradN, dV, *rows, p.buckets, **kw),
+                          (gradN, dV, *rows, *diag_traffic(p, x["E"], npe)), 1)
     return calls
 
 
@@ -920,7 +939,9 @@ def phase_kernel_checks(device):
         x = element_inputs(mesh5)
         E = x["E"]
         print(f"5-tet {et} n={n5}: E = {E} elements = {E // ek.BLOCK} x {ek.BLOCK} + {E % ek.BLOCK}")
-        report_checks(f"5tet {et}", run_checks(element_calls(x, MATERIALS)))
+        calls = element_calls(x, MATERIALS)
+        report_checks(f"5tet {et}", run_checks(calls))
+        check_repeats(f"5tet {et}", {"elem_diag": calls["elem_diag"]})
         check_bcsr(f"{et} n={n5}", mesh5)
         ragged = check_bcsr(f"{et} (6, 4, 2)", box_mesh(6, 4, 2, element_type=et, device=device))
         check(ragged != 0, "the (6, 4, 2) box (an odd N) leaves a CUDA block of B10 partly filled")
@@ -933,7 +954,9 @@ def phase_kernel_checks(device):
                                if k.startswith(("struct_force", "struct_resid"))})
     x = element_inputs(box_mesh(n5, n5, n5, element_type="tet10", device=device, n_quad=5))
     check((x["q"], x["npe"]) == (5, 10), "the box's rule is the 5-point one")
-    report_checks("5tet 5pt", run_checks(element_calls(x, MATERIALS)))
+    calls = element_calls(x, MATERIALS)
+    report_checks("5tet 5pt", run_checks(calls))
+    check_repeats("5tet 5pt", {"elem_diag": calls["elem_diag"]})
     print(f"phase 2: {time.perf_counter() - t0:.1f} s")
 
 
@@ -1546,6 +1569,35 @@ def time_calls(calls, points, npe, table):
         print(f"  {name:24s} kernel {ms:9.4f} ms   queued {device_ms:9.4f} ms   bound "
               f"{b_ms:8.4f} ms ({b_by}, {100 * b_ms / ms:5.1f}% / {100 * b_ms / device_ms:5.1f}% "
               f"of it)   plain {plain_ms:9.4f} ms   host {host_us(kern):6.1f} us/launch")
+
+
+def diag_parts(x):
+    """The unstructured diagonal's two kernels timed apart (per call and
+    queued) beside their bytes bounds: the element pass (`ek.diag_slots`:
+    state, geometry, the padded slot sums written) and the nodal sum
+    (`ek.diag_sum`: the buckets' idx, mask and inv, one 32-byte sector per
+    real slot, the [3, 3, N] blocks written)."""
+    q, npe, E, p = x["q"], x["npe"], x["E"], x["p"]
+    kw = dict(npe=npe, q=q)
+    rows, b = x["rows"], p.buckets
+    slots = ek.diag_slots(x["gradN"], p.detJxW, *rows, **kw)
+    out = ek.diag_sum(slots, b)
+    real = int(sum(float(m.sum()) for m in b.mask))
+    parts = {
+        "elements": (lambda: ek.diag_slots(x["gradN"], p.detJxW, *rows, **kw),
+                     nbytes(x["gradN"], p.detJxW, *rows, slots)),
+        "nodal sum": (lambda: ek.diag_sum(slots, b),
+                      nbytes(*b.idx, *b.mask, b.inv, out) + real * 4 * ek.SLOT_PAD),
+    }
+    table = {}
+    for name, (fn, n_bytes) in parts.items():
+        b_ms = n_bytes / HBM_BYTES_S * 1e3
+        ms, device_ms = cuda_ms(fn), queued_ms(fn)
+        table[name] = dict(bytes=n_bytes, bound_ms=b_ms, ms=ms, device_ms=device_ms)
+        print(f"  elem_diag {name:14s} kernel {ms:9.4f} ms   queued {device_ms:9.4f} ms   bound "
+              f"{b_ms:8.4f} ms ({n_bytes / 1e6:.1f} MB, {100 * b_ms / ms:5.1f}% / "
+              f"{100 * b_ms / device_ms:5.1f}% of it)")
+    return table
 
 
 #: CG iterations of one timed run of phase 6's PCG iteration timings
@@ -3247,6 +3299,7 @@ def phase_timings(kuhn, five_tet, bcsr, card, against=()):
     errs5 = run_checks(calls5)
     report_checks("5tet full", errs5)
     time_calls(calls5, y["q"] * y["E"], y["npe"], table)
+    table["elem_diag"]["parts"] = diag_parts(y)
     time_passes(newton_pcg_passes(solver5, u05, mat, soa.soa_freeze, _residual_df_fn))
     time_passes({"f64 residual (_residual_soa_fn)": lambda: _residual_soa_fn(
         u05, 1.0, solver5._soa64, mat, solver5.bc, solver5.f_ext)})

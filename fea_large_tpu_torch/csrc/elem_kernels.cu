@@ -11,7 +11,9 @@
 // (files under fea_large_tpu/ops/). Each computes what its TPU kernel
 // computes; the plain PyTorch versions sit beside the wrappers in
 // fea_large_tpu_torch/ops/elem_kernels.py. B9 runs in native f64 where the
-// TPU kernel splits every operand into (hi, lo) f32 pairs.
+// TPU kernel splits every operand into (hi, lo) f32 pairs. Two more kernels,
+// fea_elem_diag_f32 and fea_elem_diag_sum_f32, form the block-Jacobi
+// diagonal of an unstructured mesh and replace no TPU kernel (see there).
 //
 // Layout (kept from the reference): every operand is [rows, E], E elements,
 // element axis last. Gathered nodal values ve/ue rows 3a + i, geometry
@@ -45,6 +47,18 @@
 #include <cuda_runtime.h>
 
 #include "material_point.cuh"
+
+// The valence buckets of the diagonal's nodal sum (ops/elem_kernels.py
+// `_Buckets`): bucket b holds rows[b] rows of cap[b] (idx, mask) entries,
+// row-major. Outside the anonymous namespace: the C interface takes it.
+constexpr int kMaxBuckets = 16;
+struct DiagBuckets {
+  const long long* idx[kMaxBuckets];
+  const float* mask[kMaxBuckets];
+  int rows[kMaxBuckets];
+  int cap[kMaxBuckets];
+  int count;
+};
 
 namespace {
 
@@ -301,6 +315,152 @@ resid_kernel(const double* __restrict__ ue, const double* __restrict__ gN,
   store_out<NPE>(out, Es, e, acc);
 }
 
+// ---------------------------------------------------------------------------
+// Block-Jacobi diagonal of an unstructured mesh, in two kernels: the element
+// pass (diag_kernel) and the fixed-order nodal sum (diag_sum_kernel). They
+// replace no TPU kernel: the reference forms this diagonal in plain jnp on
+// unstructured meshes (its lattice counterpart is B3, csrc/struct_kernels.cu).
+// They were added because the plain PyTorch pass, which broadcasts
+// [q, E, npe, 3, 3] temporaries (336 MB each at 1M DOF), took ~6.3 ms of
+// every Newton head's ~7.6 ms on the 1M-DOF TET10 box, ~50x its bytes bound.
+//
+// diag_kernel: sum_q V [(alpha + beta/2) s_a s_a^T + (beta/2) B G_aa
+// + (g_a.S.g_a) I], FA = F A, B = FA F^T, s_a = FA g_a, G_aa = g_a.A.g_a
+// (B3's math on B6's layout). ONE THREAD PER ELEMENT, as B6: every operand
+// row is read once, coalesced along the element axis. Every nodal block is
+// symmetric (s s^T, B = F A F^T with A symmetric, a multiple of I), so the
+// thread sums only the npe x 6 upper-triangle entries over the q points in
+// registers and touches no output inside the point loop. It then writes
+// each slot's six sums, padded to 8 floats (one 32-byte sector, two 16-byte
+// stores), at the flat a-major slot a*E + e that the valence buckets index
+// (ops/soa.py ScatterBuckets): a warp's stores are one contiguous run per
+// a. Bytes per TET10 element (q = 4): F, S, A 108 rows, alpha and beta 8,
+// gradN 120 and detJxW 4 read (960 B), 10 x 32 B written: 224 MB + 75 MB at
+// E = 233,280, 0.089 ms at 3.35 TB/s, against ~0.3 GFLOP (0.005 ms at 67
+// TFLOP/s): bound by bytes. The launch bounds (blocks of at most 128, four
+// a SM) hold it to 128 registers, no spill; at five a SM (96) it spills and
+// is slower. On the H100 the reads alone run at 93% of the rate; the
+// writes, a quarter of the bytes, hold the pass to ~62% of its bound.
+//
+// diag_sum_kernel: ONE THREAD PER NODE n. Its row inv[n] of the
+// concatenated valence buckets names a bucket and a row of cap entries; the
+// thread sums those entries' sectors in the bucket's own order (the order of
+// ScatterBuckets.apply), each weighted by its mask, skipping mask-0 entries
+// (the padding of a row; the mask-0 rows of stacked shard buckets are named
+// by no node). Then it mirrors the upper triangle into the [3, 3, N] blocks,
+// rows 3i + k, coalesced along n. No atomics: two launches are bitwise
+// equal. Bytes: the bucket rows' idx (8 B) and mask (4 B) per padded entry,
+// one 32-byte sector per real entry, inv (8 B) and the 36-byte block per
+// node: ~0.13 GB at 1M DOF. Bound by bytes; its sector reads are gathers.
+// ---------------------------------------------------------------------------
+constexpr int kSlotPad = 8;
+constexpr int kDiagBlock = 128;  // the element pass's largest block
+
+__host__ __device__ constexpr int sym_index(int i, int k) {  // of the row-major upper triangle
+  return i <= k ? 3 * i - i * (i - 1) / 2 + k - i : 3 * k - k * (k - 1) / 2 + i - k;
+}
+
+template <int Q, int NPE>
+__global__ void __launch_bounds__(kDiagBlock, 4)
+diag_kernel(const float* __restrict__ gN, const float* __restrict__ dV,
+            const float* __restrict__ Fb, const float* __restrict__ Sb,
+            const float* __restrict__ Ab, const float* __restrict__ alb,
+            const float* __restrict__ beb, float* __restrict__ slots, int E) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= E) return;
+  const size_t Es = E;
+  float acc[NPE][6];
+#pragma unroll
+  for (int a = 0; a < NPE; ++a)
+#pragma unroll
+    for (int c = 0; c < 6; ++c) acc[a][c] = 0.f;
+#pragma unroll 1
+  for (int k = 0; k < Q; ++k) {
+    float F[3][3], S[3][3], A[3][3];
+    load3(Fb, k, Es, e, F);
+    load3(Sb, k, Es, e, S);
+    load3(Ab, k, Es, e, A);
+    const float al = alb[(size_t)k * Es + e];
+    const float be = beb[(size_t)k * Es + e];
+    const float V = dV[(size_t)k * Es + e];
+    const float w1 = (al + 0.5f * be) * V;
+    const float w2 = 0.5f * be * V;
+    float FA[3][3], w2B[6];
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+        FA[i][j] = F[i][0] * A[0][j] + F[i][1] * A[1][j] + F[i][2] * A[2][j];
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int j = i; j < 3; ++j)
+        w2B[sym_index(i, j)] = w2 * (FA[i][0] * F[j][0] + FA[i][1] * F[j][1] + FA[i][2] * F[j][2]);
+#pragma unroll
+    for (int a = 0; a < NPE; ++a) {
+      float g[3];
+#pragma unroll
+      for (int J = 0; J < 3; ++J) g[J] = gN[(size_t)((k * NPE + a) * 3 + J) * Es + e];
+      float s[3], Ag[3], Sg[3];
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        s[i] = FA[i][0] * g[0] + FA[i][1] * g[1] + FA[i][2] * g[2];
+        Ag[i] = A[i][0] * g[0] + A[i][1] * g[1] + A[i][2] * g[2];
+        Sg[i] = S[i][0] * g[0] + S[i][1] * g[1] + S[i][2] * g[2];
+      }
+      const float Gaa = g[0] * Ag[0] + g[1] * Ag[1] + g[2] * Ag[2];
+      const float geo = V * (g[0] * Sg[0] + g[1] * Sg[1] + g[2] * Sg[2]);
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        const float w1s = w1 * s[i];
+#pragma unroll
+        for (int kk = i; kk < 3; ++kk) {
+          float term = w1s * s[kk] + w2B[sym_index(i, kk)] * Gaa;
+          if (i == kk) term += geo;
+          acc[a][sym_index(i, kk)] += term;
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < NPE; ++a) {
+    float4* dst = reinterpret_cast<float4*>(slots + ((size_t)a * Es + e) * kSlotPad);
+    dst[0] = make_float4(acc[a][0], acc[a][1], acc[a][2], acc[a][3]);
+    dst[1] = make_float4(acc[a][4], acc[a][5], 0.f, 0.f);
+  }
+}
+
+__global__ void __launch_bounds__(kMaxBlock)
+diag_sum_kernel(const float* __restrict__ slots, const DiagBuckets b,
+                const long long* __restrict__ inv, float* __restrict__ out, int N) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= N) return;
+  long long r = inv[n];
+  int k = 0;
+  while (k + 1 < b.count && r >= b.rows[k]) r -= b.rows[k++];
+  const int cap = b.cap[k];
+  const long long* __restrict__ idx = b.idx[k] + r * cap;
+  const float* __restrict__ mask = b.mask[k] + r * cap;
+  float acc[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  for (int j = 0; j < cap; ++j) {
+    const float m = mask[j];
+    if (m == 0.f) continue;
+    const float4* src = reinterpret_cast<const float4*>(slots + idx[j] * kSlotPad);
+    const float4 lo = src[0], hi = src[1];
+    acc[0] += m * lo.x;
+    acc[1] += m * lo.y;
+    acc[2] += m * lo.z;
+    acc[3] += m * lo.w;
+    acc[4] += m * hi.x;
+    acc[5] += m * hi.y;
+  }
+  const size_t Ns = N;
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int kk = 0; kk < 3; ++kk) out[(size_t)(3 * i + kk) * Ns + n] = acc[sym_index(i, kk)];
+}
+
 inline bool bad_launch(int E, int block) {
   return E <= 0 || block <= 0 || block > kMaxBlock || block % 32 != 0;
 }
@@ -371,6 +531,28 @@ int fea_elem_resid_f64(const double* ue, const double* gN, const double* dV, dou
   FEA_ELEM_DISPATCH(q, npe,
                     resid_kernel<kQ, kNPE><<<grid_for(E, block), block, 0, s>>>(
                         ue, gN, dV, out, E, kind, lam, mu));
+  return (int)cudaGetLastError();
+}
+
+int fea_elem_diag_f32(const float* gN, const float* dV, const float* F, const float* S,
+                      const float* A, const float* alpha, const float* beta, float* slots, int E,
+                      int q, int npe, int block, void* stream) {
+  if (bad_launch(E, block) || block > kDiagBlock) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  FEA_ELEM_DISPATCH(q, npe,
+                    diag_kernel<kQ, kNPE><<<grid_for(E, block), block, 0, s>>>(
+                        gN, dV, F, S, A, alpha, beta, slots, E));
+  return (int)cudaGetLastError();
+}
+
+int fea_elem_diag_sum_f32(const float* slots, const DiagBuckets* buckets, const long long* inv,
+                          float* out, int N, int block, void* stream) {
+  if (bad_launch(N, block) || buckets->count < 1 || buckets->count > kMaxBuckets)
+    return (int)cudaErrorInvalidValue;
+  for (int k = 0; k < buckets->count; ++k)
+    if (buckets->rows[k] < 0 || buckets->cap[k] < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  diag_sum_kernel<<<grid_for(N, block), block, 0, s>>>(slots, *buckets, inv, out, N);
   return (int)cudaGetLastError();
 }
 

@@ -23,11 +23,18 @@ kernels (ops/soa.py), and the kernels do the dense element math.
 Each pass has a kernel (csrc/elem_kernels.cu, CUDA C++ for sm_90a: f32
 for the tangent passes, f64 for the residual) and a plain version here
 (`*_plain`, any float dtype). A wrapper (`elem_apply`, `elem_freeze`,
-`elem_force`, `elem_resid`) runs the plain version when its tensors lie on
-the CPU; on a CUDA tensor it launches the kernel or raises. The
-unstructured f32 passes of ops/soa.py go through the first three
-wrappers; the f64 residual of the mixed path goes through `elem_resid`
-(ops/residual.py). `LAUNCHES` counts kernel launches per pass.
+`elem_force`, `elem_resid`, `elem_diag`) runs the plain version when its
+tensors lie on the CPU; on a CUDA tensor it launches the kernel or raises.
+The unstructured f32 passes of ops/soa.py go through `elem_freeze`,
+`elem_apply`, `elem_force` and `elem_diag`; the f64 residual of the mixed
+path goes through `elem_resid` (ops/residual.py). `LAUNCHES` counts kernel
+launches per pass.
+
+The block-Jacobi diagonal (`elem_diag`) has no TPU kernel in the
+reference: its element pass writes per-slot sums, and a second kernel sums
+them into nodal blocks through the valence buckets of ops/soa.py
+(`ScatterBuckets`), in the buckets' fixed order. Its plain version ends in
+the same bucket sum, so both return the [3, 3, N] blocks.
 """
 
 from __future__ import annotations
@@ -41,7 +48,8 @@ from fea_large_tpu_torch.ops.smallmat import mm3
 
 #: kernel launches per pass since the last reset (the wrappers increment
 #: these where they launch their kernel, and nowhere else)
-LAUNCHES = {"apply": 0, "freeze": 0, "force": 0, "resid": 0}
+#: ("diag" counts a call of `elem_diag`: its element pass and nodal sum)
+LAUNCHES = {"apply": 0, "freeze": 0, "force": 0, "resid": 0, "diag": 0}
 
 #: (q, npe) the kernels are instantiated for: TET10 with the 4-point and
 #: the 5-point rule and TET4 with the 1-point rule
@@ -51,6 +59,11 @@ SUPPORTED = ((4, 10), (5, 10), (1, 4))
 BLOCK = 128
 
 SOURCE = cuda_build.CSRC / "elem_kernels.cu"
+
+#: floats per element slot of the diagonal's scratch (six sums, padded to
+#: one 32-byte sector) and the most valence buckets its nodal sum takes
+SLOT_PAD = 8
+MAX_BUCKETS = 16
 
 
 # ---------------------------------------------------------------------------
@@ -131,9 +144,46 @@ def elem_resid_plain(ue, gradN, detJxW, material, *, npe: int, q: int):
     return elem_force_plain(gradN, detJxW, F, S, npe=npe, q=q)
 
 
+def elem_diag_plain(gradN, detJxW, F, S, A, alpha, beta, buckets, *, npe: int, q: int):
+    """Nodal 3x3 block-Jacobi diagonal [3, 3, N] (rows 3i + k): per
+    element slot sum_q V [(alpha + beta/2) s_a s_a^T + (beta/2) B G_aa +
+    (g_a.S.g_a) I] with FA = F A, B = FA F^T, s_a = FA g_a, G_aa =
+    g_a.A.g_a, summed into nodes by `buckets` (a `ScatterBuckets` of the
+    flat a-major slots). Written as broadcast multiplies and sums (`mm3`):
+    as batched matrix products the per-element 3x3 blocks run as millions
+    of tiny GEMMs."""
+    g = _g(gradN, q, npe)  # [q, E, npe, 3]
+    gJ = g[..., None, :]  # [q, E, npe, 1, 3]
+    F, S, A = (_points(x, q)[:, :, None] for x in (F, S, A))  # [q, E, 1, 3, 3]
+    FA = mm3(F, A)
+    B = mm3(FA, F.transpose(-1, -2))
+    s = (FA * gJ).sum(-1)  # [q, E, npe, 3]
+    G = (g * (A * gJ).sum(-1)).sum(-1)  # [q, E, npe]
+    geo = (g * (S * gJ).sum(-1)).sum(-1) * detJxW[..., None]
+    w1 = ((alpha + 0.5 * beta) * detJxW)[..., None, None, None]
+    w2 = (0.5 * beta * detJxW)[..., None, None, None]
+    eye = torch.eye(3, dtype=F.dtype, device=F.device)
+    term = (
+        w1 * s[..., :, None] * s[..., None, :]
+        + w2 * B * G[..., None, None]
+        + geo[..., None, None] * eye
+    )  # [q, E, npe, 3, 3]
+    slots = term.sum(0).permute(2, 3, 1, 0).reshape(9, -1)  # [9, npe*E], a-major
+    return buckets.apply(slots).view(3, 3, -1)
+
+
 # ---------------------------------------------------------------------------
 # kernels
 # ---------------------------------------------------------------------------
+
+
+class _Buckets(ctypes.Structure):
+    """`DiagBuckets` of csrc/elem_kernels.cu: the valence buckets' idx and
+    mask pointers, rows and caps."""
+
+    _fields_ = [("idx", ctypes.c_void_p * MAX_BUCKETS), ("mask", ctypes.c_void_p * MAX_BUCKETS),
+                ("rows", ctypes.c_int * MAX_BUCKETS), ("cap", ctypes.c_int * MAX_BUCKETS),
+                ("count", ctypes.c_int)]
 
 
 def _library():
@@ -143,6 +193,8 @@ def _library():
         "fea_elem_apply_f32": [P] * 9 + [I] * 4 + [P],
         "fea_elem_force_f32": [P] * 5 + [I] * 4 + [P],
         "fea_elem_resid_f64": [P] * 4 + [I] * 5 + [ctypes.c_double] * 2 + [P],
+        "fea_elem_diag_f32": [P] * 8 + [I] * 4 + [P],
+        "fea_elem_diag_sum_f32": [P, ctypes.POINTER(_Buckets), P, P, I, I, P],
     })
 
 
@@ -152,8 +204,18 @@ def _check(named: dict, shapes: dict, npe: int, q: int, block: int,
     device with the expected shape, for a supported element and block."""
     if (q, npe) not in SUPPORTED:
         raise ValueError(f"no element kernel for (q, npe) = {(q, npe)}")
-    if not (0 < block <= 256 and block % 32 == 0):
-        raise ValueError(f"block must be a multiple of 32 up to 256, got {block}")
+    _check_block(block)
+    _check_tensors(named, shapes, dtype)
+
+
+def _check_block(block: int, most: int = 256):
+    if not (0 < block <= most and block % 32 == 0):
+        raise ValueError(f"block must be a multiple of 32 up to {most}, got {block}")
+
+
+def _check_tensors(named: dict, shapes: dict, dtype: torch.dtype):
+    """Raise unless every tensor is a contiguous `dtype` tensor on one CUDA
+    device with the expected shape."""
     dev = next(iter(named.values())).device
     for name, x in named.items():
         if x.device != dev or x.device.type != "cuda":
@@ -166,12 +228,16 @@ def _check(named: dict, shapes: dict, npe: int, q: int, block: int,
             raise ValueError(f"{name}: expected shape {shapes[name]}, got {tuple(x.shape)}")
 
 
-def _launch(fn: str, device, *args, suffix: str = "f32"):
+def _call(fn: str, device, *args, suffix: str = "f32"):
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = getattr(_library(), f"fea_elem_{fn}_{suffix}")(*args, stream)
     if err != 0:
         raise RuntimeError(f"element {fn} kernel launch failed: CUDA error {err}")
+
+
+def _launch(fn: str, device, *args, suffix: str = "f32"):
+    _call(fn, device, *args, suffix=suffix)
     LAUNCHES[fn] += 1
 
 
@@ -240,6 +306,75 @@ def elem_resid(ue, gradN, detJxW, material, *, npe: int, q: int, block: int = BL
     _launch("resid", ue.device, *(_ptr(x) for x in named.values()), _ptr(out),
             E, q, npe, block, kind, ctypes.c_double(material.lam),
             ctypes.c_double(material.mu), suffix="f64")
+    return out
+
+
+def bucket_table(buckets) -> _Buckets:
+    """The `DiagBuckets` of a `ScatterBuckets` (its tables' addresses, rows
+    and caps) for the nodal sum's C interface."""
+    if not 1 <= len(buckets.idx) <= MAX_BUCKETS:
+        raise ValueError(f"the nodal sum takes 1 to {MAX_BUCKETS} buckets, got {len(buckets.idx)}")
+    table = _Buckets(count=len(buckets.idx))
+    for b, (idx, mask) in enumerate(zip(buckets.idx, buckets.mask)):
+        table.idx[b], table.mask[b] = idx.data_ptr(), mask.data_ptr()
+        table.rows[b], table.cap[b] = idx.shape
+    return table
+
+
+def _check_buckets(buckets, device):
+    """Raise unless the buckets are contiguous int64 idx and float32 mask
+    [rows, cap] tables and an int64 inv [N] on `device`."""
+    inv = buckets.inv
+    if inv.dim() != 1 or inv.device != device:
+        raise ValueError(f"inv: expected [N] on {device}, got {tuple(inv.shape)} on {inv.device}")
+    _check_tensors({"inv": inv}, {"inv": tuple(inv.shape)}, torch.int64)
+    for b, (idx, mask) in enumerate(zip(buckets.idx, buckets.mask)):
+        if idx.dim() != 2 or idx.device != device:
+            raise ValueError(f"bucket {b}: expected idx [rows, cap] on {device}")
+        _check_tensors({"idx": idx}, {"idx": tuple(idx.shape)}, torch.int64)
+        _check_tensors({"mask": mask}, {"mask": tuple(idx.shape)}, torch.float32)
+
+
+def diag_slots(gradN, detJxW, F, S, A, alpha, beta, *, npe: int, q: int, block: int = BLOCK):
+    """The diagonal's element pass (counted by `elem_diag`, not here): the
+    six upper-triangle sums of every slot, [npe*E, SLOT_PAD] a-major.
+    Blocks of at most 128 threads (its launch bounds)."""
+    _check_block(block, 128)
+    E = gradN.shape[-1]
+    named = {"gradN": gradN, "detJxW": detJxW, "F": F, "S": S, "A": A, "alpha": alpha,
+             "beta": beta}
+    rq, rp = (q * 9, E), (q, E)
+    _check(named, {"gradN": (q * npe * 3, E), "detJxW": rp, "F": rq, "S": rq, "A": rq,
+                   "alpha": rp, "beta": rp}, npe, q, block)
+    slots = gradN.new_empty((npe * E, SLOT_PAD))
+    _call("diag", gradN.device, *(_ptr(x) for x in named.values()), _ptr(slots), E, q, npe, block)
+    return slots
+
+
+def diag_sum(slots, buckets, *, block: int = BLOCK):
+    """The diagonal's nodal sum (counted by `elem_diag`, not here): the
+    slots' sums through `buckets` in their fixed order, [3, 3, N]."""
+    N = buckets.inv.shape[0]
+    _check_block(block)
+    _check_tensors({"slots": slots}, {"slots": (slots.shape[0], SLOT_PAD)}, torch.float32)
+    _check_buckets(buckets, slots.device)
+    table = bucket_table(buckets)
+    out = slots.new_empty((3, 3, N))
+    _call("diag_sum", slots.device, _ptr(slots), ctypes.byref(table), _ptr(buckets.inv),
+          _ptr(out), N, block)
+    return out
+
+
+def elem_diag(gradN, detJxW, F, S, A, alpha, beta, buckets, *, npe: int, q: int,
+              block: int = BLOCK):
+    """The block-Jacobi diagonal (no TPU kernel): the element pass
+    (`diag_slots`) and the nodal sum (`diag_sum`), one count of
+    `LAUNCHES["diag"]`. See `elem_diag_plain`."""
+    if gradN.device.type == "cpu":
+        return elem_diag_plain(gradN, detJxW, F, S, A, alpha, beta, buckets, npe=npe, q=q)
+    out = diag_sum(diag_slots(gradN, detJxW, F, S, A, alpha, beta, npe=npe, q=q, block=block),
+                   buckets, block=block)
+    LAUNCHES["diag"] += 1
     return out
 
 

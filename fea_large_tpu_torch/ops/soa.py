@@ -18,9 +18,11 @@ dtype and device:
 Unstructured meshes: full per-element tables gradN [q, npe, 3, E] and
 detJxW [q, E], a conn_T gather, the element-block pass, and a
 deterministic nodal sum through the valence buckets of `ScatterBuckets`.
-The freeze, force and tangent action route as on a lattice, to the
-element-block kernels (`ek.elem_*`, ops/elem_kernels.py) for f32 on CUDA;
-the diagonal has no kernel in the reference and stays plain PyTorch.
+The freeze, force, tangent action and block-Jacobi diagonal route as on
+a lattice, to the element-block kernels (`ek.elem_*`, ops/elem_kernels.py)
+for f32 on CUDA. The diagonal's kernels (`ek.elem_diag`: an element pass
+and a nodal sum through the same valence buckets) have no counterpart in
+the reference, which forms this diagonal in plain jnp.
 """
 
 from __future__ import annotations
@@ -32,7 +34,6 @@ import torch
 
 from fea_large_tpu_torch.ops import elem_kernels as ek
 from fea_large_tpu_torch.ops import struct_kernels as sk
-from fea_large_tpu_torch.ops.smallmat import mm3
 
 
 # ---------------------------------------------------------------------------
@@ -385,38 +386,12 @@ def soa_apply_tangent(p: SoAProblem, state: SoAState, v_T: torch.Tensor) -> torc
 def soa_diag_blocks(p: SoAProblem, state: SoAState) -> torch.Tensor:
     """Nodal 3x3 diagonal blocks [3, 3, N] for block-Jacobi."""
     if p.structure is None:
-        return soa_scatter(p, _elem_diag_plain(p, state)).reshape(3, 3, p.n_nodes)
+        q, npe, gradN, detJxW = ek.flat_tables(p)
+        rows = ek.flatten_state(state)
+        fn = _route(p, rows[0], ek.elem_diag, ek.elem_diag_plain)
+        return fn(gradN, detJxW, *rows, p.buckets, npe=npe, q=q)
     tb = p.tables
     rows = state.rows(tb)
     fn = _route(p, rows[0], sk.struct_diag, sk.struct_diag_plain)
     out = sk.scatter_pairs(p.structure, tb.pairs, fn(tb, *rows), 9)
     return out.reshape(3, 3, p.n_nodes)
-
-
-def _elem_diag_plain(p: SoAProblem, state: SoAState) -> torch.Tensor:
-    """Per-element 3x3 diagonal blocks [9, npe, E] (rows 3i + k):
-    sum_q V [(alpha + beta/2) s_a s_a^T + (beta/2) B G_aa + (g_a.S.g_a) I]
-    with FA = F A, B = FA F^T, s_a = FA g_a, G_aa = g_a.A.g_a. The
-    reference has no kernel for this pass on unstructured meshes. Written
-    as broadcast multiplies and sums (`mm3`): as batched matrix products
-    the per-element 3x3 blocks run as millions of tiny GEMMs."""
-    def pts(x):  # [q, 3, 3, E] -> [q, E, 1, 3, 3]
-        return x.permute(0, 3, 1, 2)[:, :, None]
-
-    F, S, A = pts(state.F), pts(state.S), pts(state.A)
-    g = p.gradN.permute(0, 3, 1, 2)  # [q, E, npe, 3]
-    gJ = g[..., None, :]  # [q, E, npe, 1, 3]
-    FA = mm3(F, A)
-    B = mm3(FA, F.transpose(-1, -2))
-    s = (FA * gJ).sum(-1)  # [q, E, npe, 3]
-    G = (g * (A * gJ).sum(-1)).sum(-1)  # [q, E, npe]
-    geo = (g * (S * gJ).sum(-1)).sum(-1) * p.detJxW[..., None]
-    w1 = ((state.alpha + 0.5 * state.beta) * p.detJxW)[..., None, None, None]
-    w2 = (0.5 * state.beta * p.detJxW)[..., None, None, None]
-    eye = torch.eye(3, dtype=F.dtype, device=F.device)
-    term = (
-        w1 * s[..., :, None] * s[..., None, :]
-        + w2 * B * G[..., None, None]
-        + geo[..., None, None] * eye
-    )  # [q, E, npe, 3, 3]
-    return term.sum(0).permute(2, 3, 1, 0).reshape(9, p.gradN.shape[1], -1)

@@ -44,6 +44,11 @@ inline int cudaGetLastError() { return 0; }
 template <class T>
 inline T __ldg(const T* p) { return *p; }
 
+struct alignas(16) float4 {
+  float x, y, z, w;
+};
+inline float4 make_float4(float x, float y, float z, float w) { return float4{x, y, z, w}; }
+
 namespace cuda_on_cpu {
 inline std::barrier<>* block_barrier;
 inline std::vector<std::unique_ptr<std::barrier<>>> warp_barriers;

@@ -108,7 +108,7 @@ def test_unstructured_passes_route_f32_through_the_wrappers(monkeypatch):
     (bitwise here, with no launch counted); the f64 passes call the plain
     versions. A Kuhn lattice never reaches the element-block wrappers."""
     calls = []
-    for name in ("elem_freeze", "elem_apply", "elem_force"):
+    for name in ("elem_freeze", "elem_apply", "elem_force", "elem_diag"):
         wrapper = getattr(ek, name)
         monkeypatch.setattr(ek, name, lambda *a, _w=wrapper, _n=name, **k: (calls.append(_n), _w(*a, **k))[1])
     before = dict(ek.LAUNCHES)
@@ -125,13 +125,39 @@ def test_unstructured_passes_route_f32_through_the_wrappers(monkeypatch):
         assert torch.equal(soa.soa_apply_tangent(p, st, v), soa.soa_scatter(p, ke.view(3, npe, -1)))
         fe = ek.elem_force_plain(gradN, dV, *rows[:2], npe=npe, q=q)
         assert torch.equal(soa.soa_internal_force(p, st), soa.soa_scatter(p, fe.view(3, npe, -1)))
-        assert calls == (["elem_freeze", "elem_apply", "elem_force"] if dtype == torch.float32 else [])
+        de = ek.elem_diag_plain(gradN, dV, *rows, p.buckets, npe=npe, q=q)
+        assert torch.equal(soa.soa_diag_blocks(p, st), de)
+        assert calls == (["elem_freeze", "elem_apply", "elem_force", "elem_diag"]
+                         if dtype == torch.float32 else [])
         calls.clear()
     p = soa.SoAProblem.build(box_mesh_kuhn(2, 2, 1, element_type="tet10", device="cpu"), torch.float32)
     st = soa.soa_freeze(p, mat, torch.zeros((3, p.n_nodes)))
     soa.soa_apply_tangent(p, st, torch.ones((3, p.n_nodes)))
     soa.soa_internal_force(p, st)
+    soa.soa_diag_blocks(p, st)
     assert calls == [] and ek.LAUNCHES == before
+
+
+def test_unstructured_diag_routes_f32_to_the_kernel_on_card(monkeypatch):
+    """On the card the f32 unstructured diagonal reaches `ek.elem_diag`,
+    which launches (one count of `LAUNCHES["diag"]`) and runs no plain
+    pass; the f64 diagonal stays plain and launches nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels are CUDA C++ for sm_90a")
+    plain = []
+    wrapped = ek.elem_diag_plain
+    monkeypatch.setattr(ek, "elem_diag_plain", lambda *a, **k: (plain.append(1), wrapped(*a, **k))[1])
+    mesh = box_mesh(3, 3, 3, element_type="tet10", device="cuda")
+    u, _ = _smooth(mesh.coords_host)
+    for dtype in (torch.float32, torch.float64):
+        p = soa.SoAProblem.build(mesh, dtype)
+        st = soa.soa_freeze(p, NeoHookean(1.0, 0.6), torch.tensor(u, dtype=dtype, device="cuda"))
+        n0 = ek.LAUNCHES["diag"]
+        out = soa.soa_diag_blocks(p, st)
+        torch.cuda.synchronize()
+        assert out.shape == (3, 3, p.n_nodes) and out.dtype == dtype
+        assert ek.LAUNCHES["diag"] == n0 + (dtype == torch.float32)
+        assert plain == ([] if dtype == torch.float32 else [1])
 
 
 def test_material_kind_rejects_other_materials():
@@ -261,3 +287,48 @@ def test_five_point_rule_elem_kernels_match_plain_on_card():
     args = (ue.double(), gradN.double(), p.detJxW.double(), mat)
     assert _rel(ek.elem_resid(*args, **kw), ek.elem_resid_plain(*args, **kw)) <= 1e-12
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("et,n_quad", [("tet10", None), ("tet10", 5), ("tet4", None)],
+                         ids=["tet10", "tet10-5pt", "tet4"])
+@pytest.mark.parametrize("block", [32, 128])
+def test_elem_diag_kernel_matches_plain_on_card(et, n_quad, block):
+    """The unstructured diagonal's element pass and nodal sum (`ek.elem_diag`)
+    for the three (q, npe) instances against `ek.elem_diag_plain`: within
+    2e-5 of the largest entry, symmetric blocks, and two launches bitwise
+    equal (a fixed-order sum, no atomics); one count a call."""
+    p, q, npe, _, _, state = _card_inputs(et, block, n_quad)
+    assert (q, npe) in ek.SUPPORTED
+    gradN = p.gradN.view(q * npe * 3, -1)
+    n0 = ek.LAUNCHES["diag"]
+    a = ek.elem_diag(gradN, p.detJxW, *state, p.buckets, npe=npe, q=q, block=block)
+    b = ek.elem_diag(gradN, p.detJxW, *state, p.buckets, npe=npe, q=q, block=block)
+    torch.cuda.synchronize()
+    assert ek.LAUNCHES["diag"] == n0 + 2
+    assert a.shape == (3, 3, p.n_nodes) and torch.equal(a, b) and torch.equal(a, a.transpose(0, 1))
+    assert _rel(a, ek.elem_diag_plain(gradN, p.detJxW, *state, p.buckets, npe=npe, q=q)) <= 2e-5
+
+
+def test_elem_diag_kernel_matches_plain_on_a_shard_on_card():
+    """The diagonal on the card on the padded tables of the shard with the
+    most padding of a 5-tet box cut into 4 slabs, built as the sharded ranks
+    build them (`shard_soa`): padded elements and the mask-0 rows of the
+    stacked buckets sum nothing; within 2e-5 of the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels are CUDA C++ for sm_90a")
+    from fea_large_tpu_torch.dist.partition import partition_mesh
+    from fea_large_tpu_torch.dist.sharded import shard_soa
+
+    mesh = box_mesh(6, 3, 3, element_type="tet10", device="cpu")
+    part = partition_mesh(mesh, 4, method="slab")
+    r = int(np.argmin((part.elem_global >= 0).sum(axis=1)))
+    p = shard_soa(mesh, part, r, torch.device("cuda"), mixed=True).p32
+    assert int((part.elem_global[r] < 0).sum()) > 0
+    assert sum(m.shape[0] for m in p.buckets.mask) > p.buckets.inv.shape[0]
+    u, _ = _smooth(part.from_global(mesh.coords_host, space="local")[r])
+    st = soa.soa_freeze(p, NeoHookean(1.0, 0.6), torch.tensor(u, dtype=torch.float32, device="cuda"))
+    q, npe, gradN, dV = ek.flat_tables(p)
+    rows = ek.flatten_state(st)
+    out = ek.elem_diag(gradN, dV, *rows, p.buckets, npe=npe, q=q)
+    torch.cuda.synchronize()
+    assert _rel(out, ek.elem_diag_plain(gradN, dV, *rows, p.buckets, npe=npe, q=q)) <= 2e-5

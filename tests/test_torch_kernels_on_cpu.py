@@ -1,12 +1,15 @@
 """PyTorch port: the CUDA sources of the kernels whose threads share a
 block's work, run on the CPU against their plain versions.
 
-B10 (`csrc/bcsr_kernels.cu`: a warp per block row, a shuffle tree) and
-the five kernels of `csrc/struct_kernels.cu`, all one thread per (tet slot,
+B10 (`csrc/bcsr_kernels.cu`: a warp per block row, a shuffle tree), the
+five kernels of `csrc/struct_kernels.cu`, all one thread per (tet slot,
 cell): B1 (`apply_kernel`), B3 (`diag_kernel`), B4 (`force_kernel`) and B5
 (`resid_kernel`, in double), whose register sums end in a shared-memory
 combine behind `__syncthreads()`, and B2 (`freeze_kernel`), whose threads
-store their own rows, are compiled with g++ against `tests/cuda_on_cpu/cuda_runtime.h`, which runs every CUDA
+store their own rows, and the unstructured block-Jacobi diagonal of
+`csrc/elem_kernels.cu` (`diag_kernel`, a thread per element writing padded
+slot sums, and `diag_sum_kernel`, a thread per node summing them through
+the valence buckets), are compiled with g++ against `tests/cuda_on_cpu/cuda_runtime.h`, which runs every CUDA
 block as real host threads with barriers for `__syncthreads()` and for the
 warp shuffles. The C interface is then called on CPU tensors exactly as the
 wrappers call it on the card. This holds the kernels' indexing, masking of
@@ -32,12 +35,25 @@ from fea_large_tpu_torch.assembly.bcsr import BCSRStructure
 from fea_large_tpu_torch.materials import NeoHookean, NeoHookeanVolumetric, StVenantKirchhoff
 from fea_large_tpu_torch.mesh.generators import box_mesh, box_mesh_kuhn
 from fea_large_tpu_torch.ops import bcsr_kernels as bk, cuda_build, soa, struct_kernels as sk
+from fea_large_tpu_torch.ops import elem_kernels as ek
 
 torch.set_num_threads(2)
 
 STUB = Path(__file__).parent / "cuda_on_cpu"
 MATERIALS = (StVenantKirchhoff(1.0, 0.6), NeoHookean(1.0, 0.6), NeoHookeanVolumetric(1.0, 0.6))
 LAUNCH = re.compile(r"(\w+(?:<[^<>;]*?>)?)\s*<<<(.*?)>>>\s*\(", re.S)
+
+
+def _split_args(args: str) -> list:
+    """The comma-separated arguments of a launch's <<<...>>>, split only at
+    commas outside parentheses (a grid may be a call, `grid_for(E, block)`)."""
+    parts, depth, start = [], 0, 0
+    for i, ch in enumerate(args):
+        depth += {"(": 1, ")": -1}.get(ch, 0)
+        if ch == "," and depth == 0:
+            parts.append(args[start:i])
+            start = i + 1
+    return [*parts, args[start:]]
 
 
 def _rewrite_launches(src: str) -> str:
@@ -49,7 +65,7 @@ def _rewrite_launches(src: str) -> str:
         while depth:
             depth += {"(": 1, ")": -1}.get(src[end], 0)
             end += 1
-        grid, block = (c.strip() for c in m.group(2).split(",")[:2])
+        grid, block = (c.strip() for c in _split_args(m.group(2))[:2])
         out.append(src[pos:m.start()])
         out.append(f"CUDA_ON_CPU_LAUNCH(({m.group(1)}), {grid}, {block}, {src[m.end():end - 1]})")
         pos = end
@@ -269,3 +285,104 @@ def test_lattice_source_refuses_other_rules(struct_lib):
     tb, cache, vcache, rows = _lattice("tet4", (4, 3, 2), material, n_quad=4)
     assert (tb.q, tb.npe, tb.T) == (4, 4, 6) and (tb.q, tb.npe, tb.T) not in sk.SUPPORTED
     assert _launch_lattice(struct_lib, "force", tb, cache, vcache, rows, material)[2] != 0
+
+
+@pytest.fixture(scope="module")
+def elem_lib(tmp_path_factory):
+    lib = _build(ek.SOURCE, tmp_path_factory.mktemp("elem"))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.fea_elem_diag_f32.argtypes = [P] * 8 + [I] * 4 + [P]
+    lib.fea_elem_diag_sum_f32.argtypes = [P, ctypes.POINTER(ek._Buckets), P, P, I, I, P]
+    lib.fea_elem_diag_f32.restype = lib.fea_elem_diag_sum_f32.restype = I
+    return lib
+
+
+def _launch_diag(lib, p, rows, block):
+    """The unstructured diagonal through the C interface, as `ek.elem_diag`
+    launches it (the element pass into a NaN-filled slot scratch, then the
+    nodal sum into NaN-filled blocks): (blocks [3, 3, N], CUDA errors)."""
+    q, npe, gradN, dV = ek.flat_tables(p)
+    E = gradN.shape[-1]
+    N = p.buckets.inv.shape[0]
+    slots = torch.full((npe * E, ek.SLOT_PAD), float("nan"))
+    out = torch.full((3, 3, N), float("nan"))
+    err1 = lib.fea_elem_diag_f32(_ptr(gradN), _ptr(dV), *(_ptr(r) for r in rows), _ptr(slots),
+                                 E, q, npe, block, None)
+    table = ek.bucket_table(p.buckets)
+    err2 = lib.fea_elem_diag_sum_f32(_ptr(slots), ctypes.byref(table), _ptr(p.buckets.inv),
+                                     _ptr(out), N, block, None)
+    return out, (err1, err2)
+
+
+def _sharded_problem(et):
+    """The shard with the most padding of a 5-tet box cut into 3 slabs: its
+    f32 SoA problem (padded elements with zero geometry) and its stacked
+    buckets, which hold mask-0 padding rows, as the sharded ranks build
+    them (`shard_soa`), and the shard's nodes' coordinates."""
+    from fea_large_tpu_torch.dist.partition import partition_mesh
+    from fea_large_tpu_torch.dist.sharded import shard_soa
+
+    mesh = box_mesh(5, 2, 2, element_type=et, device="cpu")
+    part = partition_mesh(mesh, 3, method="slab")
+    r = int(np.argmin((part.elem_global >= 0).sum(axis=1)))
+    p = shard_soa(mesh, part, r, "cpu", mixed=True).p32
+    padded = int((part.elem_global[r] < 0).sum())
+    named = p.buckets.inv.shape[0]
+    rows = sum(m.shape[0] for m in p.buckets.mask)
+    zero_rows = sum(int((m.sum(1) == 0).sum()) for m in p.buckets.mask)
+    assert padded > 0 and rows > named and zero_rows > 0
+    return p, part.from_global(mesh.coords_host, space="local")[r]
+
+
+DIAG_CASES = {
+    "tet4": lambda: box_mesh(4, 3, 2, element_type="tet4", device="cpu"),
+    "tet10": lambda: box_mesh(4, 3, 2, element_type="tet10", device="cpu"),
+    "tet10-5pt": lambda: box_mesh(4, 3, 2, element_type="tet10", device="cpu", n_quad=5),
+}
+
+
+@pytest.mark.parametrize("case", [*DIAG_CASES, "tet10-shard", "tet4-shard"])
+def test_elem_diag_source_matches_plain_on_cpu_threads(elem_lib, case):
+    """The unstructured diagonal's two kernels (`fea_elem_diag_f32`,
+    `fea_elem_diag_sum_f32`) against `ek.elem_diag_plain`: TET4 (q = 1),
+    TET10 with the 4-point and the 5-point rule on a box of 120 elements (a
+    partial last block of 32 and of 128), and a shard of a box cut into
+    slabs, whose padded elements sum nothing and whose stacked buckets
+    hold mask-0 padding rows. Blocks of 32 and 128 threads: every block
+    written, symmetric, within 2e-5 of the plain version's largest entry,
+    bitwise equal across block sizes and across two launches."""
+    if case.endswith("-shard"):
+        p, coords = _sharded_problem(case.split("-")[0])
+    else:
+        mesh = DIAG_CASES[case]()
+        p, coords = soa.SoAProblem.build(mesh, torch.float32), mesh.coords_host
+    q, npe, gradN, dV = ek.flat_tables(p)
+    assert (q, npe) in ek.SUPPORTED and gradN.shape[-1] % 32 != 0
+    c = coords.T
+    u = np.stack([0.01 * np.sin(np.pi * c[0]) * c[2], 0.02 * c[0] * c[1], -0.05 * c[2]])
+    state = soa.soa_freeze(p, NeoHookean(1.0, 0.6), torch.tensor(u, dtype=torch.float32))
+    rows = [r.contiguous() for r in ek.flatten_state(state)]
+    plain = ek.elem_diag_plain(gradN, dV, *rows, p.buckets, npe=npe, q=q)
+    outs = []
+    for block in (32, 128, 128):
+        out, errs = _launch_diag(elem_lib, p, rows, block)
+        assert errs == (0, 0)
+        assert not out.isnan().any()
+        assert torch.equal(out, out.transpose(0, 1))
+        assert float((out - plain).abs().max()) <= 2e-5 * float(plain.abs().max())
+        outs.append(out)
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[1], outs[2])
+
+
+def test_elem_diag_source_refuses_bad_launches(elem_lib):
+    """A (q, npe) with no instance, a block that is not a multiple of 32 or
+    is over the element pass's 128, and bucket tables with no bucket are
+    refused by the C interface."""
+    z = torch.zeros(8)
+    i = torch.zeros(1, dtype=torch.int64)
+    for q, npe, block in ((4, 4, 32), (4, 10, 100), (4, 10, 256)):
+        assert elem_lib.fea_elem_diag_f32(*(_ptr(z) for _ in range(8)), 1, q, npe, block,
+                                          None) != 0
+    empty = ek._Buckets(count=0)
+    assert elem_lib.fea_elem_diag_sum_f32(_ptr(z), ctypes.byref(empty), _ptr(i), _ptr(z), 1, 32,
+                                          None) != 0
