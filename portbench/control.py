@@ -17,7 +17,17 @@ would be correct, from one process that sets the cell up once. Modes:
              residual rows set to zero (increments: every f64 residual;
              steps: the right-hand side);
   altered    the answer altered where it is produced: one free node's u_z
-             moved by 1e-3 of the answer's largest entry.
+             moved by 1e-3 of the answer's largest entry;
+  exchange   (cells over several cards) the exchange between the cards
+             left out: the boundary-plane hops of the sharded solver's
+             gather and reduce (the fixed-order sums stay, so the ranks
+             still agree on every flag).
+
+On a cell over several cards every mode is planted inside each rank
+(`rank_patched`): the control computes the f64 residual of the rank
+bodies (`_residual64`, in `head` and `resid`) by the f32 element pass;
+`half` zeroes the second half of each rank's residual rows; `unchanged`
+and `altered` act on `_newton`'s answer (altered: on rank 0's part).
 """
 
 from __future__ import annotations
@@ -37,11 +47,12 @@ import torch  # noqa: E402
 import generator  # noqa: E402
 import harness  # noqa: E402
 import judge  # noqa: E402
+import sharded  # noqa: E402
 from fea_large_tpu_torch.ops.soa import soa_freeze, soa_internal_force  # noqa: E402
 from fea_large_tpu_torch.solvers import device_loop, newton  # noqa: E402
 from fea_large_tpu_torch.solvers.newton import NewtonSolver  # noqa: E402
 
-MODES = ("sound", "control", "unchanged", "half", "altered")
+MODES = ("sound", "control", "unchanged", "half", "altered", "exchange")
 
 
 @contextlib.contextmanager
@@ -96,10 +107,19 @@ def _alter(u):
     return u
 
 
+@contextlib.contextmanager
 def patched(mode: str, kind: str):
     """A context manager that plants `mode` in the program for requests of
-    `kind` ("increment" or "step")."""
-    if mode == "sound":
+    `kind` ("increment" or "step"): in this process, and on the ranks of a
+    cell over several cards (`sharded.MODE`)."""
+    with _patched((sharded, "MODE", mode)), _here(mode, kind):
+        yield
+
+
+def _here(mode: str, kind: str):
+    """`mode` planted in this process's program (none for "exchange": one
+    card exchanges nothing)."""
+    if mode in ("sound", "exchange"):
         return contextlib.nullcontext()
     init, newton_fn, step_fn = NewtonSolver.__init__, NewtonSolver._newton, NewtonSolver.step_fn
     prepare, freeze = NewtonSolver._mixed_prepare, NewtonSolver._freeze
@@ -147,12 +167,56 @@ def patched(mode: str, kind: str):
     raise ValueError(f"unknown mode {mode!r}")
 
 
+def rank_patched(mode: str):
+    """A context manager that plants `mode` in a rank's sharded solver (the
+    module docstring), before the rank builds it: its captured graphs then
+    hold what is planted."""
+    from fea_large_tpu_torch.dist.sharded import ShardedNewtonSolver
+    from fea_large_tpu_torch.dist.structured_solver import StructuredShardedSolver
+
+    newton_fn, residual = ShardedNewtonSolver._newton, ShardedNewtonSolver._residual64
+    if mode == "control":
+        def residual32(self, u, scale):
+            d, p32 = self.data, self.soa.p32
+            state = soa_freeze(p32, self.material,
+                               self._expand_u(u).to(torch.float32).T.contiguous())
+            f = self._assemble(soa_internal_force(p32, state).T.to(torch.float64))
+            return (scale * d.f_ext - f) * d.free_mask
+        return _patched((ShardedNewtonSolver, "_residual64", residual32))
+    if mode == "unchanged":
+        def newton_same(self, u, scale):
+            _, ok, rec = newton_fn(self, u, scale)
+            return u, ok, rec
+        return _patched((ShardedNewtonSolver, "_newton", newton_same))
+    if mode == "half":
+        def residual_half(self, u, scale):
+            return _half_rows(residual(self, u, scale))
+        return _patched((ShardedNewtonSolver, "_residual64", residual_half))
+    if mode == "altered":
+        def newton_altered(self, u, scale):
+            u, ok, rec = newton_fn(self, u, scale)
+            return (_alter(u) if self.comm.rank == 0 else u), ok, rec
+        return _patched((ShardedNewtonSolver, "_newton", newton_altered))
+    if mode == "exchange":
+        return _patched((StructuredShardedSolver, "_gather", lambda self, x: x),
+                        (StructuredShardedSolver, "_reduce_gather", lambda self, y: y))
+    raise ValueError(f"unknown mode {mode!r}")
+
+
 def readings(workload: str, mode: str, seeds, seconds: float, device=None,
              overrides: dict | None = None) -> list:
     """[(seed, correct, {name: (value, limit)})] of short windows of the
     cell with `mode` planted, the cell set up once."""
     cell = harness.Cell(HERE.parent, workload, overrides)
     device = harness.card(cell.workload["chips"]) if device is None else torch.device(device)
+    if cell.config.get("ranks", 1) > 1:
+        with patched(mode, cell.kind):
+            served = sharded.serve(cell, device, seeds, seconds, False, time.perf_counter())
+        return [(seed, sum(not r["ok"] for r in w.records) == 0 and judge.within(w.numbers),
+                 w.numbers, len(w.records), sum(not r["ok"] for r in w.records))
+                for seed, w in zip(seeds, served)]
+    if mode == "exchange":
+        raise ValueError(f"{workload} runs on one card: it has no exchange to leave out")
     out = []
     with patched(mode, cell.kind):
         sys_ = harness.prepare(cell, device)

@@ -12,7 +12,8 @@ A mix (traffic/<name>.json) holds
   length        requests in the list (more than any window completes);
   warmup        requests run before the window (the range's two ends and
                 its middle, in turn), which build and capture what the
-                window uses;
+                window uses and, where there are many, carry the cards
+                past their slow start;
   sample        answers of the window the check compares with the
                 reference: a uniform sample drawn from the seed;
   trace_requests requests a traced run profiles after the window (after

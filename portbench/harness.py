@@ -41,10 +41,14 @@ class CellError(SystemExit):
     """A run that cannot be made (no card, an unknown cell): no result."""
 
 
+class Forbidden(SystemExit):
+    """A run whose ranks loaded JAX or the JAX package: no result."""
+
+
 class Cell:
     """A cell of BENCHMARK.json with its configuration and traffic mix.
-    `overrides` ({"mesh": {"n": 4}}, ...) change configuration groups for
-    CPU tests at small sizes."""
+    `overrides` ({"mesh": {"n": 4}}, ...) change configuration groups, and
+    its "traffic" entry the mix, for CPU tests at small sizes."""
 
     def __init__(self, root: pathlib.Path, workload: str, overrides: dict | None = None):
         self.bench = json.loads((root / "BENCHMARK.json").read_text())
@@ -55,9 +59,12 @@ class Cell:
         self.name = workload
         entry = next(c for c in self.bench["configs"] if c["name"] == self.workload["config"])
         self.config = json.loads((root / entry["file"]).read_text())
-        for group, changes in (overrides or {}).items():
+        overrides = dict(overrides or {})
+        mix = overrides.pop("traffic", {})
+        for group, changes in overrides.items():
             self.config[group] = {**self.config[group], **changes}
         self.mix = json.loads((HERE / "traffic" / f"{self.workload['traffic']}.json").read_text())
+        self.mix.update(mix)
         self.kind = self.mix["request"]
 
     def metrics(self, trace: bool) -> list:
@@ -104,12 +111,14 @@ class Run:
         return [r for r in self.records if r["ok"]]
 
 
-def serve(sys_, cell: Cell, amplitudes: list, seed: int, seconds: float):
+def serve(sys_, cell: Cell, amplitudes: list, seed: int, seconds: float, request=None,
+          more=None):
     """The window: requests from the list, one after another, until
-    `seconds` have passed. Returns (records, samples, window start, window
-    seconds); samples are the answers kept for the check (a uniform sample
-    drawn from the seed)."""
-    request = system.REQUESTS[cell.kind]
+    `seconds` have passed (`more(elapsed)` False, where given). Returns
+    (records, samples, window start, window seconds); samples are the
+    answers kept for the check (a uniform sample drawn from the seed)."""
+    request = request or system.REQUESTS[cell.kind]
+    more = more or (lambda elapsed: elapsed < seconds)
     keep = generator.Reservoir(cell.mix["sample"], seed)
     records, samples = [], [None] * cell.mix["sample"]
     t0 = time.perf_counter()
@@ -124,9 +133,17 @@ def serve(sys_, cell: Cell, amplitudes: list, seed: int, seconds: float):
         slot = keep.offer(i)
         if slot is not None:
             samples[slot] = dict(index=i, scale=scale, u=out.u.clone(), r0=out.r0)
-        if end - t0 >= seconds:
+        if not more(end - t0):
             break
     return records, [s for s in samples if s is not None], t0, end - t0
+
+
+def traced(sys_, cell: Cell, request, rest: list, device) -> tracing.Trace:
+    """The requests of `rest` (amplitudes) after the window, the first as
+    the profiler's lead-in and the others traced (`tracing.profile`)."""
+    served = [lambda a=a: request(sys_, generator.load_factor(cell.config, a)) for a in rest]
+    return tracing.profile(served[0], lambda: [s() for s in served[1:]], len(served) - 1,
+                           device, system.graph_launches)
 
 
 def reader(name: str):
@@ -152,58 +169,98 @@ def prepare(cell: Cell, device) -> "system.System":
     already held them (every run of a cell in a checkout but its first)."""
     with system.kernel_builds() as built:
         sys_ = system.System(cell.config, device)
-        request = system.REQUESTS[cell.kind]
-        for amp in generator.warmup_amplitudes(cell.mix):
-            request(sys_, generator.load_factor(cell.config, amp))
+        warm_up(sys_, cell, system.REQUESTS[cell.kind])
     sys_.built_s = built[0]
     return sys_
 
 
-def run(workload: str, seed: int, seconds: float, trace: bool, t_start: float,
-        root: pathlib.Path = HERE.parent, device=None, overrides: dict | None = None) -> dict:
-    """One run; returns the result line's object, with the numbers the check
-    compared under "checked" (last). `device` None: the card, or no run."""
-    cell = Cell(root, workload, overrides)
-    device = card(cell.workload["chips"]) if device is None else torch.device(device)
+def warm_up(sys_, cell: Cell, request) -> None:
+    for amp in generator.warmup_amplitudes(cell.mix):
+        request(sys_, generator.load_factor(cell.config, amp))
+
+
+@dataclasses.dataclass
+class Served:
+    """A window served and checked: its records, the seconds from the
+    process's start to the window's (set-up) and of the window, the traced
+    requests' Trace or None, the peak device memory on the fullest card,
+    the card's name, the numbers the check compared ({name: (value,
+    limit)}), nvcc's seconds in the set-up and, on several cards, the
+    forbidden modules (`FORBIDDEN`) that any rank held at its end."""
+
+    records: list
+    setup_s: float
+    window_s: float
+    trace: tracing.Trace | None
+    peak: int
+    kind: str
+    numbers: dict
+    built_s: float
+    forbidden: list = dataclasses.field(default_factory=list)
+
+
+def serve_here(cell: Cell, device, seed: int, seconds: float, trace: bool,
+               t_start: float) -> Served:
+    """The cell on one device in this process."""
     on_card = device.type == "cuda"
     sys_ = prepare(cell, device)
     request = system.REQUESTS[cell.kind]
     amplitudes = generator.amplitudes(cell.mix, seed)
-    built_s = sys_.built_s
     records, samples, t0, window_s = serve(sys_, cell, amplitudes, seed, seconds)
-    traced = None
+    trace_ = None
     if trace:
         rest = amplitudes[len(records):len(records) + 1 + cell.mix["trace_requests"]]
-        served = [lambda a=a: request(sys_, generator.load_factor(cell.config, a)) for a in rest]
-        traced = tracing.profile(served[0], lambda: [s() for s in served[1:]], len(served) - 1,
-                                 device, system.graph_launches)
+        trace_ = traced(sys_, cell, request, rest, device)
     peak = torch.cuda.max_memory_allocated(device) if on_card else 0
     coords = sys_.coords()
+    built_s = sys_.built_s
     sys_.close()
     del sys_
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
     numbers = judge.judge(cell.config, cell.kind, samples, coords, device)
+    return Served(records, t0 - t_start, window_s, trace_, peak,
+                  torch.cuda.get_device_name(device) if on_card else "cpu", numbers, built_s)
+
+
+def run(workload: str, seed: int, seconds: float, trace: bool, t_start: float,
+        root: pathlib.Path = HERE.parent, device=None, overrides: dict | None = None) -> dict:
+    """One run; returns the result line's object, with the numbers the check
+    compared under "checked" (last). `device` None: the card (cards
+    0..chips-1 for a cell over several), or no run. A configuration with
+    `ranks` > 1 is served by the adapter for several cards (sharded.py);
+    raises `Forbidden` where a rank loaded JAX or the JAX package (this
+    process's own modules are run.py's to look at, last)."""
+    cell = Cell(root, workload, overrides)
+    device = card(cell.workload["chips"]) if device is None else torch.device(device)
+    if cell.config.get("ranks", 1) > 1:
+        import sharded
+
+        (done,) = sharded.serve(cell, device, [seed], seconds, trace, t_start)
+        if done.forbidden:
+            raise Forbidden(f"portbench: a rank loaded {', '.join(done.forbidden)}")
+    else:
+        done = serve_here(cell, device, seed, seconds, trace, t_start)
+    records, numbers = done.records, done.numbers
     failed = sum(not r["ok"] for r in records)
     correct = bool(records) and failed == 0 and judge.within(numbers)
-    result_run = Run(cell, records, window_s, t0 - t_start, traced)
+    result_run = Run(cell, records, done.window_s, done.setup_s, done.trace)
     metrics = {}
     for entry in cell.metrics(trace):
         value = reader(entry["name"]).read(result_run)
         if value is not None:
             metrics[entry["name"]] = {"value": value, "unit": entry["unit"]}
-    dev = {"platform": "gpu" if on_card else "cpu",
-           "kind": torch.cuda.get_device_name(device) if on_card else "cpu",
-           "count": cell.workload["chips"], "memory_peak_bytes": peak}
-    if traced is not None:
-        dev["busy_s"], dev["window_s"] = traced.busy_s, traced.window_s
+    dev = {"platform": "gpu" if device.type == "cuda" else "cpu", "kind": done.kind,
+           "count": cell.workload["chips"], "memory_peak_bytes": done.peak}
+    if done.trace is not None:
+        dev["busy_s"], dev["window_s"] = done.trace.busy_s, done.trace.window_s
     out = {"correct": correct, "attempted": len(records), "failed": failed, "metrics": metrics,
            "device": dev}
-    if traced is not None:
-        out["breakdown"] = traced.breakdown()
+    if done.trace is not None:
+        out["breakdown"] = done.trace.breakdown()
     # the run that built the kernels, whose setup_s holds nvcc, marked
-    out["setup_built_kernels_s"] = built_s
+    out["setup_built_kernels_s"] = done.built_s
     out["checked"] = {name: {"value": v, "limit": lim} for name, (v, lim) in numbers.items()}
     out["checked"]["failed"] = {"value": failed, "limit": 0}
     return out

@@ -11,7 +11,8 @@ correct, attempted, failed, metrics (the cell's end-to-end metrics, or with
 numbers compared, each beside its limit, come last in it and as the last
 lines on standard error. Without a CUDA card, or with fewer than the cell
 asks for, it exits 2 and prints no result; it exits 3 if a JAX module or
-the JAX package is loaded once the window has closed.
+the JAX package is loaded once the window has closed, in this process or in
+any rank of a cell over several cards.
 """
 
 import os
@@ -54,6 +55,9 @@ def main(argv=None) -> int:
     except harness.CellError as e:
         print(e, file=sys.stderr)
         return 2
+    except harness.Forbidden as e:
+        print(e, file=sys.stderr)
+        return 3
     found = harness.forbidden_modules()
     if found:
         print(f"portbench: the run loaded {', '.join(found)}", file=sys.stderr)

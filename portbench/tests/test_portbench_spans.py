@@ -20,8 +20,10 @@ ENTRIES = {
     "jacobi_ms.step": 5.0 / 4,
     "pcg_iter_ms.solve": 40.0 / 50,
     "pcg_iter_ms.step": 40.0 / 50,
+    "pcg_iter_ms.sharded": 40.0 / 50,
     "step_prepare_ms.step": (1.0 + 3.0 + 5.0 + 10.0) / 2,
     "solver_setup_s": 7.0 + 0.5,
+    "solver_setup_s.sharded": 7.0 + 0.5,
 }
 #: {span: [runs, ns]}: 4 heads, 50 PCG iterations, 2 steps' set-ups
 TOTALS = {"freeze": [4, 1_000_000], "residual32": [2, 2_000_000], "residual64": [3, 3_000_000],
@@ -63,3 +65,16 @@ def test_a_program_without_spans_reads_nothing(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     for name in ENTRIES:
         assert harness.reader(name).read(None) is None, name
+
+
+def test_a_ranks_totals_load_into_this_process(monkeypatch):
+    """The adapter for several cards loads rank 0's registry here
+    (`system.load_spans`), where the readers read it."""
+    import system
+
+    monkeypatch.setattr(profiling, "SPAN_TOTALS", {name: [0, 0] for name in TOTALS})
+    monkeypatch.setattr(profiling, "SETUP", profiling.PhaseTimer())
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    system.load_spans(TOTALS, {"setup.solver": 9.0})
+    assert harness.reader("pcg_iter_ms.sharded").read(None) == pytest.approx(40.0 / 50)
+    assert harness.reader("solver_setup_s.sharded").read(None) == pytest.approx(9.0)
