@@ -8,14 +8,17 @@ would be correct, from one process that sets the cell up once. Modes:
 
   sound      the program as it is (the lower readings of the limits);
   control    the nearest lower precision, as the program's own paths give
-             it: increments compute every f64 residual in f32 (the f32
-             element pass of the resid32 path, for every Newton
-             iteration); steps round the frozen tangent state (F, S, A,
-             alpha, beta) to bf16;
+             it: increments compute every f64 residual in f32, for every
+             Newton iteration (the mixed route: the f32 SoA element pass
+             of the resid32 path; the f64 routes, `pcg_bcsr`, `pcg` and
+             `direct`: their own element pass with u, the element
+             geometry and the material's arithmetic in f32); steps of the
+             mixed route round the frozen tangent state (F, S, A, alpha,
+             beta) to bf16;
   unchanged  a request returns its start state;
   half       half of the work left out: the second half of the nodes'
              residual rows set to zero (increments: every f64 residual;
-             steps: the right-hand side);
+             steps of the mixed route: the right-hand side);
   altered    the answer altered where it is produced: one free node's u_z
              moved by 1e-3 of the answer's largest entry;
   exchange   (cells over several cards) the exchange between the cards
@@ -23,11 +26,19 @@ would be correct, from one process that sets the cell up once. Modes:
              gather and reduce (the fixed-order sums stay, so the ranks
              still agree on every flag).
 
+A step of an f64 route has no frozen f32 state and no mixed set-up:
+`control` and `half` there raise a ValueError that names the route. Every
+replacement a mode sets counts its calls, and a run in which none of them
+was called raises `NotPlanted` at the end of the `patched` block (on a
+cell over several cards, in each rank): a fault that planted nothing
+cannot read as caught.
+
 On a cell over several cards every mode is planted inside each rank
-(`rank_patched`): the control computes the f64 residual of the rank
-bodies (`_residual64`, in `head` and `resid`) by the f32 element pass;
-`half` zeroes the second half of each rank's residual rows; `unchanged`
-and `altered` act on `_newton`'s answer (altered: on rank 0's part).
+(`rank_patched`), and nothing in this process: the control computes the
+f64 residual of the rank bodies (`_residual64`, in `head` and `resid`) by
+the f32 element pass; `half` zeroes the second half of each rank's
+residual rows; `unchanged` and `altered` act on `_newton`'s answer
+(altered: on rank 0's part).
 """
 
 from __future__ import annotations
@@ -48,11 +59,22 @@ import generator  # noqa: E402
 import harness  # noqa: E402
 import judge  # noqa: E402
 import sharded  # noqa: E402
+from fea_large_tpu_torch.elements.kernels import (  # noqa: E402
+    ElementGeometry, element_internal_force)
 from fea_large_tpu_torch.ops.soa import soa_freeze, soa_internal_force  # noqa: E402
 from fea_large_tpu_torch.solvers import device_loop, newton  # noqa: E402
-from fea_large_tpu_torch.solvers.newton import NewtonSolver  # noqa: E402
+from fea_large_tpu_torch.solvers.newton import NewtonSolver, SolverOptions  # noqa: E402
 
 MODES = ("sound", "control", "unchanged", "half", "altered", "exchange")
+#: the f64 residuals of the mixed route's Newton loops (device and host)
+MIXED_RESIDUALS = [(m, name) for m in (device_loop, newton)
+                   for name in ("_residual_df_fn", "_residual_soa_fn")]
+#: the f64 residual of the f64 routes' Newton loop (`NewtonSolver._residual`)
+F64_RESIDUAL = (newton, "_residual_fn")
+
+
+class NotPlanted(RuntimeError):
+    """A mode none of whose replacements was called during the run."""
 
 
 @contextlib.contextmanager
@@ -68,24 +90,56 @@ def _patched(*triples):
             setattr(o, a, v)
 
 
-def _residual_patches(wrap):
-    """Every f64 residual of the Newton loops (device and host) through
-    wrap(original) -> replacement."""
-    return [(m, name, wrap(getattr(m, name))) for m in (device_loop, newton)
-            for name in ("_residual_df_fn", "_residual_soa_fn")]
+@contextlib.contextmanager
+def _planted(what: str, plants, keep=()):
+    """`_patched` of `plants` and `keep`, each replacement of `plants`
+    counting its calls; raises `NotPlanted` at the block's end where none
+    was called."""
+    calls = {f"{getattr(o, '__name__', o)}.{a}": 0 for o, a, _ in plants}
+
+    def counted(key, replacement):
+        def call(*args, **kwargs):
+            calls[key] += 1
+            return replacement(*args, **kwargs)
+        return call
+
+    with _patched(*keep, *[(o, a, counted(key, v)) for (o, a, v), key in zip(plants, calls)]):
+        yield
+    if not any(calls.values()):
+        raise NotPlanted(f"{what}: none of {', '.join(calls)} was called")
 
 
-def _f32_residual(f32: dict):
-    """The f64 residual computed by the f32 element pass of the solver whose
-    f64 SoA problem it is given (`f32`: id of the f64 problem -> the f32)."""
-    def wrap(original):
-        def residual(u, scale, soa64, material, bc, f_ext):
-            soa32 = f32[id(soa64)]
-            state = soa_freeze(soa32, material, u.to(torch.float32).T.contiguous())
-            r = bc.project(scale * f_ext - soa_internal_force(soa32, state).T.to(torch.float64))
-            return r, torch.linalg.norm(r)
-        return residual
-    return wrap
+def route(config: dict) -> str:
+    """The route of `NewtonSolver` that the configuration's options run:
+    "mixed", or "f64 <linear>" ("f64 pcg_bcsr", "f64 pcg", "f64 direct")."""
+    opts = SolverOptions(**config["solver"])
+    return "mixed" if opts.precision == "mixed" else f"f64 {opts.linear}"
+
+
+def _f32_soa_residual(f32: dict):
+    """The mixed route's f64 residual computed by the f32 element pass of
+    the solver whose f64 SoA problem it is given (`f32`: id of the f64
+    problem -> the f32)."""
+    def residual(u, scale, soa64, material, bc, f_ext):
+        soa32 = f32[id(soa64)]
+        state = soa_freeze(soa32, material, u.to(torch.float32).T.contiguous())
+        r = bc.project(scale * f_ext - soa_internal_force(soa32, state).T.to(torch.float64))
+        return r, torch.linalg.norm(r)
+    return residual
+
+
+def _f32_element_residual(f32: dict):
+    """The f64 routes' residual computed by their element pass in f32: u,
+    the element geometry and the material's arithmetic in f32, the nodal
+    sum too, the result returned in f64. The f32 geometry is made once a
+    solver (`f32`: id of the f64 geometry -> (it, the f32))."""
+    def residual(u, scale, conn, geom, material, bc, f_ext, scatter):
+        if id(geom) not in f32:
+            f32[id(geom)] = (geom, ElementGeometry(*(t.to(torch.float32) for t in geom)))
+        fe = element_internal_force(u.to(torch.float32)[conn], f32[id(geom)][1], material)
+        r = bc.project(scale * f_ext - scatter(fe).to(torch.float64))
+        return r, torch.linalg.norm(r)
+    return residual
 
 
 def _half_rows(x):
@@ -108,73 +162,93 @@ def _alter(u):
 
 
 @contextlib.contextmanager
-def patched(mode: str, kind: str):
-    """A context manager that plants `mode` in the program for requests of
-    `kind` ("increment" or "step"): in this process, and on the ranks of a
-    cell over several cards (`sharded.MODE`)."""
-    with _patched((sharded, "MODE", mode)), _here(mode, kind):
+def patched(mode: str, cell):
+    """A context manager that plants `mode` in the program for a run of
+    `cell` (a `harness.Cell`): inside each rank of a cell over several
+    cards (`sharded.MODE`, `rank_patched`), else in this process. Raises
+    ValueError where the cell's requests and route cannot take the mode,
+    and `NotPlanted` where none of its replacements was called."""
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}")
+    if cell.config.get("ranks", 1) > 1:
+        with _patched((sharded, "MODE", mode)):
+            yield
+        return
+    with _here(mode, cell.kind, route(cell.config)):
         yield
 
 
-def _here(mode: str, kind: str):
-    """`mode` planted in this process's program (none for "exchange": one
-    card exchanges nothing)."""
-    if mode in ("sound", "exchange"):
+def _here(mode: str, kind: str, route_name: str):
+    """`mode` planted in this process's program for requests of `kind`
+    ("increment" or "step") on the route `route_name` (`route`)."""
+    if mode == "sound":
         return contextlib.nullcontext()
+    what = f"{mode} on the {kind}s of the {route_name} route"
+    if mode == "exchange":
+        raise ValueError(f"{what}: one card has no exchange to leave out")
+    mixed = route_name == "mixed"
+    if kind == "step" and mode in ("control", "half") and not mixed:
+        raise ValueError(f"{what}: a step there has no f32 tangent state to round and no "
+                         f"mixed set-up to halve; nothing would be planted")
     init, newton_fn, step_fn = NewtonSolver.__init__, NewtonSolver._newton, NewtonSolver.step_fn
     prepare, freeze = NewtonSolver._mixed_prepare, NewtonSolver._freeze
-    if mode == "control" and kind == "increment":
+    residuals = MIXED_RESIDUALS if mixed else [F64_RESIDUAL]
+    if mode == "control" and kind == "increment" and mixed:
         f32 = {}
 
         def init_keep(self, *args, **kwargs):
             init(self, *args, **kwargs)
-            f32[id(self._soa64)] = self._soa
-        return _patched((NewtonSolver, "__init__", init_keep),
-                        *_residual_patches(_f32_residual(f32)))
+            if hasattr(self, "_soa64"):
+                f32[id(self._soa64)] = self._soa
+        return _planted(what, [(m, n, _f32_soa_residual(f32)) for m, n in residuals],
+                        keep=[(NewtonSolver, "__init__", init_keep)])
+    if mode == "control" and kind == "increment":
+        return _planted(what, [(*F64_RESIDUAL, _f32_element_residual({}))])
     if mode == "control":
         def freeze_bf16(self, u):
             st = freeze(self, u)
             return dataclasses.replace(st, **{f: getattr(st, f).to(torch.bfloat16).float()
                                               for f in ("F", "S", "A", "alpha", "beta")})
-        return _patched((NewtonSolver, "_freeze", freeze_bf16))
+        return _planted(what, [(NewtonSolver, "_freeze", freeze_bf16)])
     if mode == "unchanged" and kind == "increment":
         def newton_same(self, u, scale):
             _, ok, rec = newton_fn(self, u, scale)
             return u, ok, rec
-        return _patched((NewtonSolver, "_newton", newton_same))
+        return _planted(what, [(NewtonSolver, "_newton", newton_same)])
     if mode == "unchanged":
         def step_same(self, u, scale):
             _, k, ok, r = step_fn(self, u, scale)
             return u, k, ok, r
-        return _patched((NewtonSolver, "step_fn", step_same))
+        return _planted(what, [(NewtonSolver, "step_fn", step_same)])
     if mode == "half" and kind == "increment":
-        return _patched(*_residual_patches(_half_residual))
+        return _planted(what, [(m, n, _half_residual(getattr(m, n))) for m, n in residuals])
     if mode == "half":
         def prepare_half(self, u, scale, r64=None):
             chunk, b = prepare(self, u, scale, r64)
             return chunk, _half_rows(b)
-        return _patched((NewtonSolver, "_mixed_prepare", prepare_half))
+        return _planted(what, [(NewtonSolver, "_mixed_prepare", prepare_half)])
     if mode == "altered" and kind == "increment":
         def newton_altered(self, u, scale):
             u, ok, rec = newton_fn(self, u, scale)
             return _alter(u), ok, rec
-        return _patched((NewtonSolver, "_newton", newton_altered))
-    if mode == "altered":
-        def step_altered(self, u, scale):
-            u, k, ok, r = step_fn(self, u, scale)
-            return _alter(u), k, ok, r
-        return _patched((NewtonSolver, "step_fn", step_altered))
-    raise ValueError(f"unknown mode {mode!r}")
+        return _planted(what, [(NewtonSolver, "_newton", newton_altered)])
+    def step_altered(self, u, scale):
+        u, k, ok, r = step_fn(self, u, scale)
+        return _alter(u), k, ok, r
+    return _planted(what, [(NewtonSolver, "step_fn", step_altered)])
 
 
 def rank_patched(mode: str):
     """A context manager that plants `mode` in a rank's sharded solver (the
     module docstring), before the rank builds it: its captured graphs then
-    hold what is planted."""
+    hold what is planted. Each rank raises `NotPlanted` at the block's end
+    where none of the mode's replacements was called there (a replacement
+    inside a captured graph is called at its capture)."""
     from fea_large_tpu_torch.dist.sharded import ShardedNewtonSolver
     from fea_large_tpu_torch.dist.structured_solver import StructuredShardedSolver
 
     newton_fn, residual = ShardedNewtonSolver._newton, ShardedNewtonSolver._residual64
+    what = f"{mode} on a rank"
     if mode == "control":
         def residual32(self, u, scale):
             d, p32 = self.data, self.soa.p32
@@ -182,24 +256,24 @@ def rank_patched(mode: str):
                                self._expand_u(u).to(torch.float32).T.contiguous())
             f = self._assemble(soa_internal_force(p32, state).T.to(torch.float64))
             return (scale * d.f_ext - f) * d.free_mask
-        return _patched((ShardedNewtonSolver, "_residual64", residual32))
+        return _planted(what, [(ShardedNewtonSolver, "_residual64", residual32)])
     if mode == "unchanged":
         def newton_same(self, u, scale):
             _, ok, rec = newton_fn(self, u, scale)
             return u, ok, rec
-        return _patched((ShardedNewtonSolver, "_newton", newton_same))
+        return _planted(what, [(ShardedNewtonSolver, "_newton", newton_same)])
     if mode == "half":
         def residual_half(self, u, scale):
             return _half_rows(residual(self, u, scale))
-        return _patched((ShardedNewtonSolver, "_residual64", residual_half))
+        return _planted(what, [(ShardedNewtonSolver, "_residual64", residual_half)])
     if mode == "altered":
         def newton_altered(self, u, scale):
             u, ok, rec = newton_fn(self, u, scale)
             return (_alter(u) if self.comm.rank == 0 else u), ok, rec
-        return _patched((ShardedNewtonSolver, "_newton", newton_altered))
+        return _planted(what, [(ShardedNewtonSolver, "_newton", newton_altered)])
     if mode == "exchange":
-        return _patched((StructuredShardedSolver, "_gather", lambda self, x: x),
-                        (StructuredShardedSolver, "_reduce_gather", lambda self, y: y))
+        return _planted(what, [(StructuredShardedSolver, "_gather", lambda self, x: x),
+                               (StructuredShardedSolver, "_reduce_gather", lambda self, y: y)])
     raise ValueError(f"unknown mode {mode!r}")
 
 
@@ -210,15 +284,13 @@ def readings(workload: str, mode: str, seeds, seconds: float, device=None,
     cell = harness.Cell(HERE.parent, workload, overrides)
     device = harness.card(cell.workload["chips"]) if device is None else torch.device(device)
     if cell.config.get("ranks", 1) > 1:
-        with patched(mode, cell.kind):
+        with patched(mode, cell):
             served = sharded.serve(cell, device, seeds, seconds, False, time.perf_counter())
         return [(seed, sum(not r["ok"] for r in w.records) == 0 and judge.within(w.numbers),
                  w.numbers, len(w.records), sum(not r["ok"] for r in w.records))
                 for seed, w in zip(seeds, served)]
-    if mode == "exchange":
-        raise ValueError(f"{workload} runs on one card: it has no exchange to leave out")
     out = []
-    with patched(mode, cell.kind):
+    with patched(mode, cell):
         sys_ = harness.prepare(cell, device)
         coords = sys_.coords()
         for seed in seeds:

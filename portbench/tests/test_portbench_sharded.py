@@ -1,10 +1,11 @@
-"""The cell over several cards end to end on the CPU at a small size, on
-gloo ranks of the program's `run_sharded`, the card's look skipped: a
-sound run is correct and reports its metrics, and each fault the cell can
-have, and the lower-precision control, planted inside the ranks, make it
-not correct; a rank that loads the JAX package makes the run exit 3 with no
-result. Also: the configuration is config 5's mesh on four ranks, and the
-one-card cells report what they reported before the adapter came."""
+"""The cells over several cards end to end on the CPU at their small
+sizes (cell_sizes.py), on gloo ranks of the program's `run_sharded`, the
+card's look skipped: a sound run is correct and reports its metrics, and
+each fault the cell can have, and the lower-precision control, planted
+inside the ranks, make it not correct; a rank that loads the JAX package
+makes the run exit 3 with no result. Also: the configuration is config
+5's mesh on four ranks, and the one-card cells report what they reported
+before the adapter came."""
 
 import portbench_paths  # noqa: F401  (first: the paths)
 import functools
@@ -15,31 +16,19 @@ import types
 
 import pytest
 
+import cell_sizes
 import control
 import harness
 import run
 import sharded
+from test_portbench_cells import COUNTERS
 
 PORTBENCH = portbench_paths.PORTBENCH
-#: the cells over several cards, and the cells per axis each runs at here
-#: (one x-cell layer a rank; fewer cells across, as in config 5's box)
-SMALL_SHARDED = {"kuhn-sharded": [4, 3, 3]}
-#: the mix's warm-up cut to its first three requests, which build and
-#: capture: the rest carries the cards past their slow start, which the CPU
-#: has not
-SHORT_WARMUP = {"traffic": {"warmup": 3}}
-#: a faulty solve's PCG stops sooner here (a fault that breaks the exchange
-#: runs every Newton iteration to pcg_maxiter)
-FAULT_RUN = {"solver": {"pcg_maxiter": 200}}
 
 
-def _overrides(cell, solver=None):
-    return {"mesh": {"n": SMALL_SHARDED[cell]}, **SHORT_WARMUP, **(solver or {})}
-
-
-def _run(cell, seconds=3.0, trace=False, solver=None):
+def _run(cell, seconds=3.0, trace=False, fault=False):
     return harness.run(cell, 3_000_000_013, seconds, trace, time.perf_counter(), device="cpu",
-                       overrides=_overrides(cell, solver))
+                       overrides=cell_sizes.overrides(cell, fault))
 
 
 def rank_loading_the_jax_package(comm, *args):
@@ -54,7 +43,7 @@ def _names(cell, trace):
     return [m["name"] for m in harness.Cell(PORTBENCH.parent, cell).metrics(trace)]
 
 
-@pytest.mark.parametrize("cell", sorted(SMALL_SHARDED))
+@pytest.mark.parametrize("cell", cell_sizes.SHARDED)
 def test_sound_run_is_correct_and_reports_its_metrics(cell):
     out = _run(cell)
     assert out["correct"] and out["failed"] == 0 and out["attempted"] > 0
@@ -66,27 +55,29 @@ def test_sound_run_is_correct_and_reports_its_metrics(cell):
     assert all(c["value"] <= c["limit"] for c in out["checked"].values())
 
 
-@pytest.mark.parametrize("cell", sorted(SMALL_SHARDED))
+@pytest.mark.parametrize("cell", cell_sizes.SHARDED)
 def test_traced_run_reports_its_counts(cell):
     out = _run(cell, trace=True)
     assert out["correct"]
-    assert out["metrics"]["host_fetches.sharded"]["value"] >= 1
-    assert out["metrics"]["pcg_iters.sharded"]["value"] > 0
-    assert out["metrics"]["newton_steps.sharded"]["value"] > 0
+    entries = harness.Cell(PORTBENCH.parent, cell).metrics(True)
+    counters = [m["name"] for m in entries if m["name"].split(".")[0] in COUNTERS]
+    assert counters
+    for name in counters:
+        assert out["metrics"][name]["value"] >= COUNTERS[name.split(".")[0]], name
     # rank 0's set-up, loaded into this process's registry
     assert out["metrics"]["solver_setup_s.sharded"]["value"] > 0
     # no card: the device spans and the trace's device time find nothing
     assert "pcg_iter_ms.sharded" not in out["metrics"]
-    assert "device_idle_share.sharded" not in out["metrics"]
+    assert not {m["name"] for m in entries if m["source"] == "device_trace"} & set(out["metrics"])
     assert set(out["metrics"]) <= set(_names(cell, True))
     assert "breakdown" in out and out["device"]["window_s"] > 0
 
 
-@pytest.mark.parametrize("cell", sorted(SMALL_SHARDED))
+@pytest.mark.parametrize("cell", cell_sizes.SHARDED)
 def test_a_rank_that_loads_the_jax_package_exits_3_with_no_result(cell, monkeypatch, capsys):
     monkeypatch.setattr(sharded, "RANK", rank_loading_the_jax_package)
     monkeypatch.setattr(harness, "run", functools.partial(
-        harness.run, device="cpu", overrides=_overrides(cell)))
+        harness.run, device="cpu", overrides=cell_sizes.overrides(cell)))
     code = run.main(["--workload", cell, "--seed", "3000000017", "--seconds", "1",
                      "--trace", "0"])
     out, err = capsys.readouterr()
@@ -96,10 +87,10 @@ def test_a_rank_that_loads_the_jax_package_exits_3_with_no_result(cell, monkeypa
 
 
 @pytest.mark.parametrize("mode", ["control", "unchanged", "half", "altered", "exchange"])
-@pytest.mark.parametrize("cell", sorted(SMALL_SHARDED))
+@pytest.mark.parametrize("cell", cell_sizes.SHARDED)
 def test_each_fault_and_the_control_fail_the_check(cell, mode):
-    with control.patched(mode, "increment"):
-        out = _run(cell, seconds=1.0, solver=FAULT_RUN)
+    with control.patched(mode, cell_sizes.cell(cell, fault=True)):
+        out = _run(cell, seconds=1.0, fault=True)
     assert out["correct"] is False
 
 
