@@ -47,8 +47,11 @@ Phases:
   2. kernel checks, each kernel against its plain PyTorch version on the
      same inputs: B1-B5 on TET10 and TET4 Kuhn lattices n=21 (C = 9,261 =
      289*32 + 13 cells; B2 also on n=22, whose C is a multiple of 8, where
-     its blocks do not overlap), B6-B9 and the unstructured diagonal
-     (`elem_diag`) on TET10 and TET4 5-tet boxes n=13
+     its blocks do not overlap), B6-B9 (B6 gathering its nodal values
+     through the int32 conn), the unstructured diagonal (`elem_diag`) and
+     the fixed-order nodal sum (`nodal_sum`, f32 and f64, on B6's and B9's
+     outputs, against the valence buckets' sum) on TET10 and TET4 5-tet
+     boxes n=13
      (E = 10,985 = 85*128 + 105 elements), every freeze and f64 residual
      for all three materials, B1-B9 also on the TET10 meshes with the
      5-point rule (`n_quad=5`, the (5, 10) instances), and B10 in f64 and
@@ -59,8 +62,8 @@ Phases:
      slots). Bounds relative to the largest entry: 2e-5 for the f32
      kernels, 1e-12 for the f64 ones. B1, B3, B4, B5 (all three materials)
      and B10 (f64 and f32), whose sums cross threads, B2 (all three
-     materials) and the unstructured diagonal are launched twice on the
-     same inputs and must give bitwise-equal outputs;
+     materials), B6, the unstructured diagonal and the nodal sum are
+     launched twice on the same inputs and must give bitwise-equal outputs;
   3. the Kuhn path: n=4 on the host loop (resid_df=False) and on the
      device loop (resid_df=False and None) against the JAX reference's
      counts of each loop (measured on CPU), then full width with
@@ -302,7 +305,7 @@ KERNEL_BOUND = 2e-5
 #: f64 kernel (the fused residuals, the f64 BCSR product) vs its f64 plain
 #: version
 RESID_BOUND = 1e-12
-F64_KERNELS = ("struct_resid", "elem_resid", "bcsr_spmv/f64")
+F64_KERNELS = ("struct_resid", "elem_resid", "bcsr_spmv/f64", "elem_nodal_sum/f64")
 
 #: H100 SXM data sheet: HBM3 bytes/s, f32 and f64 FLOP/s outside the
 #: tensor cores (at the 700 W power limit)
@@ -478,9 +481,10 @@ REFERENCE_SHARDED_TASKS_BF16 = {
 }
 SHARDED_TASK_STORAGE = {"distributed_compression.json": "bfloat16",
                         "distributed_compression_kuhn.json": "float32"}
-#: the sharded paths' kernels (B1-B3 on a lattice; B6, B7 and the diagonal on a 5-tet box)
+#: the sharded paths' kernels (B1-B3 on a lattice; B6, B7, the diagonal and
+#: the nodal sum on a 5-tet box)
 SHARDED_KERNELS = {"kuhn": ("struct_freeze", "struct_apply", "struct_diag"),
-                   "5tet": ("elem_apply", "elem_freeze", "elem_diag")}
+                   "5tet": ("elem_apply", "elem_freeze", "elem_diag", "elem_nodal_sum")}
 #: phase 9f: one rank in this process (LocalComm) on the captured route,
 #: a solve() of this many increments at 9a's and 9b's widths
 ONE_RANK_STEPS = 2
@@ -514,6 +518,8 @@ KERNELS = {  # name -> (LAUNCHES dict, key, source, TPU kernel it replaces)
     "elem_force": (ek.LAUNCHES, "force", ELEM_SRC, "fea_large_tpu/ops/pallas_kernels.py:307"),
     "elem_resid": (ek.LAUNCHES, "resid", ELEM_SRC, "fea_large_tpu/ops/pallas_residual.py:349"),
     "elem_diag": (ek.LAUNCHES, "diag", ELEM_SRC, "none (the reference's ops/soa.py forms it in jnp)"),
+    "elem_nodal_sum": (ek.LAUNCHES, "nodal_sum", ELEM_SRC,
+                       "none (the reference's ops/soa.py sums through valence buckets in XLA)"),
     "bcsr_spmv": (bk.LAUNCHES, "spmv", BCSR_SRC, "fea_large_tpu/ops/pallas_kernels.py:376"),
 }
 
@@ -529,6 +535,7 @@ POINT_FLOPS = {
     "apply": lambda npe, kind: 36 * npe + 360,
     "diag": lambda npe, kind: 86 + 86 * npe,
     "resid": lambda npe, kind: 36 * npe + 84 + STRESS_FLOPS[kind],
+    "nodal_sum": lambda npe, kind: 0,  # adds only: bound by bytes
     "elem_resid": lambda npe, kind: 36 * npe + 102 + MATERIAL_FLOPS[kind],
 }
 
@@ -770,9 +777,14 @@ def element_inputs_of(p, p64, coords_host):
     ue, ve = ek._gather_flat(p, u), ek._gather_flat(p, v)
     gradN = p.gradN.view(q * npe * 3, E)
     rows = ek.elem_freeze_plain(ue, gradN, NeoHookean(1.0, 0.6), npe=npe, q=q)
-    return dict(p=p, q=q, npe=npe, E=E, ue=ue, ve=ve, gradN=gradN, rows=rows,
-                ue64=ek._gather_flat(p64, u64), gradN64=p64.gradN.view(q * npe * 3, E),
-                dV64=p64.detJxW)
+    ue64, gradN64 = ek._gather_flat(p64, u64), p64.gradN.view(q * npe * 3, E)
+    # the nodal sums' inputs: what B6 and B9 hand them, [3, npe*E]
+    d32 = ek.elem_apply_plain(ve, gradN, p.detJxW, *rows, npe=npe, q=q).reshape(3, -1)
+    d64 = ek.elem_resid_plain(ue64, gradN64, p64.detJxW, NeoHookean(1.0, 0.6), npe=npe,
+                              q=q).reshape(3, -1)
+    return dict(p=p, q=q, npe=npe, E=E, ue=ue, v=v, ve=ve, gradN=gradN, rows=rows,
+                ue64=ue64, gradN64=gradN64, dV64=p64.detJxW, d32=d32.contiguous(),
+                d64=d64.contiguous())
 
 
 def spmv_x(n_nodes, device):
@@ -837,17 +849,20 @@ def lattice_calls(x, materials):
 def diag_traffic(p, E, npe):
     """What the unstructured diagonal moves besides its state and geometry
     (the bound's bytes, as tensors): the slot scratch written by the element
-    pass and read by the nodal sum (counted twice), and the buckets' idx,
-    mask and inv, read once."""
+    pass and read by the nodal sum (counted twice), and the nodal table's
+    offsets and slot ids (`ScatterBuckets.csr`), read once."""
     slots = torch.empty((npe * E, ek.SLOT_PAD), device=p.gradN.device)
-    return (slots, slots, *p.buckets.idx, *p.buckets.mask, p.buckets.inv)
+    return (slots, slots, *p.buckets.csr[:2])
 
 
 def element_calls(x, materials):
-    """{name: (kernel call, plain call, inputs, material kind)} of B6-B8
-    and of the unstructured diagonal (its element pass and nodal sum)."""
+    """{name: (kernel call, plain call, inputs, material kind)} of B6-B9,
+    of the unstructured diagonal (its element pass and nodal sum) and of the
+    nodal sum in f64 and f32 (f32 last: the one `time_calls` keeps). B6's
+    inputs are what it reads: v [3, N] and the int32 conn, not the gathered
+    values (which the roofline's yardstick in portbench still counts)."""
     q, npe, ue, ve, gradN, rows = x["q"], x["npe"], x["ue"], x["ve"], x["gradN"], x["rows"]
-    p = x["p"]
+    p, v = x["p"], x["v"]
     dV = p.detJxW
     kw = dict(npe=npe, q=q)
     ue64, gradN64, dV64 = x["ue64"], x["gradN64"], x["dV64"]
@@ -860,15 +875,20 @@ def element_calls(x, materials):
             lambda m=mat: ek.elem_resid(ue64, gradN64, dV64, m, **kw),
             lambda m=mat: ek.elem_resid_plain(ue64, gradN64, dV64, m, **kw),
             (ue64, gradN64, dV64), mat.kind)
-    calls["elem_apply"] = (lambda: ek.elem_apply(ve, gradN, dV, *rows, **kw),
+    calls["elem_apply"] = (lambda: ek.elem_apply(v, p.conn32, gradN, dV, *rows, **kw),
                            lambda: ek.elem_apply_plain(ve, gradN, dV, *rows, **kw),
-                           (ve, gradN, dV, *rows), 1)
+                           (v, p.conn32, gradN, dV, *rows), 1)
     calls["elem_force"] = (lambda: ek.elem_force(gradN, dV, *rows[:2], **kw),
                            lambda: ek.elem_force_plain(gradN, dV, *rows[:2], **kw),
                            (gradN, dV, *rows[:2]), 1)
     calls["elem_diag"] = (lambda: ek.elem_diag(gradN, dV, *rows, p.buckets, **kw),
                           lambda: ek.elem_diag_plain(gradN, dV, *rows, p.buckets, **kw),
                           (gradN, dV, *rows, *diag_traffic(p, x["E"], npe)), 1)
+    for tag in ("64", "32"):
+        d = x["d" + tag]
+        calls[f"elem_nodal_sum/f{tag}"] = (lambda d=d: ek.nodal_sum(d, p.buckets),
+                                           lambda d=d: p.buckets.apply(d),
+                                           (d, *p.buckets.csr[:2]), 1)
     return calls
 
 
@@ -941,7 +961,8 @@ def phase_kernel_checks(device):
         print(f"5-tet {et} n={n5}: E = {E} elements = {E // ek.BLOCK} x {ek.BLOCK} + {E % ek.BLOCK}")
         calls = element_calls(x, MATERIALS)
         report_checks(f"5tet {et}", run_checks(calls))
-        check_repeats(f"5tet {et}", {"elem_diag": calls["elem_diag"]})
+        check_repeats(f"5tet {et}", {k: c for k, c in calls.items()
+                                     if k.startswith(("elem_diag", "elem_nodal_sum", "elem_apply"))})
         check_bcsr(f"{et} n={n5}", mesh5)
         ragged = check_bcsr(f"{et} (6, 4, 2)", box_mesh(6, 4, 2, element_type=et, device=device))
         check(ragged != 0, "the (6, 4, 2) box (an odd N) leaves a CUDA block of B10 partly filled")
@@ -956,7 +977,8 @@ def phase_kernel_checks(device):
     check((x["q"], x["npe"]) == (5, 10), "the box's rule is the 5-point one")
     calls = element_calls(x, MATERIALS)
     report_checks("5tet 5pt", run_checks(calls))
-    check_repeats("5tet 5pt", {"elem_diag": calls["elem_diag"]})
+    check_repeats("5tet 5pt", {k: c for k, c in calls.items()
+                               if k.startswith(("elem_diag", "elem_nodal_sum", "elem_apply"))})
     print(f"phase 2: {time.perf_counter() - t0:.1f} s")
 
 
@@ -1575,19 +1597,19 @@ def diag_parts(x):
     """The unstructured diagonal's two kernels timed apart (per call and
     queued) beside their bytes bounds: the element pass (`ek.diag_slots`:
     state, geometry, the padded slot sums written) and the nodal sum
-    (`ek.diag_sum`: the buckets' idx, mask and inv, one 32-byte sector per
-    real slot, the [3, 3, N] blocks written)."""
+    (`ek.diag_sum`: the nodal table's offsets and slot ids, one 32-byte
+    sector per slot, the [3, 3, N] blocks written)."""
     q, npe, E, p = x["q"], x["npe"], x["E"], x["p"]
     kw = dict(npe=npe, q=q)
     rows, b = x["rows"], p.buckets
     slots = ek.diag_slots(x["gradN"], p.detJxW, *rows, **kw)
     out = ek.diag_sum(slots, b)
-    real = int(sum(float(m.sum()) for m in b.mask))
+    offsets, ids, _ = b.csr
     parts = {
         "elements": (lambda: ek.diag_slots(x["gradN"], p.detJxW, *rows, **kw),
                      nbytes(x["gradN"], p.detJxW, *rows, slots)),
         "nodal sum": (lambda: ek.diag_sum(slots, b),
-                      nbytes(*b.idx, *b.mask, b.inv, out) + real * 4 * ek.SLOT_PAD),
+                      nbytes(offsets, ids, out) + ids.numel() * 4 * ek.SLOT_PAD),
     }
     table = {}
     for name, (fn, n_bytes) in parts.items():
@@ -1846,7 +1868,8 @@ def cg_iteration_split(solver, matvec, precond, iteration_ms, label):
     """Where a replayed PCG iteration's device time goes: its pieces on the
     device loop's state, each captured and replayed alone (`graph_ms`): one
     CG step (`device_pcg_step`, the `cg` body without its WHILE node), the
-    masked matvec (gather, B1 or B6, scatter), the preconditioner, its
+    masked matvec (gather, B1 or B6, scatter; on a 5-tet box also B6 and
+    the nodal sum alone), the preconditioner, its
     block-Jacobi and coarse parts, and the coarse part's restrict, dense
     gemv and prolong. Derived, not timed: the replayed iteration less the
     step (the WHILE node's share and a graph's own start; it has come out
@@ -1873,6 +1896,14 @@ def cg_iteration_split(solver, matvec, precond, iteration_ms, label):
         f"coarse gemv ({dim}^2, f32 copy)": lambda: acinv32 @ rc32,
         "coarse prolong": lambda: coarse.prolong(xc),
     }
+    p = solver._soa
+    if p.structure is None:  # the unstructured matvec's two kernels
+        q, npe, gradN, dV = ek.flat_tables(p)
+        rows, v = ek.flatten_state(st.frozen), st.pcg.p.T.contiguous()
+        kv = ek.elem_apply(v, p.conn32, gradN, dV, *rows, npe=npe, q=q).view(3, -1)
+        pieces["B6 (its gather inside)"] = lambda: ek.elem_apply(v, p.conn32, gradN, dV, *rows,
+                                                                npe=npe, q=q)
+        pieces["nodal sum"] = lambda: ek.nodal_sum(kv, p.buckets)
     out = {name: graph_ms(fn) for name, fn in pieces.items()}
     st.pcg.stop.zero_()
     st.pcg.cap.fill_(2**62)

@@ -11,16 +11,20 @@
 // (files under fea_large_tpu/ops/). Each computes what its TPU kernel
 // computes; the plain PyTorch versions sit beside the wrappers in
 // fea_large_tpu_torch/ops/elem_kernels.py. B9 runs in native f64 where the
-// TPU kernel splits every operand into (hi, lo) f32 pairs. Two more kernels,
-// fea_elem_diag_f32 and fea_elem_diag_sum_f32, form the block-Jacobi
-// diagonal of an unstructured mesh and replace no TPU kernel (see there).
+// TPU kernel splits every operand into (hi, lo) f32 pairs. Three more
+// kernels replace no TPU kernel (see there): fea_elem_diag_f32 and
+// fea_elem_diag_sum_f32 form the block-Jacobi diagonal of an unstructured
+// mesh, and fea_elem_nodal_sum_f32/_f64 is the fixed-order nodal sum of
+// every element pass's output.
 //
 // Layout (kept from the reference): every operand is [rows, E], E elements,
-// element axis last. Gathered nodal values ve/ue rows 3a + i, geometry
-// gradN rows (k*npe + a)*3 + J and detJxW rows k, state rows k*9 + 3i + j,
-// per-point scalars rows k, outputs rows i*npe + a. As on the TPU, the
-// gather of nodal values (v[conn]) and the nodal scatter stay outside the
-// kernels, in PyTorch (ops/soa.py).
+// element axis last. Gathered nodal values ue rows 3a + i, geometry gradN
+// rows (k*npe + a)*3 + J and detJxW rows k, state rows k*9 + 3i + j,
+// per-point scalars rows k, outputs rows i*npe + a. B6 gathers its nodal
+// values itself, from the nodal vector v [3, N] at the int32 connectivity
+// conn [npe, E]; B7 and B9 take them gathered (ops/soa.py). The nodal sums
+// walk a compact table of each node's element slots (`nodal_sum_kernel`),
+// where the TPU sums through padded valence buckets in XLA.
 //
 // ONE THREAD PER ELEMENT e, blocks of `block` threads (a launch parameter,
 // a multiple of 32 up to 256): a warp reads 32 neighbouring addresses of
@@ -33,9 +37,11 @@
 // What bounds them on this card: memory traffic. Unlike the lattice
 // kernels, the geometry is not shared between elements: every element
 // streams its own gradN (q*npe*3 = 120 rows for TET10) and detJxW. Per
-// TET10 element B6 reads 30 + 120 + 4 + 3*36 + 2*4 rows and writes 30
-// (300 rows, 280 MB per call at E = 233,280), B7 reads 150 and writes 116
-// (266 rows, 248 MB), B8 reads 120 + 4 + 2*36 and writes 30 (226 rows,
+// TET10 element B6 reads 10 conn rows (int32), 120 + 4 + 3*36 + 2*4 rows
+// and 30 nodal values, which neighbouring elements share in L2 (v is 4.1 MB
+// at 1M DOF), and writes 30 (265 MB per call at E = 233,280; 280 MB with
+// the values gathered before it, as the yardstick counts), B7 reads 150
+// and writes 116 (266 rows, 248 MB), B8 reads 120 + 4 + 2*36 and writes 30 (226 rows,
 // 211 MB), against ~0.5-1 kFLOP of f32 arithmetic per element-point. B9
 // reads 30 + 120 + 4 and writes 30 rows of f64 (184 rows, 343 MB) against
 // ~0.6 kFLOP of f64 per element-point: it writes no state, where the
@@ -47,18 +53,6 @@
 #include <cuda_runtime.h>
 
 #include "material_point.cuh"
-
-// The valence buckets of the diagonal's nodal sum (ops/elem_kernels.py
-// `_Buckets`): bucket b holds rows[b] rows of cap[b] (idx, mask) entries,
-// row-major. Outside the anonymous namespace: the C interface takes it.
-constexpr int kMaxBuckets = 16;
-struct DiagBuckets {
-  const long long* idx[kMaxBuckets];
-  const float* mask[kMaxBuckets];
-  int rows[kMaxBuckets];
-  int cap[kMaxBuckets];
-  int count;
-};
 
 namespace {
 
@@ -75,6 +69,21 @@ __device__ __forceinline__ void load_nodal(const T* __restrict__ rows, size_t E,
   for (int a = 0; a < NPE; ++a)
 #pragma unroll
     for (int i = 0; i < 3; ++i) v[a][i] = rows[(size_t)(3 * a + i) * E + e];
+}
+
+// The 3*npe nodal values of element e gathered from v [3, N] at its nodes
+// conn[a][e] (int32 [npe, E]): the conn reads are coalesced along e, the
+// values are read where the nodes lie (neighbouring elements share nodes).
+template <int NPE>
+__device__ __forceinline__ void gather_nodal(const float* __restrict__ v,
+                                             const int* __restrict__ conn, size_t N, size_t E,
+                                             int e, float out[NPE][3]) {
+#pragma unroll
+  for (int a = 0; a < NPE; ++a) {
+    const size_t n = (size_t)conn[(size_t)a * E + e];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) out[a][i] = v[(size_t)i * N + n];
+  }
 }
 
 // The shape-function gradients of element e at point k: g[a][J].
@@ -171,22 +180,23 @@ freeze_kernel(const float* __restrict__ ue, const float* __restrict__ gN,
 }
 
 // ---------------------------------------------------------------------------
-// B6 tangent action: dF = sum_a v_a (x) g_a, dE = sym(F^T dF),
-// dS = alpha (A:dE) A + beta A dE A, dP = dF S + F dS; out[i][a] =
-// sum_q V dP_iJ g_a[J]. Replaces pallas_kernels.py::_apply_kernel.
+// B6 tangent action: v_a = v[:, conn[a][e]] (the gather, in the kernel),
+// dF = sum_a v_a (x) g_a, dE = sym(F^T dF), dS = alpha (A:dE) A + beta A dE
+// A, dP = dF S + F dS; out[i][a] = sum_q V dP_iJ g_a[J]. Replaces
+// pallas_kernels.py::_apply_kernel and the gather before it.
 // ---------------------------------------------------------------------------
 template <int Q, int NPE>
 __global__ void __launch_bounds__(kMaxBlock)
-apply_kernel(const float* __restrict__ ve, const float* __restrict__ gN,
-             const float* __restrict__ dV, const float* __restrict__ Fb,
-             const float* __restrict__ Sb, const float* __restrict__ Ab,
-             const float* __restrict__ alb, const float* __restrict__ beb,
-             float* __restrict__ out, int E) {
+apply_kernel(const float* __restrict__ vn, const int* __restrict__ conn,
+             const float* __restrict__ gN, const float* __restrict__ dV,
+             const float* __restrict__ Fb, const float* __restrict__ Sb,
+             const float* __restrict__ Ab, const float* __restrict__ alb,
+             const float* __restrict__ beb, float* __restrict__ out, int E, int N) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= E) return;
   const size_t Es = E;
   float v[NPE][3], acc[3][NPE];
-  load_nodal<NPE>(ve, Es, e, v);
+  gather_nodal<NPE>(vn, conn, (size_t)N, Es, e, v);
 #pragma unroll
   for (int i = 0; i < 3; ++i)
 #pragma unroll
@@ -342,16 +352,13 @@ resid_kernel(const double* __restrict__ ue, const double* __restrict__ gN,
 // is slower. On the H100 the reads alone run at 93% of the rate; the
 // writes, a quarter of the bytes, hold the pass to ~62% of its bound.
 //
-// diag_sum_kernel: ONE THREAD PER NODE n. Its row inv[n] of the
-// concatenated valence buckets names a bucket and a row of cap entries; the
-// thread sums those entries' sectors in the bucket's own order (the order of
-// ScatterBuckets.apply), each weighted by its mask, skipping mask-0 entries
-// (the padding of a row; the mask-0 rows of stacked shard buckets are named
-// by no node). Then it mirrors the upper triangle into the [3, 3, N] blocks,
-// rows 3i + k, coalesced along n. No atomics: two launches are bitwise
-// equal. Bytes: the bucket rows' idx (8 B) and mask (4 B) per padded entry,
-// one 32-byte sector per real entry, inv (8 B) and the 36-byte block per
-// node: ~0.13 GB at 1M DOF. Bound by bytes; its sector reads are gathers.
+// diag_sum_kernel: ONE THREAD PER NODE n, walking the node's slots in the
+// nodal sums' table (`nodal_sum_kernel`, below): it sums their sectors in
+// the table's order, then mirrors the upper triangle into the [3, 3, N]
+// blocks, rows 3i + k, coalesced along n. No atomics: two launches are
+// bitwise equal. Bytes: the table's offsets and slot ids (4 B each), one
+// 32-byte sector per slot and the 36-byte block per node: ~0.1 GB at 1M
+// DOF. Bound by bytes; its sector reads are gathers.
 // ---------------------------------------------------------------------------
 constexpr int kSlotPad = 8;
 constexpr int kDiagBlock = 128;  // the element pass's largest block
@@ -431,34 +438,68 @@ diag_kernel(const float* __restrict__ gN, const float* __restrict__ dV,
 }
 
 __global__ void __launch_bounds__(kMaxBlock)
-diag_sum_kernel(const float* __restrict__ slots, const DiagBuckets b,
-                const long long* __restrict__ inv, float* __restrict__ out, int N) {
+diag_sum_kernel(const float* __restrict__ slots, const int* __restrict__ offsets,
+                const int* __restrict__ ids, float* __restrict__ out, int N) {
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= N) return;
-  long long r = inv[n];
-  int k = 0;
-  while (k + 1 < b.count && r >= b.rows[k]) r -= b.rows[k++];
-  const int cap = b.cap[k];
-  const long long* __restrict__ idx = b.idx[k] + r * cap;
-  const float* __restrict__ mask = b.mask[k] + r * cap;
   float acc[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  for (int j = 0; j < cap; ++j) {
-    const float m = mask[j];
-    if (m == 0.f) continue;
-    const float4* src = reinterpret_cast<const float4*>(slots + idx[j] * kSlotPad);
+  const int end = offsets[n + 1];
+  for (int j = offsets[n]; j < end; ++j) {
+    const float4* src = reinterpret_cast<const float4*>(slots + (size_t)ids[j] * kSlotPad);
     const float4 lo = src[0], hi = src[1];
-    acc[0] += m * lo.x;
-    acc[1] += m * lo.y;
-    acc[2] += m * lo.z;
-    acc[3] += m * lo.w;
-    acc[4] += m * hi.x;
-    acc[5] += m * hi.y;
+    acc[0] += lo.x;
+    acc[1] += lo.y;
+    acc[2] += lo.z;
+    acc[3] += lo.w;
+    acc[4] += hi.x;
+    acc[5] += hi.y;
   }
   const size_t Ns = N;
 #pragma unroll
   for (int i = 0; i < 3; ++i)
 #pragma unroll
     for (int kk = 0; kk < 3; ++kk) out[(size_t)(3 * i + kk) * Ns + n] = acc[sym_index(i, kk)];
+}
+
+// ---------------------------------------------------------------------------
+// The fixed-order nodal sum of an element pass's output (no TPU kernel: the
+// reference sums through padded valence buckets in XLA, ScatterBuckets in
+// ops/soa.py, and so did the port in plain PyTorch before this kernel): C
+// channels of per-slot values d [C, M], M = npe*E flat a-major slots
+// a*E + e, into nodal sums out [C, N]. The table (ScatterBuckets.csr) lists
+// each node's slots, offsets [N + 1] and slot ids, int32, in the order of
+// the node's bucket row, padding left out.
+//
+// ONE THREAD PER NODE n: it walks slots offsets[n] .. offsets[n + 1] in that
+// order, sums the C channels in registers and writes out[c][n] once,
+// coalesced along n. No atomics and no index_add_: two launches are bitwise
+// equal. Every f32 output of B6 and B8, every f64 output of B9 and of the
+// plain f64 passes is summed here. Bytes at 1M DOF (TET10, E = 233,280, N =
+// 342,361, C = 3, f32): d 28.0 MB read once, the slot ids 9.3 MB and offsets
+// 1.4 MB, out 4.1 MB: 42.8 MB, 0.0128 ms at 3.35 TB/s. The d reads are
+// gathers: a node's slots lie E apart for its different a, and a warp's 32
+// nodes touch neighbouring elements, so a 32-byte sector serves several of
+// them through L1 (and d, just written by B6, partly sits in L2).
+// ---------------------------------------------------------------------------
+template <typename T, int C>
+__global__ void __launch_bounds__(kMaxBlock)
+nodal_sum_kernel(const T* __restrict__ d, const int* __restrict__ offsets,
+                 const int* __restrict__ ids, T* __restrict__ out, int M, int N) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= N) return;
+  T acc[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) acc[c] = T(0);
+  const size_t Ms = M;
+  const int end = offsets[n + 1];
+  for (int j = offsets[n]; j < end; ++j) {
+    const size_t s = (size_t)ids[j];
+#pragma unroll
+    for (int c = 0; c < C; ++c) acc[c] += d[c * Ms + s];
+  }
+  const size_t Ns = N;
+#pragma unroll
+  for (int c = 0; c < C; ++c) out[c * Ns + n] = acc[c];
 }
 
 inline bool bad_launch(int E, int block) {
@@ -502,14 +543,15 @@ int fea_elem_freeze_f32(const float* ue, const float* gN, float* F, float* S, fl
   return (int)cudaGetLastError();
 }
 
-int fea_elem_apply_f32(const float* ve, const float* gN, const float* dV, const float* F,
-                       const float* S, const float* A, const float* alpha, const float* beta,
-                       float* out, int E, int q, int npe, int block, void* stream) {
-  if (bad_launch(E, block)) return (int)cudaErrorInvalidValue;
+int fea_elem_apply_f32(const float* v, const int* conn, const float* gN, const float* dV,
+                       const float* F, const float* S, const float* A, const float* alpha,
+                       const float* beta, float* out, int E, int N, int q, int npe, int block,
+                       void* stream) {
+  if (bad_launch(E, block) || N <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   FEA_ELEM_DISPATCH(q, npe,
                     apply_kernel<kQ, kNPE><<<grid_for(E, block), block, 0, s>>>(
-                        ve, gN, dV, F, S, A, alpha, beta, out, E));
+                        v, conn, gN, dV, F, S, A, alpha, beta, out, E, N));
   return (int)cudaGetLastError();
 }
 
@@ -545,14 +587,28 @@ int fea_elem_diag_f32(const float* gN, const float* dV, const float* F, const fl
   return (int)cudaGetLastError();
 }
 
-int fea_elem_diag_sum_f32(const float* slots, const DiagBuckets* buckets, const long long* inv,
-                          float* out, int N, int block, void* stream) {
-  if (bad_launch(N, block) || buckets->count < 1 || buckets->count > kMaxBuckets)
-    return (int)cudaErrorInvalidValue;
-  for (int k = 0; k < buckets->count; ++k)
-    if (buckets->rows[k] < 0 || buckets->cap[k] < 1) return (int)cudaErrorInvalidValue;
+int fea_elem_diag_sum_f32(const float* slots, const int* offsets, const int* ids, float* out,
+                          int N, int block, void* stream) {
+  if (bad_launch(N, block)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  diag_sum_kernel<<<grid_for(N, block), block, 0, s>>>(slots, *buckets, inv, out, N);
+  diag_sum_kernel<<<grid_for(N, block), block, 0, s>>>(slots, offsets, ids, out, N);
+  return (int)cudaGetLastError();
+}
+
+// The nodal sum of C = 3 channels (the nodal force and tangent action).
+int fea_elem_nodal_sum_f32(const float* d, const int* offsets, const int* ids, float* out,
+                           int C, int M, int N, int block, void* stream) {
+  if (bad_launch(N, block) || M <= 0 || C != 3) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  nodal_sum_kernel<float, 3><<<grid_for(N, block), block, 0, s>>>(d, offsets, ids, out, M, N);
+  return (int)cudaGetLastError();
+}
+
+int fea_elem_nodal_sum_f64(const double* d, const int* offsets, const int* ids, double* out,
+                           int C, int M, int N, int block, void* stream) {
+  if (bad_launch(N, block) || M <= 0 || C != 3) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  nodal_sum_kernel<double, 3><<<grid_for(N, block), block, 0, s>>>(d, offsets, ids, out, M, N);
   return (int)cudaGetLastError();
 }
 

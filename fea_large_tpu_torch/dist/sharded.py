@@ -245,11 +245,12 @@ def shard_soa(mesh, part, p: int, device, mixed: bool) -> ShardedSoA:
     g = np.ascontiguousarray(np.transpose(gradN, (1, 2, 3, 0)))  # [q, npe, 3, El]
     v = np.ascontiguousarray(detJxW.T)  # [q, El]
     conn = torch.as_tensor(np.ascontiguousarray(conn_T[p]), dtype=torch.int64, device=device)
+    conn32 = conn.to(torch.int32)
 
     def problem(dtype):
         return SoAProblem(n_nodes=n_local, gradN=torch.as_tensor(g, dtype=dtype, device=device),
                           detJxW=torch.as_tensor(v, dtype=dtype, device=device),
-                          conn_T=conn, buckets=buckets)
+                          conn_T=conn, buckets=buckets, conn32=conn32)
 
     return ShardedSoA(p64=problem(torch.float64),
                       p32=problem(torch.float32) if mixed else None)

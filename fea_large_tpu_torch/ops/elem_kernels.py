@@ -6,6 +6,7 @@ their plain PyTorch versions (counterpart of
 Layout, kept from the reference: every operand is [rows, E], element axis
 last, in the flattened SoA form
 
+    v          [3, N]          nodal values, with conn [npe, E] (B6)
     ve, ue     [3*npe, E]      gathered nodal values, rows 3a + i
     gradN      [q*npe*3, E]    rows (k*npe + a)*3 + J
     detJxW     [q, E]
@@ -17,24 +18,30 @@ The residual pass writes its nodal force in the same rows i*npe + a, so
 every output of this module is a free [3, npe, E] view for the nodal sum
 (the reference's residual kernel writes rows 3a + i instead).
 
-As on the TPU, the gather (v[conn]) and the nodal scatter stay outside the
-kernels (ops/soa.py), and the kernels do the dense element math.
+The tangent action's kernel (B6) gathers its nodal values itself: it
+reads v [3, N] at the int32 connectivity (`SoAProblem.conn32`), where the
+TPU's kernel takes them gathered by XLA; its plain version takes them
+gathered (`_gather_flat`), as the freeze and the residual do on the card.
+Every element pass's output is summed into nodes in a fixed order by
+`nodal_sum` (ops/soa.py `soa_scatter`): a kernel on the card, f32 and f64,
+that walks each node's slots (`ScatterBuckets.csr`); the valence buckets'
+plain sum (`ScatterBuckets.apply`) on the CPU.
 
 Each pass has a kernel (csrc/elem_kernels.cu, CUDA C++ for sm_90a: f32
 for the tangent passes, f64 for the residual) and a plain version here
 (`*_plain`, any float dtype). A wrapper (`elem_apply`, `elem_freeze`,
-`elem_force`, `elem_resid`, `elem_diag`) runs the plain version when its
-tensors lie on the CPU; on a CUDA tensor it launches the kernel or raises.
-The unstructured f32 passes of ops/soa.py go through `elem_freeze`,
-`elem_apply`, `elem_force` and `elem_diag`; the f64 residual of the mixed
-path goes through `elem_resid` (ops/residual.py). `LAUNCHES` counts kernel
-launches per pass.
+`elem_force`, `elem_resid`, `elem_diag`, `nodal_sum`) runs the plain
+version when its tensors lie on the CPU; on a CUDA tensor it launches the
+kernel or raises. The unstructured f32 passes of ops/soa.py go through
+`elem_freeze`, `elem_apply`, `elem_force` and `elem_diag`; the f64
+residual of the mixed path goes through `elem_resid` (ops/residual.py).
+`LAUNCHES` counts kernel launches per pass.
 
 The block-Jacobi diagonal (`elem_diag`) has no TPU kernel in the
 reference: its element pass writes per-slot sums, and a second kernel sums
-them into nodal blocks through the valence buckets of ops/soa.py
-(`ScatterBuckets`), in the buckets' fixed order. Its plain version ends in
-the same bucket sum, so both return the [3, 3, N] blocks.
+them into nodal blocks, walking the same table as `nodal_sum` in the
+valence buckets' fixed order. Its plain version ends in the buckets' sum
+(ops/soa.py `ScatterBuckets`), so both return the [3, 3, N] blocks.
 """
 
 from __future__ import annotations
@@ -49,7 +56,7 @@ from fea_large_tpu_torch.ops.smallmat import mm3
 #: kernel launches per pass since the last reset (the wrappers increment
 #: these where they launch their kernel, and nowhere else)
 #: ("diag" counts a call of `elem_diag`: its element pass and nodal sum)
-LAUNCHES = {"apply": 0, "freeze": 0, "force": 0, "resid": 0, "diag": 0}
+LAUNCHES = {"apply": 0, "freeze": 0, "force": 0, "resid": 0, "diag": 0, "nodal_sum": 0}
 
 #: (q, npe) the kernels are instantiated for: TET10 with the 4-point and
 #: the 5-point rule and TET4 with the 1-point rule
@@ -61,9 +68,11 @@ BLOCK = 128
 SOURCE = cuda_build.CSRC / "elem_kernels.cu"
 
 #: floats per element slot of the diagonal's scratch (six sums, padded to
-#: one 32-byte sector) and the most valence buckets its nodal sum takes
+#: one 32-byte sector)
 SLOT_PAD = 8
-MAX_BUCKETS = 16
+
+#: channels of `nodal_sum`'s kernel (a nodal vector's three components)
+SUM_CHANNELS = 3
 
 
 # ---------------------------------------------------------------------------
@@ -177,24 +186,17 @@ def elem_diag_plain(gradN, detJxW, F, S, A, alpha, beta, buckets, *, npe: int, q
 # ---------------------------------------------------------------------------
 
 
-class _Buckets(ctypes.Structure):
-    """`DiagBuckets` of csrc/elem_kernels.cu: the valence buckets' idx and
-    mask pointers, rows and caps."""
-
-    _fields_ = [("idx", ctypes.c_void_p * MAX_BUCKETS), ("mask", ctypes.c_void_p * MAX_BUCKETS),
-                ("rows", ctypes.c_int * MAX_BUCKETS), ("cap", ctypes.c_int * MAX_BUCKETS),
-                ("count", ctypes.c_int)]
-
-
 def _library():
     P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     return cuda_build.load(SOURCE, {
         "fea_elem_freeze_f32": [P] * 7 + [I] * 5 + [Fl, Fl, P],
-        "fea_elem_apply_f32": [P] * 9 + [I] * 4 + [P],
+        "fea_elem_apply_f32": [P] * 10 + [I] * 5 + [P],
         "fea_elem_force_f32": [P] * 5 + [I] * 4 + [P],
         "fea_elem_resid_f64": [P] * 4 + [I] * 5 + [ctypes.c_double] * 2 + [P],
         "fea_elem_diag_f32": [P] * 8 + [I] * 4 + [P],
-        "fea_elem_diag_sum_f32": [P, ctypes.POINTER(_Buckets), P, P, I, I, P],
+        "fea_elem_diag_sum_f32": [P] * 4 + [I] * 2 + [P],
+        "fea_elem_nodal_sum_f32": [P] * 4 + [I] * 4 + [P],
+        "fea_elem_nodal_sum_f64": [P] * 4 + [I] * 4 + [P],
     })
 
 
@@ -213,10 +215,10 @@ def _check_block(block: int, most: int = 256):
         raise ValueError(f"block must be a multiple of 32 up to {most}, got {block}")
 
 
-def _check_tensors(named: dict, shapes: dict, dtype: torch.dtype):
+def _check_tensors(named: dict, shapes: dict, dtype: torch.dtype, device=None):
     """Raise unless every tensor is a contiguous `dtype` tensor on one CUDA
-    device with the expected shape."""
-    dev = next(iter(named.values())).device
+    device (`device` where given) with the expected shape."""
+    dev = next(iter(named.values())).device if device is None else device
     for name, x in named.items():
         if x.device != dev or x.device.type != "cuda":
             raise ValueError(f"{name}: expected a CUDA tensor on {dev}, got {x.device}")
@@ -261,20 +263,24 @@ def elem_freeze(ue, gradN, material, *, npe: int, q: int, block: int = BLOCK):
     return F, S, A, al, be
 
 
-def elem_apply(ve, gradN, detJxW, F, S, A, alpha, beta, *, npe: int, q: int,
+def elem_apply(v, conn, gradN, detJxW, F, S, A, alpha, beta, *, npe: int, q: int,
                block: int = BLOCK):
-    """B6 (`pallas_kernels.py::_apply_kernel`): see `elem_apply_plain`."""
-    if ve.device.type == "cpu":
-        return elem_apply_plain(ve, gradN, detJxW, F, S, A, alpha, beta, npe=npe, q=q)
-    E = ve.shape[-1]
-    named = {"ve": ve, "gradN": gradN, "detJxW": detJxW, "F": F, "S": S, "A": A,
+    """B6 (`pallas_kernels.py::_apply_kernel`) with the gather before it:
+    the nodal values of v [3, N] at conn [npe, E] (int32 on the card), then
+    `elem_apply_plain`. Every conn entry must be a node of v."""
+    if v.device.type == "cpu":
+        return _apply_plain(v, conn, gradN, detJxW, F, S, A, alpha, beta, npe=npe, q=q)
+    E, N = conn.shape[-1], v.shape[-1]
+    named = {"v": v, "gradN": gradN, "detJxW": detJxW, "F": F, "S": S, "A": A,
              "alpha": alpha, "beta": beta}
     rq, rp = (q * 9, E), (q, E)
-    _check(named, {"ve": (3 * npe, E), "gradN": (q * npe * 3, E), "detJxW": rp,
+    _check(named, {"v": (3, N), "gradN": (q * npe * 3, E), "detJxW": rp,
                    "F": rq, "S": rq, "A": rq, "alpha": rp, "beta": rp}, npe, q, block)
-    out = ve.new_empty((3 * npe, E))
-    _launch("apply", ve.device, *(_ptr(x) for x in named.values()), _ptr(out),
-            E, q, npe, block)
+    _check_tensors({"conn": conn}, {"conn": (npe, E)}, torch.int32, v.device)
+    out = v.new_empty((3 * npe, E))
+    _launch("apply", v.device, _ptr(v), _ptr(conn),
+            *(_ptr(x) for x in (gradN, detJxW, F, S, A, alpha, beta)), _ptr(out), E, N, q, npe,
+            block)
     return out
 
 
@@ -309,30 +315,37 @@ def elem_resid(ue, gradN, detJxW, material, *, npe: int, q: int, block: int = BL
     return out
 
 
-def bucket_table(buckets) -> _Buckets:
-    """The `DiagBuckets` of a `ScatterBuckets` (its tables' addresses, rows
-    and caps) for the nodal sum's C interface."""
-    if not 1 <= len(buckets.idx) <= MAX_BUCKETS:
-        raise ValueError(f"the nodal sum takes 1 to {MAX_BUCKETS} buckets, got {len(buckets.idx)}")
-    table = _Buckets(count=len(buckets.idx))
-    for b, (idx, mask) in enumerate(zip(buckets.idx, buckets.mask)):
-        table.idx[b], table.mask[b] = idx.data_ptr(), mask.data_ptr()
-        table.rows[b], table.cap[b] = idx.shape
-    return table
+def _table(buckets, device, n_in: int):
+    """(offsets, ids, N) of `buckets.csr`, raised on unless it lies on
+    `device` and indexes no slot at or past `n_in`."""
+    offsets, ids, span = buckets.csr
+    _check_tensors({"offsets": offsets, "ids": ids},
+                   {"offsets": tuple(offsets.shape), "ids": tuple(ids.shape)}, torch.int32, device)
+    if offsets.dim() != 1 or span > n_in:
+        raise ValueError(f"the nodal table takes [N + 1] offsets and {span} or more slots, "
+                         f"got {tuple(offsets.shape)} and {n_in}")
+    return offsets, ids, offsets.shape[0] - 1
 
 
-def _check_buckets(buckets, device):
-    """Raise unless the buckets are contiguous int64 idx and float32 mask
-    [rows, cap] tables and an int64 inv [N] on `device`."""
-    inv = buckets.inv
-    if inv.dim() != 1 or inv.device != device:
-        raise ValueError(f"inv: expected [N] on {device}, got {tuple(inv.shape)} on {inv.device}")
-    _check_tensors({"inv": inv}, {"inv": tuple(inv.shape)}, torch.int64)
-    for b, (idx, mask) in enumerate(zip(buckets.idx, buckets.mask)):
-        if idx.dim() != 2 or idx.device != device:
-            raise ValueError(f"bucket {b}: expected idx [rows, cap] on {device}")
-        _check_tensors({"idx": idx}, {"idx": tuple(idx.shape)}, torch.int64)
-        _check_tensors({"mask": mask}, {"mask": tuple(idx.shape)}, torch.float32)
+def nodal_sum(d, buckets, *, block: int = BLOCK):
+    """The fixed-order nodal sum of per-slot values d [3, M] (M = npe*E flat
+    a-major slots; f32 or f64) -> [3, N]: each node's slots summed in the
+    valence buckets' order, walking `buckets.csr`; no atomics, repeats
+    bitwise equal. On CPU tensors `buckets.apply` (any channel count)."""
+    if d.device.type == "cpu":
+        return buckets.apply(d)
+    _check_block(block)
+    if d.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"d: the nodal sum takes float32 or float64, got {d.dtype}")
+    C, M = d.shape
+    if C != SUM_CHANNELS:
+        raise ValueError(f"d: the nodal sum's kernel takes {SUM_CHANNELS} channels, got {C}")
+    _check_tensors({"d": d}, {"d": (C, M)}, d.dtype)
+    offsets, ids, N = _table(buckets, d.device, M)
+    out = d.new_empty((C, N))
+    _launch("nodal_sum", d.device, _ptr(d), _ptr(offsets), _ptr(ids), _ptr(out), C, M, N, block,
+            suffix="f32" if d.dtype == torch.float32 else "f64")
+    return out
 
 
 def diag_slots(gradN, detJxW, F, S, A, alpha, beta, *, npe: int, q: int, block: int = BLOCK):
@@ -353,15 +366,13 @@ def diag_slots(gradN, detJxW, F, S, A, alpha, beta, *, npe: int, q: int, block: 
 
 def diag_sum(slots, buckets, *, block: int = BLOCK):
     """The diagonal's nodal sum (counted by `elem_diag`, not here): the
-    slots' sums through `buckets` in their fixed order, [3, 3, N]."""
-    N = buckets.inv.shape[0]
+    slots' sums in the buckets' fixed order (`buckets.csr`, as
+    `nodal_sum`), [3, 3, N]."""
     _check_block(block)
     _check_tensors({"slots": slots}, {"slots": (slots.shape[0], SLOT_PAD)}, torch.float32)
-    _check_buckets(buckets, slots.device)
-    table = bucket_table(buckets)
+    offsets, ids, N = _table(buckets, slots.device, slots.shape[0])
     out = slots.new_empty((3, 3, N))
-    _call("diag_sum", slots.device, _ptr(slots), ctypes.byref(table), _ptr(buckets.inv),
-          _ptr(out), N, block)
+    _call("diag_sum", slots.device, _ptr(slots), _ptr(offsets), _ptr(ids), _ptr(out), N, block)
     return out
 
 
@@ -401,12 +412,21 @@ def flatten_state(state):
             state.alpha, state.beta)
 
 
+def _gather_rows(v_T, conn_T):
+    """v_T [3, N] at conn_T [npe, E] -> [3*npe, E] rows 3a + i."""
+    ve = v_T[:, conn_T]  # [3, npe, E]
+    return ve.transpose(0, 1).reshape(-1, ve.shape[-1])
+
+
+def _apply_plain(v_T, conn_T, *args, **kw):
+    """`elem_apply_plain` on the nodal values of v_T at conn_T: what
+    `elem_apply` runs on the CPU, and the f64 tangent action."""
+    return elem_apply_plain(_gather_rows(v_T, conn_T), *args, **kw)
+
+
 def _gather_flat(p, v_T):
     """v_T [3, N] -> [3*npe, E] rows 3a + i (`soa_gather`, transposed)."""
-    from fea_large_tpu_torch.ops.soa import soa_gather
-
-    ve = soa_gather(p, v_T)  # [3, npe, E]
-    return ve.transpose(0, 1).reshape(-1, ve.shape[-1])
+    return _gather_rows(v_T, p.conn_T)
 
 
 def flat_tables(p):

@@ -17,17 +17,23 @@ dtype and device:
 
 Unstructured meshes: full per-element tables gradN [q, npe, 3, E] and
 detJxW [q, E], a conn_T gather, the element-block pass, and a
-deterministic nodal sum through the valence buckets of `ScatterBuckets`.
-The freeze, force, tangent action and block-Jacobi diagonal route as on
-a lattice, to the element-block kernels (`ek.elem_*`, ops/elem_kernels.py)
-for f32 on CUDA. The diagonal's kernels (`ek.elem_diag`: an element pass
-and a nodal sum through the same valence buckets) have no counterpart in
-the reference, which forms this diagonal in plain jnp.
+deterministic nodal sum in the fixed order of the valence buckets of
+`ScatterBuckets`. The freeze, force, tangent action and block-Jacobi
+diagonal route as on a lattice, to the element-block kernels (`ek.elem_*`,
+ops/elem_kernels.py) for f32 on CUDA. On the card the tangent action's
+kernel gathers its nodal values itself (int32 `conn32`), and every nodal
+sum, f32 and f64, is a kernel (`ek.nodal_sum`) walking each node's slots
+in the buckets' order (`ScatterBuckets.csr`); on the CPU the gather and
+the buckets' padded sums (`ScatterBuckets.apply`) are plain PyTorch, as
+in the reference. The nodal-sum kernels and the diagonal's (`ek.elem_diag`:
+an element pass and a nodal sum) have no counterpart in the reference,
+which sums through the buckets and forms this diagonal in plain jnp.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -157,6 +163,38 @@ class ScatterBuckets:
             inv=self.inv[p].to(dev),
         )
 
+    @functools.cached_property
+    def csr(self) -> tuple:
+        """(offsets int32 [N + 1], ids int32 [M], span) on the buckets'
+        device: output row n sums the flat entries ids[offsets[n]:offsets[n +
+        1]], its bucket row's real entries in the order `apply` takes them
+        (mask-0 padding, and rows that no output names, left out); span is
+        the largest id + 1. The nodal-sum kernels walk it
+        (ops/elem_kernels.py). Built on the host at its first use; one
+        shard's buckets only (a 1-D `inv`)."""
+        inv = self.inv.cpu().numpy()
+        if inv.ndim != 1:
+            raise ValueError("the table is built for one shard's buckets: take shard(p) first")
+        live = [m.cpu().numpy() != 0 for m in self.mask]
+        counts = np.concatenate([m.sum(1) for m in live])[inv]
+        offsets = np.zeros(len(inv) + 1, np.int64)
+        np.cumsum(counts, out=offsets[1:])
+        ids = np.zeros(offsets[-1], np.int64)
+        row0 = 0
+        for idx, m in zip(self.idx, live):
+            nodes = np.nonzero((inv >= row0) & (inv < row0 + m.shape[0]))[0]
+            rows = inv[nodes] - row0
+            keep = m[rows]
+            pos = offsets[nodes][:, None] + np.cumsum(keep, 1) - 1
+            ids[pos[keep]] = idx.cpu().numpy()[rows][keep]
+            row0 += m.shape[0]
+        span = int(ids.max()) + 1 if len(ids) else 0
+        if max(offsets[-1], span) >= 2**31:
+            raise ValueError("the nodal table's int32 ids cannot hold this many slots")
+        dev = self.inv.device
+        return (torch.as_tensor(offsets.astype(np.int32), device=dev),
+                torch.as_tensor(ids.astype(np.int32), device=dev), span)
+
     def apply(self, d: torch.Tensor) -> torch.Tensor:
         """d [n, npe*E] flat per-slot values -> [n, N] nodal sums."""
         parts = [(d[:, idx] * mask.to(d.dtype)).sum(2) for idx, mask in zip(self.idx, self.mask)]
@@ -187,6 +225,12 @@ class SoAProblem:
     tables     the lattice's `StructTables` (gradN, detJxW, pair map)
     conn_T     int64 [npe, E] (unstructured)
     buckets    `ScatterBuckets` of conn_T (unstructured)
+    conn32     conn_T in int32, B6's (unstructured; made from conn_T
+               unless given)
+
+    An unstructured problem builds conn32 and its buckets' nodal table
+    (`ScatterBuckets.csr`) at construction, so that no kernel call, nor a
+    captured body, builds them.
     """
 
     n_nodes: int
@@ -196,6 +240,13 @@ class SoAProblem:
     tables: sk.StructTables | None = None
     conn_T: torch.Tensor | None = None
     buckets: ScatterBuckets | None = None
+    conn32: torch.Tensor | None = None
+
+    def __post_init__(self):
+        if self.conn_T is not None and self.conn32 is None:
+            object.__setattr__(self, "conn32", self.conn_T.to(torch.int32).contiguous())
+        if self.buckets is not None:
+            self.buckets.csr  # noqa: B018 (built here, once)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -236,7 +287,8 @@ class SoAProblem:
             return SoAProblem(n_nodes=int(mesh.n_nodes), gradN=tables.gN,
                               detJxW=tables.dV, structure=st, tables=tables)
         if share_maps_from is not None:
-            maps = dict(conn_T=share_maps_from.conn_T, buckets=share_maps_from.buckets)
+            maps = dict(conn_T=share_maps_from.conn_T, conn32=share_maps_from.conn32,
+                        buckets=share_maps_from.buckets)
         else:
             conn_np = np.ascontiguousarray(conn.T)  # [npe, E]
             maps = dict(
@@ -314,9 +366,10 @@ def soa_gather(p: SoAProblem, v_T: torch.Tensor) -> torch.Tensor:
 
 
 def soa_scatter(p: SoAProblem, fe: torch.Tensor) -> torch.Tensor:
-    """Per-element nodal values fe [n, npe, E] -> nodal sums [n, N] through
-    the valence buckets (fixed order)."""
-    return p.buckets.apply(fe.reshape(fe.shape[0], -1))
+    """Per-element nodal values fe [n, npe, E] -> nodal sums [n, N] in the
+    valence buckets' fixed order: the nodal-sum kernel on the card (n = 3,
+    f32 or f64), the buckets' sum on the CPU (`ek.nodal_sum`)."""
+    return ek.nodal_sum(fe.reshape(fe.shape[0], -1).contiguous(), p.buckets)
 
 
 # ---------------------------------------------------------------------------
@@ -374,8 +427,9 @@ def soa_apply_tangent(p: SoAProblem, state: SoAState, v_T: torch.Tensor) -> torc
     """(K v) [3, N]: consistent-tangent action, material + geometric."""
     if p.structure is None:
         q, npe, gradN, detJxW = ek.flat_tables(p)
-        fn = _route(p, v_T, ek.elem_apply, ek.elem_apply_plain)
-        out = fn(ek._gather_flat(p, v_T), gradN, detJxW, *ek.flatten_state(state), npe=npe, q=q)
+        fn = _route(p, v_T, ek.elem_apply, ek._apply_plain)
+        out = fn(v_T.contiguous(), p.conn32, gradN, detJxW, *ek.flatten_state(state), npe=npe,
+                 q=q)
         return soa_scatter(p, out.view(3, npe, -1))
     tb = p.tables
     cache = sk.gather_cache(p.structure, tb.pairs, v_T)

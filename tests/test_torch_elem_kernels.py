@@ -106,11 +106,17 @@ def test_unstructured_passes_route_f32_through_the_wrappers(monkeypatch):
     """The f32 unstructured passes of ops/soa.py call the kernel wrappers,
     which launch on CUDA tensors and run the plain version on CPU tensors
     (bitwise here, with no launch counted); the f64 passes call the plain
-    versions. A Kuhn lattice never reaches the element-block wrappers."""
+    versions. Every nodal sum, f32 and f64, goes through `ek.nodal_sum`,
+    which on the CPU is the buckets' sum (`ScatterBuckets.apply`). A Kuhn
+    lattice never reaches the element-block wrappers nor the buckets."""
     calls = []
-    for name in ("elem_freeze", "elem_apply", "elem_force", "elem_diag"):
+    for name in ("elem_freeze", "elem_apply", "elem_force", "elem_diag", "nodal_sum"):
         wrapper = getattr(ek, name)
         monkeypatch.setattr(ek, name, lambda *a, _w=wrapper, _n=name, **k: (calls.append(_n), _w(*a, **k))[1])
+    bucket_sum = soa.ScatterBuckets.apply
+    monkeypatch.setattr(soa.ScatterBuckets, "apply",
+                        lambda self, d: (calls.append("apply"), bucket_sum(self, d))[1])
+    summed = ["nodal_sum", "apply"]
     before = dict(ek.LAUNCHES)
     mat = NeoHookean(1.0, 0.6)
     for dtype in (torch.float32, torch.float64):
@@ -127,8 +133,11 @@ def test_unstructured_passes_route_f32_through_the_wrappers(monkeypatch):
         assert torch.equal(soa.soa_internal_force(p, st), soa.soa_scatter(p, fe.view(3, npe, -1)))
         de = ek.elem_diag_plain(gradN, dV, *rows, p.buckets, npe=npe, q=q)
         assert torch.equal(soa.soa_diag_blocks(p, st), de)
-        assert calls == (["elem_freeze", "elem_apply", "elem_force", "elem_diag"]
-                         if dtype == torch.float32 else [])
+        if dtype == torch.float32:
+            assert calls == ["elem_freeze", "elem_apply", *summed, *summed, "elem_force",
+                             *summed, *summed, "apply", "elem_diag", "apply"]
+        else:
+            assert calls == [*summed * 4, "apply", "apply"]
         calls.clear()
     p = soa.SoAProblem.build(box_mesh_kuhn(2, 2, 1, element_type="tet10", device="cpu"), torch.float32)
     st = soa.soa_freeze(p, mat, torch.zeros((3, p.n_nodes)))
@@ -136,6 +145,40 @@ def test_unstructured_passes_route_f32_through_the_wrappers(monkeypatch):
     soa.soa_internal_force(p, st)
     soa.soa_diag_blocks(p, st)
     assert calls == [] and ek.LAUNCHES == before
+
+
+def test_nodal_table_lists_each_nodes_bucket_entries_in_their_order():
+    """`ScatterBuckets.csr`, the nodal sums' table, holds for every node the
+    real entries of its bucket row in the row's order: on a box that is the
+    stable sort of the flat slots by node (`host_build`'s own order), and
+    on a shard's stacked buckets (mask-0 padding rows, padded elements) the
+    same walk of its rows. `conn32` is conn_T in int32; a problem built
+    with `share_maps_from` shares it and the table."""
+    from fea_large_tpu_torch.dist.partition import partition_mesh
+    from fea_large_tpu_torch.dist.sharded import shard_soa
+
+    mesh = box_mesh(4, 3, 2, element_type="tet10", device="cpu")
+    p = soa.SoAProblem.build(mesh, torch.float32)
+    flat = p.conn_T.reshape(-1).numpy()
+    offsets, ids, span = p.buckets.csr
+    assert offsets.dtype == ids.dtype == p.conn32.dtype == torch.int32
+    assert torch.equal(p.conn32.long(), p.conn_T) and span == flat.size
+    np.testing.assert_array_equal(ids.numpy(), np.argsort(flat, kind="stable"))
+    np.testing.assert_array_equal(np.diff(offsets.numpy()), np.bincount(flat, minlength=p.n_nodes))
+    p64 = soa.SoAProblem.build(mesh, torch.float64, share_maps_from=p)
+    assert p64.conn32 is p.conn32 and p64.buckets.csr is p.buckets.csr
+    sharded = box_mesh(5, 2, 2, element_type="tet4", device="cpu")
+    part = partition_mesh(sharded, 3, method="slab")
+    r = int(np.argmin((part.elem_global >= 0).sum(axis=1)))
+    shard = shard_soa(sharded, part, r, "cpu", mixed=True)
+    assert shard.p32.conn32 is shard.p64.conn32 and (part.elem_global[r] < 0).any()
+    b = shard.p32.buckets
+    assert sum(int((m.sum(1) == 0).sum()) for m in b.mask) > 0
+    offsets, ids, _ = b.csr
+    rows = [(i, m) for idx, mask in zip(b.idx, b.mask) for i, m in zip(idx, mask)]
+    for n in range(shard.p32.n_nodes):
+        i, m = rows[int(b.inv[n])]
+        assert torch.equal(ids[offsets[n]:offsets[n + 1]].long(), i[m != 0])
 
 
 def test_unstructured_diag_routes_f32_to_the_kernel_on_card(monkeypatch):
@@ -229,7 +272,7 @@ def _card_inputs(et, block, n_quad=None):
     assert E % block != 0
     u, v = (torch.tensor(a, dtype=torch.float32, device="cuda") for a in _smooth(mesh.coords_host))
     state = ek.flatten_state(soa.soa_freeze(p, NeoHookean(1.0, 0.6), u))
-    return p, q, npe, ek._gather_flat(p, u), ek._gather_flat(p, v), state
+    return p, q, npe, ek._gather_flat(p, u), v, state
 
 
 def _rel(a, b):
@@ -253,11 +296,16 @@ def test_elem_freeze_kernel_matches_plain_on_card(et, kind, port_cls):
 @pytest.mark.parametrize("et", ["tet10", "tet4"])
 @pytest.mark.parametrize("block", [32, 128])
 def test_elem_apply_kernel_matches_plain_on_card(et, block):
-    p, q, npe, _, ve, state = _card_inputs(et, block)
+    """B6 reads v [3, N] through the int32 connectivity itself: against the
+    plain gather and `ek.elem_apply_plain`; two launches bitwise equal."""
+    p, q, npe, _, v, state = _card_inputs(et, block)
     gradN = p.gradN.view(q * npe * 3, -1)
-    out = ek.elem_apply(ve, gradN, p.detJxW, *state, npe=npe, q=q, block=block)
+    n0 = ek.LAUNCHES["apply"]
+    out = ek.elem_apply(v, p.conn32, gradN, p.detJxW, *state, npe=npe, q=q, block=block)
+    again = ek.elem_apply(v, p.conn32, gradN, p.detJxW, *state, npe=npe, q=q, block=block)
     torch.cuda.synchronize()
-    plain = ek.elem_apply_plain(ve, gradN, p.detJxW, *state, npe=npe, q=q)
+    assert ek.LAUNCHES["apply"] == n0 + 2 and torch.equal(out, again)
+    plain = ek.elem_apply_plain(ek._gather_flat(p, v), gradN, p.detJxW, *state, npe=npe, q=q)
     assert _rel(out, plain) <= 2e-5
 
 
@@ -273,14 +321,15 @@ def test_elem_force_kernel_matches_plain_on_card(et):
 def test_five_point_rule_elem_kernels_match_plain_on_card():
     """The (q, npe) = (5, 10) instances of B6-B9 on a TET10 box with
     `n_quad=5`."""
-    p, q, npe, ue, ve, state = _card_inputs("tet10", 128, n_quad=5)
+    p, q, npe, ue, v, state = _card_inputs("tet10", 128, n_quad=5)
     assert (q, npe) == (5, 10)
+    ve = ek._gather_flat(p, v)
     kw = dict(npe=npe, q=q)
     gradN = p.gradN.view(q * npe * 3, -1)
     mat = NeoHookean(1.0, 0.6)
     for a, b in zip(ek.elem_freeze(ue, gradN, mat, **kw), ek.elem_freeze_plain(ue, gradN, mat, **kw)):
         assert _rel(a, b) <= 2e-5
-    assert _rel(ek.elem_apply(ve, gradN, p.detJxW, *state, **kw),
+    assert _rel(ek.elem_apply(v, p.conn32, gradN, p.detJxW, *state, **kw),
                 ek.elem_apply_plain(ve, gradN, p.detJxW, *state, **kw)) <= 2e-5
     assert _rel(ek.elem_force(gradN, p.detJxW, *state[:2], **kw),
                 ek.elem_force_plain(gradN, p.detJxW, *state[:2], **kw)) <= 2e-5
@@ -332,3 +381,96 @@ def test_elem_diag_kernel_matches_plain_on_a_shard_on_card():
     out = ek.elem_diag(gradN, dV, *rows, p.buckets, npe=npe, q=q)
     torch.cuda.synchronize()
     assert _rel(out, ek.elem_diag_plain(gradN, dV, *rows, p.buckets, npe=npe, q=q)) <= 2e-5
+
+
+def _rand_slots(p, dtype, seed=3):
+    """Per-slot values [3, npe*E] of `p` on its device."""
+    d = np.random.default_rng(seed).standard_normal((3, p.conn_T.numel()))
+    return torch.tensor(d, dtype=dtype, device=p.conn_T.device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("block", [32, 128])
+def test_nodal_sum_kernel_matches_buckets_on_card(dtype, block):
+    """The fixed-order nodal sum (`ek.nodal_sum`) on the card against the
+    buckets' plain sum (`ScatterBuckets.apply`): within 2e-5 (f32) and
+    1e-12 (f64) of the largest entry, two launches bitwise equal, one count
+    of `LAUNCHES["nodal_sum"]` each."""
+    p = _card_inputs("tet10", block)[0]
+    d = _rand_slots(p, dtype)
+    n0 = ek.LAUNCHES["nodal_sum"]
+    a, b = (ek.nodal_sum(d, p.buckets, block=block) for _ in range(2))
+    torch.cuda.synchronize()
+    assert ek.LAUNCHES["nodal_sum"] == n0 + 2 and a.shape == (3, p.n_nodes)
+    assert torch.equal(a, b)
+    assert _rel(a, p.buckets.apply(d)) <= (2e-5 if dtype == torch.float32 else 1e-12)
+
+
+def test_elem_apply_and_nodal_sum_match_plain_on_a_shard_on_card():
+    """B6 with its gather and the nodal sum on the padded tables of the
+    shard with the most padding of a 5-tet box cut into 4 slabs
+    (`shard_soa`): padded elements and the stacked buckets' mask-0 rows sum
+    nothing; within 2e-5 (f32) and 1e-12 (f64) of the plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels are CUDA C++ for sm_90a")
+    from fea_large_tpu_torch.dist.partition import partition_mesh
+    from fea_large_tpu_torch.dist.sharded import shard_soa
+
+    mesh = box_mesh(6, 3, 3, element_type="tet10", device="cpu")
+    part = partition_mesh(mesh, 4, method="slab")
+    r = int(np.argmin((part.elem_global >= 0).sum(axis=1)))
+    p = shard_soa(mesh, part, r, torch.device("cuda"), mixed=True).p32
+    assert int((part.elem_global[r] < 0).sum()) > 0
+    u, v = (torch.tensor(a, dtype=torch.float32, device="cuda")
+            for a in _smooth(part.from_global(mesh.coords_host, space="local")[r]))
+    q, npe, gradN, dV = ek.flat_tables(p)
+    rows = ek.flatten_state(soa.soa_freeze(p, NeoHookean(1.0, 0.6), u))
+    out = ek.elem_apply(v, p.conn32, gradN, dV, *rows, npe=npe, q=q)
+    assert _rel(out, ek.elem_apply_plain(ek._gather_flat(p, v), gradN, dV, *rows, npe=npe,
+                                         q=q)) <= 2e-5
+    for dtype, bound in ((torch.float32, 2e-5), (torch.float64, 1e-12)):
+        d = _rand_slots(p, dtype)
+        assert _rel(ek.nodal_sum(d, p.buckets), p.buckets.apply(d)) <= bound
+    torch.cuda.synchronize()
+
+
+def test_unstructured_sums_route_to_the_nodal_sum_kernel_on_card(monkeypatch):
+    """On the card every unstructured nodal sum, f32 and f64, is the
+    nodal-sum kernel (one count a sum) and never the buckets' plain sum;
+    the f32 tangent action is one B6 launch, with no plain gather."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels are CUDA C++ for sm_90a")
+    plain = []
+    bucket_sum = soa.ScatterBuckets.apply
+    monkeypatch.setattr(soa.ScatterBuckets, "apply",
+                        lambda self, d: (plain.append(1), bucket_sum(self, d))[1])
+    mesh = box_mesh(3, 3, 3, element_type="tet10", device="cuda")
+    u, v = _smooth(mesh.coords_host)
+    for dtype in (torch.float32, torch.float64):
+        p = soa.SoAProblem.build(mesh, dtype)
+        ut, vt = (torch.tensor(a, dtype=dtype, device="cuda") for a in (u, v))
+        st = soa.soa_freeze(p, NeoHookean(1.0, 0.6), ut)
+        n0 = dict(ek.LAUNCHES)
+        kv = soa.soa_apply_tangent(p, st, vt)
+        f = soa.soa_internal_force(p, st)
+        torch.cuda.synchronize()
+        assert kv.shape == f.shape == (3, p.n_nodes) and kv.dtype == f.dtype == dtype
+        assert ek.LAUNCHES["nodal_sum"] == n0["nodal_sum"] + 2 and plain == []
+        assert ek.LAUNCHES["apply"] == n0["apply"] + (dtype == torch.float32)
+
+
+def test_nodal_sum_wrapper_refuses_bad_inputs_on_card():
+    """`ek.nodal_sum` on the card refuses a channel count other than 3, a
+    dtype other than f32 and f64, fewer slots than its table names and a
+    table on another device."""
+    p = _card_inputs("tet10", 128)[0]
+    d = _rand_slots(p, torch.float32)
+    with pytest.raises(ValueError):
+        ek.nodal_sum(d[:2].contiguous(), p.buckets)
+    with pytest.raises(TypeError):
+        ek.nodal_sum(d.half(), p.buckets)
+    with pytest.raises(ValueError):
+        ek.nodal_sum(d[:, :-1].contiguous(), p.buckets)
+    cpu = soa.SoAProblem.build(box_mesh(3, 3, 3, element_type="tet10", device="cpu"))
+    with pytest.raises(ValueError):
+        ek.nodal_sum(d, cpu.buckets)

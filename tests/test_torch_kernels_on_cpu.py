@@ -6,10 +6,13 @@ five kernels of `csrc/struct_kernels.cu`, all one thread per (tet slot,
 cell): B1 (`apply_kernel`), B3 (`diag_kernel`), B4 (`force_kernel`) and B5
 (`resid_kernel`, in double), whose register sums end in a shared-memory
 combine behind `__syncthreads()`, and B2 (`freeze_kernel`), whose threads
-store their own rows, and the unstructured block-Jacobi diagonal of
-`csrc/elem_kernels.cu` (`diag_kernel`, a thread per element writing padded
-slot sums, and `diag_sum_kernel`, a thread per node summing them through
-the valence buckets), are compiled with g++ against `tests/cuda_on_cpu/cuda_runtime.h`, which runs every CUDA
+store their own rows, and, of `csrc/elem_kernels.cu`, the unstructured
+block-Jacobi diagonal (`diag_kernel`, a thread per element writing padded
+slot sums, and `diag_sum_kernel`, a thread per node summing them in the
+valence buckets' order), B6 (`apply_kernel`, a thread per element that
+gathers its own nodal values through the int32 connectivity) and the
+fixed-order nodal sum (`nodal_sum_kernel`, a thread per node, f32 and
+f64), are compiled with g++ against `tests/cuda_on_cpu/cuda_runtime.h`, which runs every CUDA
 block as real host threads with barriers for `__syncthreads()` and for the
 warp shuffles. The C interface is then called on CPU tensors exactly as the
 wrappers call it on the card. This holds the kernels' indexing, masking of
@@ -291,9 +294,13 @@ def test_lattice_source_refuses_other_rules(struct_lib):
 def elem_lib(tmp_path_factory):
     lib = _build(ek.SOURCE, tmp_path_factory.mktemp("elem"))
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.fea_elem_diag_f32.argtypes = [P] * 8 + [I] * 4 + [P]
-    lib.fea_elem_diag_sum_f32.argtypes = [P, ctypes.POINTER(ek._Buckets), P, P, I, I, P]
-    lib.fea_elem_diag_f32.restype = lib.fea_elem_diag_sum_f32.restype = I
+    for fn, argtypes in {"fea_elem_diag_f32": [P] * 8 + [I] * 4 + [P],
+                         "fea_elem_diag_sum_f32": [P] * 4 + [I] * 2 + [P],
+                         "fea_elem_apply_f32": [P] * 10 + [I] * 5 + [P],
+                         "fea_elem_nodal_sum_f32": [P] * 4 + [I] * 4 + [P],
+                         "fea_elem_nodal_sum_f64": [P] * 4 + [I] * 4 + [P]}.items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = I
     return lib
 
 
@@ -308,9 +315,9 @@ def _launch_diag(lib, p, rows, block):
     out = torch.full((3, 3, N), float("nan"))
     err1 = lib.fea_elem_diag_f32(_ptr(gradN), _ptr(dV), *(_ptr(r) for r in rows), _ptr(slots),
                                  E, q, npe, block, None)
-    table = ek.bucket_table(p.buckets)
-    err2 = lib.fea_elem_diag_sum_f32(_ptr(slots), ctypes.byref(table), _ptr(p.buckets.inv),
-                                     _ptr(out), N, block, None)
+    offsets, ids, _ = p.buckets.csr
+    err2 = lib.fea_elem_diag_sum_f32(_ptr(slots), _ptr(offsets), _ptr(ids), _ptr(out), N, block,
+                                     None)
     return out, (err1, err2)
 
 
@@ -341,6 +348,23 @@ DIAG_CASES = {
 }
 
 
+def _problem(case):
+    """(f32 problem, node coordinates) of a DIAG_CASES box or of a shard
+    ("tet10-shard", "tet4-shard": `_sharded_problem`)."""
+    if case.endswith("-shard"):
+        return _sharded_problem(case.split("-")[0])
+    mesh = DIAG_CASES[case]()
+    return soa.SoAProblem.build(mesh, torch.float32), mesh.coords_host
+
+
+def _nodal_fields(coords, dtype=torch.float32):
+    """A smooth displacement u and direction v [3, N] on the nodes."""
+    c = coords.T
+    u = np.stack([0.01 * np.sin(np.pi * c[0]) * c[2], 0.02 * c[0] * c[1], -0.05 * c[2]])
+    v = np.stack([np.cos(np.pi * c[1]) * c[2], 0.5 * c[0] - c[2], np.sin(np.pi * c[0]) + c[1]])
+    return torch.tensor(u, dtype=dtype), torch.tensor(v, dtype=dtype)
+
+
 @pytest.mark.parametrize("case", [*DIAG_CASES, "tet10-shard", "tet4-shard"])
 def test_elem_diag_source_matches_plain_on_cpu_threads(elem_lib, case):
     """The unstructured diagonal's two kernels (`fea_elem_diag_f32`,
@@ -351,16 +375,10 @@ def test_elem_diag_source_matches_plain_on_cpu_threads(elem_lib, case):
     hold mask-0 padding rows. Blocks of 32 and 128 threads: every block
     written, symmetric, within 2e-5 of the plain version's largest entry,
     bitwise equal across block sizes and across two launches."""
-    if case.endswith("-shard"):
-        p, coords = _sharded_problem(case.split("-")[0])
-    else:
-        mesh = DIAG_CASES[case]()
-        p, coords = soa.SoAProblem.build(mesh, torch.float32), mesh.coords_host
+    p, coords = _problem(case)
     q, npe, gradN, dV = ek.flat_tables(p)
     assert (q, npe) in ek.SUPPORTED and gradN.shape[-1] % 32 != 0
-    c = coords.T
-    u = np.stack([0.01 * np.sin(np.pi * c[0]) * c[2], 0.02 * c[0] * c[1], -0.05 * c[2]])
-    state = soa.soa_freeze(p, NeoHookean(1.0, 0.6), torch.tensor(u, dtype=torch.float32))
+    state = soa.soa_freeze(p, NeoHookean(1.0, 0.6), _nodal_fields(coords)[0])
     rows = [r.contiguous() for r in ek.flatten_state(state)]
     plain = ek.elem_diag_plain(gradN, dV, *rows, p.buckets, npe=npe, q=q)
     outs = []
@@ -376,13 +394,85 @@ def test_elem_diag_source_matches_plain_on_cpu_threads(elem_lib, case):
 
 def test_elem_diag_source_refuses_bad_launches(elem_lib):
     """A (q, npe) with no instance, a block that is not a multiple of 32 or
-    is over the element pass's 128, and bucket tables with no bucket are
-    refused by the C interface."""
+    is over the element pass's 128 are refused by the C interface; so are a
+    nodal sum over no node and one in blocks that are not a multiple of 32."""
     z = torch.zeros(8)
-    i = torch.zeros(1, dtype=torch.int64)
+    i = torch.zeros(2, dtype=torch.int32)
     for q, npe, block in ((4, 4, 32), (4, 10, 100), (4, 10, 256)):
         assert elem_lib.fea_elem_diag_f32(*(_ptr(z) for _ in range(8)), 1, q, npe, block,
                                           None) != 0
-    empty = ek._Buckets(count=0)
-    assert elem_lib.fea_elem_diag_sum_f32(_ptr(z), ctypes.byref(empty), _ptr(i), _ptr(z), 1, 32,
-                                          None) != 0
+    for n, block in ((0, 32), (1, 100)):
+        assert elem_lib.fea_elem_diag_sum_f32(_ptr(z), _ptr(i), _ptr(i), _ptr(z), n, block,
+                                              None) != 0
+
+
+@pytest.mark.parametrize("case", [*DIAG_CASES, "tet10-shard", "tet4-shard"])
+def test_elem_apply_source_matches_plain_on_cpu_threads(elem_lib, case):
+    """B6 with the gather folded in (`fea_elem_apply_f32` on v [3, N] and the
+    int32 `conn32`) against the plain gather (`soa_gather`) and
+    `ek.elem_apply_plain`: TET4, TET10 with the 4- and 5-point rules on a
+    box of 120 elements (a partial last block of 32 and of 128), and a
+    shard whose padded elements sum nothing. Blocks of 32 and 128 threads:
+    every output written, within 2e-5 of the plain version's largest entry,
+    bitwise equal across block sizes and across two launches."""
+    p, coords = _problem(case)
+    q, npe, gradN, dV = ek.flat_tables(p)
+    E = gradN.shape[-1]
+    assert (q, npe) in ek.SUPPORTED and E % 32 != 0 and p.conn32.dtype == torch.int32
+    u, v = _nodal_fields(coords)
+    rows = [r.contiguous() for r in ek.flatten_state(soa.soa_freeze(p, NeoHookean(1.0, 0.6), u))]
+    ve = soa.soa_gather(p, v).transpose(0, 1).reshape(3 * npe, E)
+    plain = ek.elem_apply_plain(ve, gradN, dV, *rows, npe=npe, q=q)
+    outs = []
+    for block in (32, 128, 128):
+        out = torch.full((3 * npe, E), float("nan"))
+        err = elem_lib.fea_elem_apply_f32(_ptr(v), _ptr(p.conn32), _ptr(gradN), _ptr(dV),
+                                          *(_ptr(r) for r in rows), _ptr(out), E, p.n_nodes, q,
+                                          npe, block, None)
+        assert err == 0 and not out.isnan().any()
+        assert float((out - plain).abs().max()) <= 2e-5 * float(plain.abs().max())
+        outs.append(out)
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[1], outs[2])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("case", ["tet4", "tet10", "tet10-shard", "tet4-shard"])
+def test_nodal_sum_source_matches_buckets_on_cpu_threads(elem_lib, case, dtype):
+    """The fixed-order nodal sum (`fea_elem_nodal_sum_f32`/`_f64`, walking
+    `ScatterBuckets.csr`) against `ScatterBuckets.apply` on per-slot values
+    of three channels: TET4 and TET10 boxes and shards whose stacked
+    buckets hold mask-0 padding rows (named by no node). Within 2e-5 (f32)
+    and 1e-12 (f64) of the largest entry; every node written; blocks of 32
+    and 128 and two launches bitwise equal."""
+    p, _ = _problem(case)
+    offsets, ids, span = p.buckets.csr
+    N, M = p.n_nodes, p.conn_T.numel()
+    assert offsets.shape == (N + 1,) and span <= M
+    d = torch.tensor(np.random.default_rng(5).standard_normal((3, M)), dtype=dtype)
+    plain = p.buckets.apply(d)
+    fn = getattr(elem_lib, "fea_elem_nodal_sum_" + ("f32" if dtype == torch.float32 else "f64"))
+    bound = 2e-5 if dtype == torch.float32 else 1e-12
+    outs = []
+    for block in (32, 128, 128):
+        out = torch.full((3, N), float("nan"), dtype=dtype)
+        assert fn(_ptr(d), _ptr(offsets), _ptr(ids), _ptr(out), 3, M, N, block, None) == 0
+        assert not out.isnan().any()
+        assert float((out - plain).abs().max()) <= bound * float(plain.abs().max())
+        outs.append(out)
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[1], outs[2])
+
+
+def test_nodal_sum_and_apply_sources_refuse_bad_launches(elem_lib):
+    """The nodal sum refuses a channel count other than 3, no node, no slot
+    and blocks that are not a multiple of 32 up to 256; B6 refuses a (q,
+    npe) with no instance, no node and such blocks."""
+    z = torch.zeros(64, dtype=torch.float64)
+    i = torch.zeros(2, dtype=torch.int32)
+    for fn in (elem_lib.fea_elem_nodal_sum_f32, elem_lib.fea_elem_nodal_sum_f64):
+        assert fn(_ptr(z), _ptr(i), _ptr(i), _ptr(z), 3, 1, 1, 32, None) == 0
+        for C, M, N, block in ((1, 1, 1, 32), (4, 1, 1, 32), (3, 1, 0, 32), (3, 0, 1, 32),
+                               (3, 1, 1, 100), (3, 1, 1, 512)):
+            assert fn(_ptr(z), _ptr(i), _ptr(i), _ptr(z), C, M, N, block, None) != 0
+    for N, q, npe, block in ((1, 4, 4, 32), (0, 4, 10, 32), (1, 4, 10, 100), (1, 4, 10, 512)):
+        assert elem_lib.fea_elem_apply_f32(*(_ptr(z) for _ in range(10)), 1, N, q, npe, block,
+                                           None) != 0
