@@ -50,9 +50,11 @@ iteration and on a NaN norm: the reference runs its chunk there at tol
 batched fetch of (norm, eta, lin_tol, work, k, rr, ok, stop), a further
 chunk and a restart one launch and one fetch each.
 
+The rank's bodies are on a `cuda_graphs.Host` of their own, joined to
+each route's chunk, whose host runs the programs (ops/cuda_graphs.py).
 The route follows from the comm: on a CUDA device with `comm.capturable`
 (NCCL, or one rank) the bodies are captured once per solver and route and
-the programs composed of them (ops/cuda_graphs.py), collectives inside;
+the programs composed of them when the route is made, collectives inside;
 elsewhere (gloo: ranks on the CPU or sharing a card) the same bodies run
 eagerly, a Python test of each flag in place of its node. A failed capture
 or launch raises. `eager=True` runs the bodies eagerly on the card too (a
@@ -98,15 +100,14 @@ from fea_large_tpu_torch.solvers.newton import (
     SolveResult,
     SolverOptions,
     device_forcing,
+    step_load,
 )
-from fea_large_tpu_torch.utils import profiling
 
-#: the rank bodies every route shares, in capture order, and the span each
+#: the span each rank body (head, resid, frz: every route shares them)
 #: opens (utils/profiling.py; frz's holds the rank's block-Jacobi set-up)
-RANK_BODIES = ("head", "resid", "frz")
 RANK_SPANS = ("residual64", "residual64", "freeze")
 #: a route's programs, chains of (kind, flag, body) items
-#: (`cuda_graphs.compose`) over the rank bodies and the chunk's
+#: (`cuda_graphs.Host`) over the rank bodies and the chunk's
 PROGRAMS = {
     "iter": ((None, None, "head"),
              ("if", "work", ((None, None, "frz"), (None, None, "init0")) + DevicePCGChunk.RUN)),
@@ -193,7 +194,6 @@ class RankState:
     lin_tol: torch.Tensor
     tol: torch.Tensor  # pdt 0-d: CG's tolerance, shared with the routes' chunks
     work: torch.Tensor  # bool 0-d: the tangent work runs
-    runs: torch.Tensor  # int64 [len(RANK_BODIES)]: runs of each rank body
     frozen: object = None
     inv_blocks: torch.Tensor | None = None
 
@@ -211,8 +211,7 @@ class RankState:
             **{k: scalar() for k in ("scale", "prev_norm", "norm0", "eta_prev", "stop_newton",
                                      "norm", "eta", "lin_tol")},
             first=scalar(torch.bool), last=scalar(torch.bool), tol=scalar(dtype),
-            work=scalar(torch.bool),
-            runs=torch.zeros(len(RANK_BODIES), dtype=torch.int64, device=device))
+            work=scalar(torch.bool))
 
 
 def _host_geometry(mesh, part, p: int):
@@ -527,29 +526,20 @@ class ShardedNewtonSolver:
     # ------------------------------------------------------------------
     # the programs (the reference's fused bodies)
     def _init_programs(self, eager: bool) -> None:
-        """The rank's state, its bodies (captured now on the captured
+        """The rank's state, its bodies' host (captured now on the captured
         route, after their warm-up and `Comm.warm`) and the first route."""
         dev = self.comm.device
         self.captured = dev.type == "cuda" and self.comm.capturable and not eager
         self._freeN = self.data.free_mask.to(self._pcg_dtype)
         self._cell = RankState.zeros(self.part.n_owned, self._pcg_dtype, dev)
-        self._fns = self._rank_bodies()
-        self._bodies = None  # their graphs on the captured route
+        self._host = cuda_graphs.Host(dev, self._rank_bodies(), RANK_SPANS,
+                                      {"work": self._cell.work}, {})
         self._routes = {}  # route -> DevicePCGChunk
-        self._graphs = {}  # route -> {program: cuda_graphs.Program}
-        #: per route, the seconds of its capture and compositions
-        self.capture_s = {}
-        self._rank_seen = [0] * len(RANK_BODIES)
         #: programs launched: Newton iterations, further chunks, restarts
         self.launched = {"newton": 0, "chunk": 0, "restart": 0}
         if self.captured:
-            t0 = time.perf_counter()
-            with self._no_profile(), torch.cuda.device(dev):
-                cuda_graphs.warm_up(self._fns.values(), dev)
-                self.comm.warm()
-                self._bodies = {k: cuda_graphs.Body(fn) for k, fn in self._fns.items()}
-            self._cell.runs.zero_()  # the warm-up's runs were eager
-            self.capture_s["rank"] = time.perf_counter() - t0
+            with self._no_profile():
+                self._host.capture(then=self.comm.warm)
         self._route("main")
 
     def _rank_bodies(self) -> dict:
@@ -557,13 +547,8 @@ class ShardedNewtonSolver:
         cell, opts, pdt = self._cell, self.options, self._pcg_dtype
         use_ew = opts.forcing == "ew"
         p = self._p(pdt)
-        device = self.comm.device
-
-        def count(i):  # the body's span opens; its runs count
-            profiling.stamp(device, RANK_SPANS[i], cell.runs, i)
 
         def head():
-            count(0)
             cell.u.add_(cell.x_prev.to(torch.float64))
             r64 = self._residual64(cell.u, cell.scale)
             norm = torch.sqrt(torch.clamp_min(self._dot(r64, r64), 0.0))
@@ -583,11 +568,9 @@ class ShardedNewtonSolver:
             cell.b.copy_(r64.to(pdt))
 
         def resid():
-            count(1)
             cell.b.copy_(self._residual64(cell.u, cell.scale).to(pdt))
 
         def frz():
-            count(2)
             state = soa_freeze(p, self.material, self._expand_u(cell.u).to(pdt).T.contiguous())
             diag = self._assemble(soa_diag_blocks(p, state).permute(2, 0, 1))
             cell.frozen = state
@@ -607,11 +590,12 @@ class ShardedNewtonSolver:
     def _route(self, name: str) -> DevicePCGChunk:
         """The chunk of route `name` ("main": the solver's preconditioner;
         "fallback": the same with a zero coarse inverse, whose coarse term
-        is exactly zero), made at its first use; on the captured route its
-        bodies are captured then and the route's programs composed of
-        them and of the rank bodies. (On the main route the chunk's
-        warm-up reads frz's captured outputs before a replay has written
-        them: values it discards, as init0 and initx set the state.)"""
+        is exactly zero), made at its first use, with the rank's host joined
+        to its host; on the captured route its bodies are captured then and
+        the route's programs composed of them and of the rank bodies. (On
+        the main route the chunk's warm-up reads frz's captured outputs
+        before a replay has written them: values it discards, as init0 and
+        initx set the state.)"""
         chunk = self._routes.get(name)
         if chunk is not None:
             return chunk
@@ -619,51 +603,24 @@ class ShardedNewtonSolver:
         if name == "fallback":
             coarse = dataclasses.replace(coarse, acinv=torch.zeros_like(coarse.acinv))
         matvec, precond = self._make_ops(coarse)
-        cell, dev = self._cell, self.comm.device
-        t0 = time.perf_counter()
+        cell = self._cell
         with self._no_profile():
-            chunk = DevicePCGChunk(matvec, precond, (self.part.n_owned, 3), self._pcg_dtype, dev,
-                                   capture=self.captured, dot=self._dot, b=cell.b, tol=cell.tol)
+            chunk = DevicePCGChunk(matvec, precond, (self.part.n_owned, 3), self._pcg_dtype,
+                                   self.comm.device, capture=self.captured, dot=self._dot,
+                                   b=cell.b, tol=cell.tol)
+            chunk.host.join(self._host, PROGRAMS)
             if self.captured:
-                bodies = {**self._bodies, **chunk.bodies}
-                with torch.cuda.device(dev):
-                    self._graphs[name] = {
-                        prog: cuda_graphs.compose(chain, bodies, self._flags(chunk))
-                        for prog, chain in PROGRAMS.items()}
-                self.capture_s[name] = time.perf_counter() - t0
+                for prog in PROGRAMS:
+                    chunk.host.compose(prog)
         self._routes[name] = chunk
         return chunk
 
-    def _flags(self, chunk: DevicePCGChunk):
-        """The flag tensors of the programs on `chunk`'s route, by name."""
-        return {"work": self._cell.work, "active": chunk.state.active}.__getitem__
-
     def _launch(self, route: str, prog: str) -> DevicePCGChunk:
-        """Run the program `prog` of `route`: one launch of its graph, or
-        its bodies eagerly. No fetch. Returns the route's chunk."""
+        """Run the program `prog` of `route` on its chunk's host. No fetch.
+        Returns the route's chunk."""
         chunk = self._route(route)
-        if self.captured:
-            with torch.cuda.device(self.comm.device):
-                self._graphs[route][prog].launch()
-        else:
-            cuda_graphs.run_eager(PROGRAMS[prog], {**self._fns, **chunk.fns},
-                                  self._flags(chunk))
-        profiling.close_span(self.comm.device)
+        chunk.host.launch(prog)
         return chunk
-
-    def _fetch(self, chunk: DevicePCGChunk, extra=()):
-        """The one batched fetch after a launch on `chunk`: its state, the
-        values of `extra`, and the rank bodies' runs (their replayed
-        kernel launches go to `cuda_graphs.REPLAYED`)."""
-        runs = self._cell.runs
-        st, vals = chunk.fetch_with((*extra, *(runs[i] for i in range(len(RANK_BODIES)))))
-        n = len(extra)
-        counts = [int(v) for v in vals[n:]]
-        if self._bodies is not None:
-            cuda_graphs.tally({k: b.launches for k, b in self._bodies.items()}, {
-                k: c - seen for k, c, seen in zip(RANK_BODIES, counts, self._rank_seen)})
-        self._rank_seen = counts
-        return st, vals[:n]
 
     def _newton_iter(self, route, prev_norm, norm0_prev, eta_prev, first_it, stop_newton,
                      last_it):
@@ -679,8 +636,8 @@ class ShardedNewtonSolver:
         self._route(route).n.fill_(min(opts.pcg_chunk, opts.pcg_maxiter))
         chunk = self._launch(route, "iter")
         self.launched["newton"] += 1
-        st, (norm, eta, lin_tol, work) = self._fetch(
-            chunk, (cell.norm, cell.eta, cell.lin_tol, cell.work))
+        st, (norm, eta, lin_tol, work) = chunk.fetch_with(
+            (cell.norm, cell.eta, cell.lin_tol, cell.work))
         return (st if work > 0.0 else None), norm, eta, lin_tol
 
     def _drive(self, route, tol, first=None):
@@ -701,13 +658,13 @@ class ShardedNewtonSolver:
             self._cell.tol.fill_(tol)
             self._launch(route, "prepare")
             self.launched["restart"] += 1
-            return self._fetch(chunk)[0]
+            return chunk.fetch()
 
         def run(st, n):
             chunk.n.fill_(min(opts.pcg_chunk, int(n)))
             self._launch(route, "run")
             self.launched["chunk"] += 1
-            return self._fetch(chunk)[0]
+            return chunk.fetch()
 
         return drive_chunked_pcg(prepare, run, tol=tol, chunk_iters=opts.pcg_chunk,
                                  maxiter=opts.pcg_maxiter)
@@ -717,16 +674,25 @@ class ShardedNewtonSolver:
         """Host fetches so far, over the routes."""
         return sum(c.fetches for c in self._routes.values())
 
+    @property
+    def capture_s(self) -> dict:
+        """The seconds of the captures on the captured route: the rank
+        bodies' ("rank"), and per route its chunk bodies' and the
+        compositions of its programs."""
+        if not self.captured:
+            return {}
+        return {"rank": self._host.capture_s,
+                **{r: c.capture_s for r, c in self._routes.items()}}
+
     def program_stats(self) -> dict:
         """The route ("captured" or "eager"), the fetches and the programs
         launched so far, and on the captured route the graph nodes of each
-        route's programs and the capture seconds (the rank bodies', and
-        each route's chunk bodies' and compositions')."""
+        route's programs and the capture seconds (`capture_s`)."""
         return {"route": "captured" if self.captured else "eager", "fetches": self.fetches,
                 "launched": dict(self.launched),
-                "graph_nodes": {r: {p: g.nodes for p, g in gs.items()}
-                                for r, gs in self._graphs.items()},
-                "capture_s": dict(self.capture_s)}
+                "graph_nodes": {r: dict(c.graph_nodes) for r, c in self._routes.items()
+                                if c.captured},
+                "capture_s": self.capture_s}
 
     # ------------------------------------------------------------------
     # the coarse operator
@@ -950,30 +916,7 @@ class ShardedNewtonSolver:
 
     def solve(self, u0=None, callback=None, start_factor: float = 0.0) -> SolveResult:
         """Incremental loading from `start_factor` to 1 in `n_steps`
-        increments, with bisection on Newton failure; `callback(record, u)`
-        after each converged increment, on every rank. u is this shard's."""
-        opts = self.options
-        u = self.zero_u() if u0 is None else u0
-        history = []
-        lam = float(start_factor)
-        dlam_nominal = 1.0 / opts.n_steps
-        dlam = dlam_nominal
-        bisections = 0
-        while lam < 1.0 - 1e-12:
-            target = min(lam + dlam, 1.0)
-            u_try, ok, rec = self._newton(u, target)
-            history.append(rec)
-            if ok:
-                u, lam = u_try, target
-                if callback is not None:
-                    callback(rec, u)
-                dlam = min(2.0 * dlam, dlam_nominal, 1.0 - lam)
-                if dlam <= 0.0:
-                    dlam = 1.0 - lam
-                bisections = 0
-            else:
-                bisections += 1
-                if bisections > opts.max_bisections:
-                    return SolveResult(u=u, converged=False, history=history)
-                dlam *= 0.5
-        return SolveResult(u=u, converged=True, history=history)
+        increments, with bisection on Newton failure (`step_load`);
+        `callback(record, u)` after each converged increment, on every
+        rank. u is this shard's."""
+        return step_load(self, self.zero_u() if u0 is None else u0, callback, start_factor)

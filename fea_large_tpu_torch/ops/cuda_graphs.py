@@ -1,5 +1,6 @@
 """CUDA graphs with IF and WHILE nodes over bodies captured by PyTorch (the
-binding of csrc/graph_kernels.cu).
+binding of csrc/graph_kernels.cu), and the one host of the port's captured
+programs.
 
 `Body(fn)` captures one call of `fn` into a CUDA graph of its own (a
 private memory pool, kept as long as the Body lives: the programs built
@@ -8,19 +9,23 @@ each a body or a chain of items in its own right, run once, under
 IF(flag) or under `While(flag)`, a flag being a 0-d bool tensor on the card
 read when the chain reaches it (and, for WHILE, again after each run of
 its chain), and instantiates it; conditionals nest. `launch()` runs it on
-the current stream. The device-resident Newton loop
-(solvers/device_loop.py), the PCG chunks (solvers/linear.py) and the
-sharded ranks' programs (dist/sharded.py) are built from these: each
-writes its programs as chains of (kind, flag, what) items, which
-`compose` turns into a `Program` of captured bodies and `run_eager` runs
-with the bodies' functions (the CPU's route); `warm_up` is the first run
-of the functions before their capture. A failed capture, composition or
-launch raises; nothing runs eagerly in its place.
+the current stream.
+
+`Host` holds one set of named bodies and the programs made of them: the
+device-resident Newton loop (solvers/device_loop.py), each PCG chunk
+(solvers/linear.py), and a sharded rank, whose programs its route's chunk
+runs over the rank's bodies and its own (dist/sharded.py). Each writes its
+bodies as functions and its programs as chains of (kind, flag, what)
+items; the host stamps each body, counts its runs on the device, captures
+the bodies on the card, composes the chains into `Program`s and launches
+them, or runs the chains eagerly with the functions (the CPU's route).
+`fetch` is the one batched fetch after a launch. A failed capture,
+composition or launch raises; nothing runs eagerly in its place.
 
 Launch counts: the kernel wrappers count a launch when they are called. A
 capture calls them and launches nothing, so `Body` records the counts its
 capture added (`Body.launches`) and takes them back; what the replays
-launch is added to `REPLAYED` by `tally`, from the bodies' runs that the
+launch is added to `REPLAYED` by `fetch`, from the bodies' runs that the
 programs count on the card.
 
 `stamp` launches the span stamp of utils/profiling.py (one thread, in
@@ -29,8 +34,10 @@ csrc/graph_kernels.cu beside the set kernel); no launch counter counts it.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import gc
+import time
 
 import torch
 
@@ -69,35 +76,6 @@ def collect_garbage() -> None:
     pool that the cyclic collector frees in the middle of a capture (its
     cudaGraphExecDestroy, its pool's cudaFree) invalidates that capture."""
     gc.collect()
-
-
-def warm_up(fns, device) -> None:
-    """Run each function of `fns` once, in order, on a side stream of
-    `device`, after collecting garbage (`collect_garbage`), and wait for
-    the device: the first runs a capture needs (the allocator's blocks,
-    the kernels' libraries, a process group's connections). The device's
-    open span is closed before and after (`profiling.close_span`): no
-    span covers the capture's host time."""
-    profiling.close_span(device)
-    collect_garbage()
-    with torch.cuda.device(device):
-        current = torch.cuda.current_stream(device)
-        side = torch.cuda.Stream(device)
-        side.wait_stream(current)
-        with torch.cuda.stream(side):
-            for fn in fns:
-                fn()
-            profiling.close_span(device)
-        current.wait_stream(side)
-        torch.cuda.synchronize(device)
-
-
-def tally(per_capture: dict, runs: dict) -> None:
-    """Add to `REPLAYED` what `runs[body]` replays of each body launched,
-    given each body's launches per capture (`per_capture[body]`)."""
-    for body, counts in per_capture.items():
-        for kernel, c in counts.items():
-            REPLAYED[kernel] += c * runs[body]
 
 
 def _library():
@@ -247,32 +225,180 @@ def child_graph_error(program: Program) -> int:
     return _library().fea_graph_try_child(program._graph)
 
 
-def _chain_items(chain, bodies: dict, flag) -> list:
+def _items(chain, bodies: dict, flags: dict) -> list:
+    """A chain of (kind, flag, what) items as `Program` items."""
     out = []
     for kind, name, what in chain:
-        what = bodies[what] if isinstance(what, str) else _chain_items(what, bodies, flag)
-        cond = None if kind is None else flag(name)
+        what = bodies[what] if isinstance(what, str) else _items(what, bodies, flags)
+        cond = None if kind is None else flags[name]
         out.append((what, While(cond) if kind == "while" else cond))
     return out
 
 
-def compose(chain, bodies: dict, flag) -> Program:
-    """The `Program` of a chain of (kind, flag, what) items: kind None (run
-    once), "if" or "while"; flag the name of the item's 0-d bool tensor,
-    `flag(name)` (None where kind is None); what the name of a `Body` in
-    `bodies`, or a nested chain."""
-    return Program(_chain_items(chain, bodies, flag))
-
-
-def run_eager(chain, fns: dict, flag) -> None:
-    """A chain of `compose` with the bodies' functions `fns` run eagerly,
-    a Python `while` or `if` on each flag in place of its node (one host
-    read of the flag per test)."""
+def _run_eager(chain, fns: dict, flags: dict) -> None:
+    """A chain with the bodies' functions run eagerly, a Python `while` or
+    `if` on each flag in place of its node (one host read of the flag per
+    test)."""
     for kind, name, what in chain:
-        while kind is None or bool(flag(name)):
+        while kind is None or bool(flags[name]):
             if isinstance(what, str):
                 fns[what]()
             else:
-                run_eager(what, fns, flag)
+                _run_eager(what, fns, flags)
             if kind != "while":
                 break
+
+
+class Host:
+    """Named bodies and the programs made of them.
+
+    Body i is the span stamp that opens `spans[i]` (utils/profiling.py)
+    and adds one to `runs[i]` (int64, on the device), then the i-th
+    function of `fns`. The programs, `chains` by name, are chains of
+    (kind, flag, what) items: kind None (run once), "if" or "while"; flag
+    the name of a 0-d bool tensor of `flags` (None where kind is None);
+    what the name of a body, or a nested chain. After `join(other,
+    chains)` the chains may name `other`'s bodies and flags too.
+
+    `launch(prog)` runs the chain eagerly until `capture` (the CPU's
+    route; on the card, a comparison), then one graph, composed at its
+    first launch unless `compose` made it before (`programs`, their
+    `graph_nodes`). `per_capture` is each body's kernel launches a replay,
+    `capture_s` the seconds of the capture and the compositions."""
+
+    def __init__(self, device, fns: dict, spans, flags: dict, chains: dict):
+        self.device = torch.device(device)
+        self.runs = torch.zeros(len(fns), dtype=torch.int64, device=self.device)
+        self.spans = tuple(spans)
+        self.fns = self._stamped(fns)
+        self.flags, self.chains, self.others = dict(flags), dict(chains), ()
+        self.bodies = None
+        self.per_capture, self.programs, self.graph_nodes = {}, {}, {}
+        self.capture_s = 0.0
+        self._seen = [0] * len(fns)
+
+    def _stamped(self, fns: dict) -> dict:
+        """The bodies of the functions `fns` (the closures hold the tensors,
+        not the host: a holder without a reference cycle goes, with its
+        graphs, when its last reference does)."""
+        device, runs = self.device, self.runs
+
+        def body(i, span, fn):
+            def count():  # the body's span opens; its runs count
+                profiling.stamp(device, span, runs, i)
+                fn()
+            return count
+
+        return {name: body(i, span, fn)
+                for i, ((name, fn), span) in enumerate(zip(fns.items(), self.spans))}
+
+    @property
+    def captured(self) -> bool:
+        return self.bodies is not None
+
+    def join(self, other: "Host", chains: dict) -> None:
+        self.others += (other,)
+        self.chains.update(chains)
+
+    def _merged(self, attr: str) -> dict:
+        return {k: v for h in (self, *self.others) for k, v in getattr(h, attr).items()}
+
+    def _on_device(self):
+        """The host's card as the current CUDA device (a no-op on the CPU)."""
+        if self.device.type == "cuda":
+            return torch.cuda.device(self.device)
+        return contextlib.nullcontext()
+
+    def capture(self, warm=None, then=None) -> None:
+        """Warm every body up (`_warm_up`; `warm()`, where given, makes the
+        functions to warm up in place of `fns`: the same bodies on a
+        scratch state, which goes before the capture), then run `then()`
+        where given (a process group's first collectives), then capture
+        each body. The warm-up's runs are taken back."""
+        t0 = time.perf_counter()
+        with self._on_device():
+            self._warm_up(self.fns if warm is None else self._stamped(warm()))
+            if then is not None:
+                then()
+            self.bodies = {name: Body(fn) for name, fn in self.fns.items()}
+            self.per_capture = {name: b.launches for name, b in self.bodies.items()}
+            self.runs.zero_()
+            torch.cuda.synchronize(self.device)
+        self.capture_s += time.perf_counter() - t0
+
+    def _warm_up(self, fns: dict) -> None:
+        """Run each body of `fns` once, in order, on a side stream, after
+        collecting garbage (`collect_garbage`), and wait for the device: the
+        first runs a capture needs (the allocator's blocks, the kernels'
+        libraries, a process group's connections). The device's open span
+        is closed before and after: no span covers the capture's host
+        time."""
+        device = self.device
+        profiling.close_span(device)
+        collect_garbage()
+        current = torch.cuda.current_stream(device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            for fn in fns.values():
+                fn()
+            profiling.close_span(device)
+        current.wait_stream(side)
+        torch.cuda.synchronize(device)
+
+    def compose(self, prog: str) -> None:
+        """Compose the chain `prog` of captured bodies into its `Program`."""
+        t0 = time.perf_counter()
+        with self._on_device():
+            self.programs[prog] = Program(_items(self.chains[prog], self._merged("bodies"),
+                                                 self._merged("flags")))
+        self.graph_nodes[prog] = self.programs[prog].nodes
+        self.capture_s += time.perf_counter() - t0
+
+    def launch(self, prog: str) -> None:
+        """Run the program `prog`: one launch of its graph once captured
+        (composed first where it is not yet), else its chain eagerly."""
+        if self.bodies is None:
+            _run_eager(self.chains[prog], self._merged("fns"), self._merged("flags"))
+        else:
+            if prog not in self.programs:
+                self.compose(prog)
+            with self._on_device():
+                self.programs[prog].launch()
+        profiling.close_span(self.device)
+
+
+class Hosted:
+    """The capture's record of an object that runs its programs on a `Host`
+    (`self.host`)."""
+
+    captured = property(lambda self: self.host.captured)
+    capture_s = property(lambda self: self.host.capture_s)
+    per_capture = property(lambda self: self.host.per_capture)
+    graph_nodes = property(lambda self: self.host.graph_nodes)
+
+
+def fetch(tensors, *hosts: Host) -> tuple[list, list]:
+    """The one batched fetch after a launch on `hosts` (on one device):
+    the tensors' values, each host's `runs` and the device's span table in
+    one `.tolist()`. Reads the span table (`profiling.read_spans`) and adds
+    to `REPLAYED` what each host's bodies replayed since its last fetch.
+    Returns (the tensors' values as floats, flattened in order; per host,
+    its bodies' runs since its last fetch, by name)."""
+    device, f64 = hosts[0].device, torch.float64
+    parts = [t.reshape(-1).to(f64) for t in tensors]
+    vals = torch.cat([*parts, *(h.runs.to(f64) for h in hosts),
+                      profiling.span_table(device).to(f64)]).tolist()
+    at = n = sum(p.numel() for p in parts)
+    ran = []
+    for h in hosts:
+        runs = [int(v) for v in vals[at:at + len(h._seen)]]
+        at += len(runs)
+        delta = {name: r - seen for name, r, seen in zip(h.fns, runs, h._seen)}
+        for body, counts in h.per_capture.items():
+            for kernel, c in counts.items():
+                REPLAYED[kernel] += c * delta[body]
+        h._seen = runs
+        ran.append(delta)
+    profiling.read_spans(device, vals[at:])
+    return vals[:n], ran

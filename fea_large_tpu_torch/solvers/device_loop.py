@@ -36,10 +36,11 @@ reference's loop tests ~done) and `tail` writes ~done into it. `solve`
 launches it once and makes one batched fetch of the results: no host
 arithmetic and no host read enters the trajectory.
 
-On the card each body is captured once per solver into a CUDA graph of
-its own (ops/cuda_graphs.py) after one eager warm-up of every body on a
-side stream and on a scratch state (which builds the kernel libraries and
-runs both residual branches), and the program is composed from them with
+The loop's `cuda_graphs.Host` (ops/cuda_graphs.py) runs the bodies and
+the programs. On the card each body is captured once per solver into a
+CUDA graph of its own after one eager warm-up of every body on a side
+stream and on a scratch state (which builds the kernel libraries and runs
+both residual branches), and the program is composed from them with
 nested WHILE and IF nodes. A failed capture, composition or launch raises:
 no body runs eagerly on the card unless the loop is built with
 `capture=False` (a comparison, never a fallback). On the CPU the same
@@ -49,21 +50,19 @@ node; that is the only difference between the routes.
 The kernel wrappers count launches when they are called, that is at
 warm-up here (a capture takes its counts back, ops/cuda_graphs.py);
 `REPLAYED` counts what the graphs launch: the launches of each body's
-capture times the runs of that body, which the bodies count on the device.
+capture times the runs of that body, which the host counts on the device.
 
-Each body starts with a span stamp (utils/profiling.py) that counts its
-runs and opens its span: pre `freeze`, resid32 `residual32`, resid64
-`residual64`, post `newton_check`, cg `pcg_iteration`, tail `newton_tail`;
-two more inside post open `jacobi` (the diagonal blocks and their inverse)
-and `pcg_init`. A stamp after the launch closes the last; the fetch reads
-the device's span table with the rest.
+The host starts each body with a span stamp (utils/profiling.py) that
+counts its runs and opens its span: pre `freeze`, resid32 `residual32`,
+resid64 `residual64`, post `newton_check`, cg `pcg_iteration`, tail
+`newton_tail`; two more inside post open `jacobi` (the diagonal blocks
+and their inverse) and `pcg_init`. A stamp after the launch closes the
+last; the fetch reads the device's span table with the rest.
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
-import time
 
 import torch
 
@@ -155,7 +154,6 @@ class LoopState:
     exhausted: torch.Tensor
     done: torch.Tensor
     running: torch.Tensor  # the increment's loop condition, ~done after `tail`
-    runs: torch.Tensor  # int64 [len(BODIES)]: runs of each body
     frozen: object = None
     inv_blocks: torch.Tensor | None = None
 
@@ -176,21 +174,22 @@ class LoopState:
             cgs=torch.zeros(max_newton, dtype=i64, device=device),
             **{k: scalar(b) for k in ("use32", "use64", "conv", "bad", "skip", "failed",
                                       "exhausted", "done", "running")},
-            runs=torch.zeros(len(BODIES), dtype=i64, device=device),
         )
 
-    def flag(self, name: str) -> torch.Tensor:
-        return self.pcg.active if name == "active" else getattr(self, name)
+    def flags(self) -> dict:
+        """The flags the programs test, by name."""
+        return {"running": self.running, "use32": self.use32, "use64": self.use64,
+                "active": self.pcg.active}
 
 
-class DeviceLoop:
-    """The device loop of one `NewtonSolver` (mixed path): its state, its
-    bodies and, on the card, their graphs (captured at construction unless
-    `capture=False`, which runs the bodies eagerly on the card: a
-    comparison). `solve(u0, scale)` runs one increment: one launch and one
-    fetch on the card. `capture_s`, `graph_nodes` (of each program
-    composed) and `per_capture` (each body's kernel launches) describe the
-    capture;
+class DeviceLoop(cuda_graphs.Hosted):
+    """The device loop of one `NewtonSolver` (mixed path): its state, and
+    its bodies and programs on a `cuda_graphs.Host` (`host`; on the card
+    captured at construction unless `capture=False`, which runs the bodies
+    eagerly on the card: a comparison). `solve(u0, scale)` runs one
+    increment: one launch and one fetch on the card. `captured`,
+    `capture_s`, `graph_nodes` (of each program composed) and
+    `per_capture` (each body's kernel launches) describe the capture;
     `last` (its `DeviceLoopResult`) and `runs` (of each body) the last
     solve. It is built for the solver's f64 residual route, coarse space,
     options, boundary conditions and load as they are at its first solve;
@@ -213,12 +212,13 @@ class DeviceLoop:
         self.f_ext32 = solver.f_ext.to(torch.float32)
         n = solver.mesh.n_nodes
         self.state = LoopState.zeros(n, opts.max_newton, self.device)
-        self._graphs = None
-        self.capture_s = 0.0
-        self.graph_nodes = {}
-        self.per_capture = {}
+        self.host = cuda_graphs.Host(self.device, self._bodies(self.state), SPANS,
+                                     self.state.flags(), PROGRAMS)
         if (self.device.type == "cuda") if capture is None else capture:
-            self._capture(n)
+            with profiling.SETUP.phase("setup.capture", self.state.u):
+                self.host.capture(warm=lambda: self._bodies(
+                    LoopState.zeros(n, self.max_newton, self.device)))
+                self.host.compose("solve")
 
     def _inputs(self) -> tuple:
         s = self.solver
@@ -228,12 +228,6 @@ class DeviceLoop:
         """Whether any of the solver's inputs is no longer the object the
         loop was built with."""
         return any(a is not b for a, b in zip(self._inputs(), self._fixed))
-
-    def _on_device(self):
-        """The solver's card as the current CUDA device (a no-op on the CPU)."""
-        if self.device.type == "cuda":
-            return torch.cuda.device(self.device)
-        return contextlib.nullcontext()
 
     # -- the bodies --------------------------------------------------------
     def _bodies(self, st: LoopState) -> dict:
@@ -245,11 +239,7 @@ class DeviceLoop:
         free32, free32_T = self.free32, self.free32_T
         device = self.device
 
-        def count(i):  # the body's span opens; its runs count
-            profiling.stamp(device, SPANS[i], st.runs, i)
-
         def pre():
-            count(0)
             st.u.add_(st.pcg.x.to(torch.float64))
             st.frozen = soa_freeze(soa, material, st.u.to(torch.float32).T.contiguous())
             use32 = (st.it > 0) & (st.prev_norm > 3e-2 * st.norm0)
@@ -257,20 +247,17 @@ class DeviceLoop:
             st.use64.copy_(~st.use32)
 
         def resid32():
-            count(1)
             f_int_T = soa_internal_force(soa, st.frozen)
             b = (st.scale32 * self.f_ext32 - f_int_T.T) * free32
             st.b.copy_(b)
             st.norm.copy_(torch.linalg.norm(b).to(torch.float64))
 
         def resid64():
-            count(2)
             b64, norm = self._resid64(st.u, st.scale, soa64, material, s.bc, s.f_ext)
             st.b.copy_(b64)
             st.norm.copy_(norm)
 
         def post():
-            count(3)
             first = st.it == 0
             st.norm0.copy_(torch.where(first, st.norm, st.norm0))
             st.stop_n.copy_(torch.clamp_min(opts.newton_rtol * st.norm0, opts.newton_atol))
@@ -293,13 +280,11 @@ class DeviceLoop:
             device_pcg_init(st.pcg, st.b, _mixed_precond(st.inv_blocks, free32, coarse), tol, cap)
 
         def cg():
-            count(4)
             device_pcg_step(
                 st.pcg, lambda v: _mixed_matvec(soa, st.frozen, free32_T, v),
                 _mixed_precond(st.inv_blocks, free32, coarse))
 
         def tail():
-            count(5)
             p = st.pcg
             ok = p.ok & torch.isfinite(p.rr)
             st.total_cg.add_(p.k)
@@ -323,38 +308,14 @@ class DeviceLoop:
         return {"pre": pre, "resid32": resid32, "resid64": resid64, "post": post, "cg": cg,
                 "tail": tail}
 
-    # -- capture (card) ----------------------------------------------------
-    def _capture(self, n_nodes: int) -> None:
-        """Warm every body up once on a scratch state on a side stream, then
-        capture each body and compose the solve program."""
-        t0 = time.perf_counter()
-        with profiling.SETUP.phase("setup.capture", self.state.u), self._on_device():
-            scratch = LoopState.zeros(n_nodes, self.max_newton, self.device)
-            cuda_graphs.warm_up(self._bodies(scratch).values(), self.device)
-            del scratch
-            self._kept = {name: cuda_graphs.Body(fn) for name, fn in self._bodies(self.state).items()}
-            self.per_capture = {name: body.launches for name, body in self._kept.items()}
-            self._graphs = {}
-            self._compose("solve")
-            torch.cuda.synchronize(self.device)
-        self.capture_s = time.perf_counter() - t0
-
-    def _compose(self, prog: str) -> None:
-        self._graphs[prog] = cuda_graphs.compose(PROGRAMS[prog], self._kept, self.state.flag)
-        self.graph_nodes[prog] = self._graphs[prog].nodes
-
     # -- the host side -----------------------------------------------------
     def replay(self, prog: str) -> None:
         """Launch the captured program `prog` ("solve", or "cg", composed
         at its first replay) on the card's current stream (the card only),
         then close the span its last body opened."""
-        if self._graphs is None:
+        if not self.host.captured:
             raise RuntimeError("the device loop has graphs on the card only")
-        with self._on_device():
-            if prog not in self._graphs:
-                self._compose(prog)
-            self._graphs[prog].launch()
-            profiling.close_span(self.device)
+        self.host.launch(prog)
 
     def solve(self, u0: torch.Tensor, scale: float) -> DeviceLoopResult:
         """One increment from u0 at the load factor `scale`."""
@@ -366,7 +327,7 @@ class DeviceLoop:
             st.pcg.x.zero_()
             st.scale.fill_(scale)
             st.scale32.fill_(scale)
-            for t in (st.it, st.total_cg, st.norms, st.cgs, st.runs):
+            for t in (st.it, st.total_cg, st.norms, st.cgs):
                 t.zero_()
             st.prev_norm.fill_(1.0)
             st.eta.fill_(0.5)
@@ -375,23 +336,13 @@ class DeviceLoop:
                 t.fill_(False)
             st.running.fill_(True)
         with profiling.span("fea.loop.launch"):
-            if self._graphs is not None:
-                self.replay("solve")
-            else:
-                cuda_graphs.run_eager(PROGRAMS["solve"], self._bodies(st), st.flag)
-                profiling.close_span(self.device)
-        f64 = torch.float64
-        m, nb = self.max_newton, len(BODIES)
+            self.host.launch("solve")
+        m = self.max_newton
         with profiling.span("fea.loop.fetch"):
-            flags = torch.stack([t.to(f64) for t in (st.it, st.conv, st.failed, st.exhausted,
-                                                     st.bad, st.eta, st.total_cg)])
-            vals = torch.cat([st.norms, st.cgs.to(f64), flags, st.runs.to(f64),
-                              profiling.span_table(self.device).to(f64)]).tolist()
-        profiling.read_spans(self.device, vals[2 * m + 7 + nb:])
-        n_it, conv, failed, exhausted, bad, eta, total = vals[2 * m: 2 * m + 7]
-        runs = dict(zip(BODIES, (int(v) for v in vals[2 * m + 7:2 * m + 7 + nb])))
-        cuda_graphs.tally(self.per_capture, runs)
-        self.runs = runs
+            vals, (self.runs,) = cuda_graphs.fetch(
+                (st.norms, st.cgs, st.it, st.conv, st.failed, st.exhausted, st.bad, st.eta,
+                 st.total_cg), self.host)
+        n_it, conv, failed, exhausted, bad, eta, total = vals[2 * m:]
         n_it = int(n_it)
         self.last = DeviceLoopResult(
             u=st.u.clone(), residual_norms=vals[:n_it], pcg_iters=[int(v) for v in vals[m:m + n_it]],

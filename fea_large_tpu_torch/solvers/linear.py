@@ -38,10 +38,10 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import time
 
 import torch
 
+from fea_large_tpu_torch.ops import cuda_graphs
 from fea_large_tpu_torch.ops.smallmat import inv3
 from fea_large_tpu_torch.utils import profiling
 
@@ -278,7 +278,7 @@ def device_pcg_step(s: DevicePCG, matvec, preconditioner, dot=None) -> None:
     _set_active(s)
 
 
-class DevicePCGChunk:
+class DevicePCGChunk(cuda_graphs.Hosted):
     """The reference's `pcg_init` and `pcg_chunk` on one operator: a
     `DevicePCG` state, the right-hand side `b` and the 0-d `tol` and `n`
     in persistent tensors, and six bodies that update them in place:
@@ -301,32 +301,34 @@ class DevicePCGChunk:
 
     `dot` is the 0-d dot of two vectors (default the local one; the
     sharded ranks' global one), and `b` and `tol` may be tensors the
-    caller owns and writes in place. The bodies are `fns` by name; the
-    sharded ranks (dist/sharded.py) compose their programs of them and of
-    their own bodies.
+    caller owns and writes in place. The bodies and programs are on a
+    `cuda_graphs.Host` (`host`); a sharded rank (dist/sharded.py) joins
+    its own bodies to it and runs its programs of both there.
 
     On the card (`capture`, the default there) the bodies are warmed up
-    once on a side stream and captured into CUDA graphs at construction
-    (`bodies`), and four programs are composed of them at their first
-    launch (ops/cuda_graphs.py): init0, initx, run = arm -> WHILE(active)
-    {step} -> fin, and restart = init0 -> run -> keep -> initx -> run. A
-    chunk of n iterations, or a solve and its restart, is then one launch
-    and one fetch. `capture=False` runs the bodies eagerly wherever the
-    tensors are, with a Python test of `active` in place of the WHILE node
-    (the CPU's route; on the card, a comparison). A failed capture or
-    launch raises. `fetches` counts the fetches, `runs` (on the device)
-    the runs of each body, whichever program ran it; the replays' kernel
-    launches go to `cuda_graphs.REPLAYED` at each fetch. `capture_s` is
-    the seconds of the capture and of the compositions.
+    once on a side stream and captured into CUDA graphs at construction,
+    and four programs are composed of them at their first launch
+    (ops/cuda_graphs.py): init0, initx, run = arm -> WHILE(active) {step}
+    -> fin, and restart = init0 -> run -> keep -> initx -> run. A chunk of
+    n iterations, or a solve and its restart, is then one launch and one
+    fetch. `capture=False` runs the bodies eagerly wherever the tensors
+    are, with a Python test of `active` in place of the WHILE node (the
+    CPU's route; on the card, a comparison). A failed capture or launch
+    raises. `fetches` counts the fetches, `runs` (on the device) the runs
+    of each body, whichever program ran it; the replays' kernel launches
+    go to `cuda_graphs.REPLAYED` at each fetch. `captured`, `capture_s`
+    (the seconds of the capture and of the compositions), `per_capture`
+    and `graph_nodes` describe the capture.
 
-    Each body starts with a span stamp (utils/profiling.py) that counts its
-    runs and opens its span (`SPANS`); a stamp after each launch closes the
-    last, and the fetch reads the device's span table with the rest."""
+    The host starts each body with a span stamp (utils/profiling.py) that
+    counts its runs and opens its span (`SPANS`); a stamp after each launch
+    closes the last, and the fetch reads the device's span table with the
+    rest."""
 
     BODIES = ("init0", "initx", "arm", "step", "fin", "keep")
     SPANS = ("pcg_init", "pcg_init", "pcg_control", "pcg_iteration", "pcg_control",
              "pcg_control")
-    #: programs as chains of (kind, flag, body) items (`cuda_graphs.compose`)
+    #: programs as chains of (kind, flag, body) items (`cuda_graphs.Host`)
     RUN = ((None, None, "arm"), ("while", "active", "step"), (None, None, "fin"))
     PROGRAMS = {"init0": ((None, None, "init0"),), "initx": ((None, None, "initx"),), "run": RUN,
                 "restart": ((None, None, "init0"),) + RUN
@@ -343,53 +345,38 @@ class DevicePCGChunk:
         self.n = torch.zeros((), dtype=torch.int64, device=self.device)
         self.k1 = torch.zeros((), dtype=torch.int64, device=self.device)
         self.ok1 = torch.zeros((), dtype=torch.bool, device=self.device)
-        self.runs = torch.zeros(len(self.BODIES), dtype=torch.int64, device=self.device)
-        self._seen = [0] * len(self.BODIES)
-        self.fns = self._make_bodies()
-        self.bodies = None
+        self.host = cuda_graphs.Host(self.device, self._make_bodies(), self.SPANS,
+                                     {"active": self.state.active}, self.PROGRAMS)
+        self.runs = self.host.runs
         self.fetches = 0
-        self.capture_s = 0.0
-        self.per_capture = {}
-        self.graph_nodes = {}
-        self._graphs = {}
         if (self.device.type == "cuda") if capture is None else capture:
-            self._capture()
-            self.runs.zero_()  # the warm-up's runs were eager
+            with profiling.SETUP.phase("setup.capture", self.b):
+                self.host.capture()
 
     def _make_bodies(self) -> dict:
         # the bodies hold the tensors, not the chunk: no reference cycle, so
         # a chunk and its graphs go when its last reference does
         s, matvec, precond, dot = self.state, self.matvec, self.preconditioner, self.dot
-        b, tol, n, runs, atol = self.b, self.tol, self.n, self.runs, self.atol
+        b, tol, n, atol = self.b, self.tol, self.n, self.atol
         k1, ok1 = self.k1, self.ok1
-        device, spans = self.device, self.SPANS
-
-        def count(i):  # the body's span opens; its runs count
-            profiling.stamp(device, spans[i], runs, i)
 
         def init0():
-            count(0)
             device_pcg_init(s, b, precond, tol, n, atol=atol, dot=dot)
 
         def initx():
-            count(1)
             device_pcg_init(s, b, precond, tol, n, matvec=matvec, x0=s.x, atol=atol, dot=dot)
 
         def arm():
-            count(2)
             s.cap.copy_(s.k + n)
             _set_active(s)
 
         def step():
-            count(3)
             device_pcg_step(s, matvec, precond, dot)
 
         def fin():
-            count(4)
             s.ok.logical_and_(torch.isfinite(s.rr))
 
         def keep():
-            count(5)
             k1.copy_(s.k)
             ok1.copy_(s.ok)
             n.copy_(torch.clamp_min(n - s.k, 0))
@@ -397,41 +384,9 @@ class DevicePCGChunk:
         return {"init0": init0, "initx": initx, "arm": arm, "step": step, "fin": fin,
                 "keep": keep}
 
-    def _capture(self) -> None:
-        """Warm every body up once on a side stream, then capture each."""
-        from fea_large_tpu_torch.ops import cuda_graphs
-
-        t0 = time.perf_counter()
-        with profiling.SETUP.phase("setup.capture", self.b), torch.cuda.device(self.device):
-            cuda_graphs.warm_up(self.fns.values(), self.device)
-            self.bodies = {name: cuda_graphs.Body(fn) for name, fn in self.fns.items()}
-            self.per_capture = {name: b.launches for name, b in self.bodies.items()}
-            torch.cuda.synchronize(self.device)
-        self.capture_s = time.perf_counter() - t0
-
-    @property
-    def captured(self) -> bool:
-        return self.bodies is not None
-
-    def _flag(self, name: str) -> torch.Tensor:
-        return getattr(self.state, name)  # "active"
-
     def _launch(self, prog: str) -> None:
-        from fea_large_tpu_torch.ops import cuda_graphs
-
         with profiling.span("fea.chunk.launch"):
-            if self.bodies is None:
-                cuda_graphs.run_eager(self.PROGRAMS[prog], self.fns, self._flag)
-            else:
-                with torch.cuda.device(self.device):
-                    if prog not in self._graphs:
-                        t0 = time.perf_counter()
-                        self._graphs[prog] = cuda_graphs.compose(self.PROGRAMS[prog],
-                                                                 self.bodies, self._flag)
-                        self.graph_nodes[prog] = self._graphs[prog].nodes
-                        self.capture_s += time.perf_counter() - t0
-                    self._graphs[prog].launch()
-            profiling.close_span(self.device)
+            self.host.launch(prog)
 
     def start(self, b, tol, x0=None) -> None:
         """`pcg_init`: b (None: the last one) and the tolerance `tol` (a
@@ -475,27 +430,17 @@ class DevicePCGChunk:
         return self.fetch_with(())[0]
 
     def fetch_with(self, extra) -> tuple[PCGState, list]:
-        """`fetch()` with the 0-d tensors `extra` in the same batch: (the
-        state, their values as floats)."""
+        """`fetch()` with the 0-d tensors `extra` in the same batch (and the
+        runs of the hosts joined to the chunk's): (the state, their values
+        as floats)."""
         s = self.state
-        f64 = torch.float64
-        scalars = (s.k, s.rr, s.ok, s.stop, s.bnorm, *extra)
         with profiling.span("fea.chunk.fetch"):
-            vals = torch.cat([torch.stack([t.to(f64) for t in scalars]), self.runs.to(f64),
-                              profiling.span_table(self.device).to(f64)]).tolist()
+            vals, _ = cuda_graphs.fetch((s.k, s.rr, s.ok, s.stop, s.bnorm, *extra), self.host,
+                                        *self.host.others)
         self.fetches += 1
-        nr = len(scalars) + len(self.BODIES)
-        profiling.read_spans(self.device, vals[nr:])
-        runs = [int(v) for v in vals[len(scalars):nr]]
-        if self.bodies is not None:
-            from fea_large_tpu_torch.ops import cuda_graphs
-
-            cuda_graphs.tally(self.per_capture, {
-                name: r - seen for name, r, seen in zip(self.BODIES, runs, self._seen)})
-        self._seen = runs
         k, rr, ok, stop, bnorm = vals[:5]
         return (PCGState(x=s.x, r=s.r, z=s.z, p=s.p, rz=s.rz, rr=rr, k=int(k), ok=ok > 0.0,
-                         stop=stop, bnorm=bnorm), vals[5:len(scalars)])
+                         stop=stop, bnorm=bnorm), vals[5:])
 
 
 def drive_chunked_pcg(prepare, chunk, *, tol, chunk_iters, maxiter):

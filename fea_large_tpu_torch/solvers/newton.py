@@ -832,33 +832,43 @@ class NewtonSolver:
 
     def solve(self, u0=None, callback=None, start_factor: float = 0.0) -> SolveResult:
         """Incremental loading from `start_factor` to 1 in `n_steps`
-        increments, with bisection on Newton failure. `callback(record, u)`
-        fires after each converged increment."""
-        opts = self.options
+        increments, with bisection on Newton failure (`step_load`).
+        `callback(record, u)` fires after each converged increment."""
         u = (
             torch.zeros((self.mesh.n_nodes, 3), dtype=torch.float64, device=self.mesh.device)
             if u0 is None else u0
         )
-        history: list[IncrementRecord] = []
-        lam = float(start_factor)
-        dlam_nominal = 1.0 / opts.n_steps
-        dlam = dlam_nominal
-        bisections = 0
-        while lam < 1.0 - 1e-12:
-            target = min(lam + dlam, 1.0)
-            u_try, ok, rec = self._newton(u, target)
-            history.append(rec)
-            if ok:
-                u, lam = u_try, target
-                if callback is not None:
-                    callback(rec, u)
-                dlam = min(2.0 * dlam, dlam_nominal, 1.0 - lam)
-                if dlam <= 0.0:
-                    dlam = 1.0 - lam
-                bisections = 0
-            else:
-                bisections += 1
-                if bisections > opts.max_bisections:
-                    return SolveResult(u=u, converged=False, history=history)
-                dlam *= 0.5
-        return SolveResult(u=u, converged=True, history=history)
+        return step_load(self, u, callback, start_factor)
+
+
+def step_load(solver, u, callback, start_factor: float) -> SolveResult:
+    """The load stepping of `NewtonSolver.solve` and the sharded solvers'
+    `solve`: from u at `start_factor` to 1 in increments of 1 / n_steps,
+    each `solver._newton(u, target)` (looked up at each increment); a
+    failed increment is halved, up to max_bisections times in a row, and
+    after a converged one the step doubles back up to the nominal one.
+    `callback(record, u)` fires after each converged increment."""
+    opts = solver.options
+    history: list[IncrementRecord] = []
+    lam = float(start_factor)
+    dlam_nominal = 1.0 / opts.n_steps
+    dlam = dlam_nominal
+    bisections = 0
+    while lam < 1.0 - 1e-12:
+        target = min(lam + dlam, 1.0)
+        u_try, ok, rec = solver._newton(u, target)
+        history.append(rec)
+        if ok:
+            u, lam = u_try, target
+            if callback is not None:
+                callback(rec, u)
+            dlam = min(2.0 * dlam, dlam_nominal, 1.0 - lam)
+            if dlam <= 0.0:
+                dlam = 1.0 - lam
+            bisections = 0
+        else:
+            bisections += 1
+            if bisections > opts.max_bisections:
+                return SolveResult(u=u, converged=False, history=history)
+            dlam *= 0.5
+    return SolveResult(u=u, converged=True, history=history)

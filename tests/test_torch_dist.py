@@ -47,6 +47,7 @@ from fea_large_tpu.solvers.newton import SolverOptions as RefOptions
 from fea_large_tpu_torch import NeoHookean, StVenantKirchhoff, cli
 from fea_large_tpu_torch.bc import DirichletBuilder
 from fea_large_tpu_torch.dist import ShardedNewtonSolver, StructuredShardedSolver
+from fea_large_tpu_torch.dist.comm import LocalComm
 from fea_large_tpu_torch.dist.launch import Problem, run_jobs, run_sharded, solve_rank, step_rank
 from fea_large_tpu_torch.io import export
 from fea_large_tpu_torch.io.task import load_task
@@ -359,6 +360,23 @@ def test_structured_shards_keep_the_quadrature_rule():
     single = NewtonSolver(mesh, mat, bc, options=SolverOptions(**F64)).solve()
     assert res.converged and single.converged
     _close(s.u_global(res.u), single.u.numpy(), 1e-10)
+
+
+def test_poisoned_residual_bisects_on_the_sharded_solver():
+    """A non-finite residual fails every increment of a one-rank sharded
+    solve (a `LocalComm` on the CPU), which bisects as the single-device
+    loops do (tests/test_torch_device_loop.py): max_bisections + 1
+    records, at load factors 1, 1/2 and 1/4, each of one Newton launch."""
+    mesh = box_mesh(2, 2, 2, element_type="tet4", device="cpu")
+    bc = DirichletBuilder(mesh).fix("zmin").prescribe("zmax", "z", -0.05).build()
+    f_ext = torch.full((mesh.n_nodes, 3), float("nan"), dtype=torch.float64)
+    s = ShardedNewtonSolver(mesh, NeoHookean(1.0, 0.6), bc, f_ext=f_ext,
+                            options=SolverOptions(**MAXITER, max_bisections=2),
+                            comm=LocalComm("cpu"))
+    res = s.solve()
+    assert not res.converged and len(res.history) == 3
+    assert [r.load_factor for r in res.history] == [1.0, 0.5, 0.25]
+    assert s.launched == {"newton": 3, "chunk": 0, "restart": 0}
 
 
 def test_sharded_rejects_three_level():

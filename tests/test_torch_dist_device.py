@@ -67,7 +67,7 @@ def test_the_cpu_takes_the_eager_route(case):
         stats = s.program_stats()
         assert not s.captured and stats["route"] == "eager"
         assert stats["graph_nodes"] == {} and stats["capture_s"] == {}
-        assert s._bodies is None and not s._routes["main"].captured
+        assert not s._host.captured and not s._routes["main"].captured
 
 
 @pytest.mark.parametrize("case", list(SOLVERS))

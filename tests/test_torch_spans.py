@@ -12,7 +12,11 @@ eager route, a 5-tet TET10 box n=3 with bench.py's options:
       than its wall time;
   (c) `span` enters no `record_function` while the profiler is off, and
       enters one under `torch.profiler.profile`; `profiling.SETUP` times
-      the solver's set-up and its coarse space.
+      the solver's set-up and its coarse space;
+  (d) the one host of the captured programs (`cuda_graphs.Host`) on its
+      eager route: a WHILE chain and an IF chain over its bodies and a
+      joined host's count each body's runs, its spans gain those runs, and
+      `fetch` returns the values in order and replays nothing.
 """
 
 import time
@@ -23,6 +27,7 @@ import torch
 from fea_large_tpu_torch.bc import DirichletBuilder
 from fea_large_tpu_torch.materials import NeoHookean
 from fea_large_tpu_torch.mesh.generators import box_mesh
+from fea_large_tpu_torch.ops import cuda_graphs
 from fea_large_tpu_torch.solvers.newton import NewtonSolver, SolverOptions
 from fea_large_tpu_torch.utils import profiling
 
@@ -129,3 +134,48 @@ def test_setup_spans(solver):
               for name in ("setup.solver", "setup.coarse")}
     assert gained["setup.solver"][0] == gained["setup.coarse"][0] == 1
     assert 0 < gained["setup.coarse"][1] <= gained["setup.solver"][1]  # a child phase
+
+
+def test_host_runs_its_chains_eagerly():
+    """A host of two bodies (arm, step) joined to a host of one (add), on
+    the CPU: loop = arm; WHILE(more) {step; IF(odd) add} runs step for
+    k = 1..5 and add for the odd k; once = IF(odd) add runs add once more."""
+    k = torch.zeros((), dtype=torch.int64)
+    total = torch.zeros((), dtype=torch.float64)
+    more, odd = torch.zeros((), dtype=torch.bool), torch.zeros((), dtype=torch.bool)
+
+    def arm():
+        k.zero_()
+        more.fill_(True)
+
+    def step():
+        k.add_(1)
+        more.copy_(k < 5)
+        odd.copy_(k % 2 == 1)
+
+    def add():
+        total.add_(k)
+
+    host = cuda_graphs.Host(CPU, {"arm": arm, "step": step}, ("pcg_control", "pcg_iteration"),
+                            {"more": more}, {})
+    other = cuda_graphs.Host(CPU, {"add": add}, ("newton_tail",), {"odd": odd}, {})
+    host.join(other, {"loop": ((None, None, "arm"),
+                               ("while", "more", ((None, None, "step"), ("if", "odd", "add")))),
+                      "once": (("if", "odd", "add"),)})
+    replayed = dict(cuda_graphs.REPLAYED)
+    before = _totals()
+    host.launch("loop")
+    vals, ran = cuda_graphs.fetch((k, total, odd), host, other)
+    assert vals == [5.0, 9.0, 1.0]
+    assert ran == [{"arm": 1, "step": 5}, {"add": 3}]
+    gained = _gained(before)
+    assert (gained["pcg_control"][0], gained["pcg_iteration"][0], gained["newton_tail"][0]) \
+        == (1, 5, 3)
+    assert all(ns >= 0 for _, ns in gained.values())
+    assert profiling._table(CPU).host_open[0] == -1  # closed after the launch
+    host.launch("once")
+    vals, ran = cuda_graphs.fetch((total,), host, other)
+    assert vals == [14.0] and ran == [{"arm": 0, "step": 0}, {"add": 1}]
+    assert host.runs.tolist() == [1, 5] and other.runs.tolist() == [4]
+    assert not host.captured and host.graph_nodes == {} and host.capture_s == 0.0
+    assert cuda_graphs.REPLAYED == replayed
