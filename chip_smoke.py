@@ -481,10 +481,11 @@ REFERENCE_SHARDED_TASKS_BF16 = {
 }
 SHARDED_TASK_STORAGE = {"distributed_compression.json": "bfloat16",
                         "distributed_compression_kuhn.json": "float32"}
-#: the sharded paths' kernels (B1-B3 on a lattice; B6, B7, the diagonal and
-#: the nodal sum on a 5-tet box)
-SHARDED_KERNELS = {"kuhn": ("struct_freeze", "struct_apply", "struct_diag"),
-                   "5tet": ("elem_apply", "elem_freeze", "elem_diag", "elem_nodal_sum")}
+#: the sharded paths' kernels (B1-B3 and the f64 residual B5 on a lattice;
+#: B6, B7, the diagonal, the nodal sum and the f64 residual B9 on a 5-tet box)
+SHARDED_KERNELS = {"kuhn": ("struct_freeze", "struct_apply", "struct_diag", "struct_resid"),
+                   "5tet": ("elem_apply", "elem_freeze", "elem_diag", "elem_nodal_sum",
+                            "elem_resid")}
 #: phase 9f: one rank in this process (LocalComm) on the captured route,
 #: a solve() of this many increments at 9a's and 9b's widths
 ONE_RANK_STEPS = 2
@@ -2819,10 +2820,10 @@ def sharded_check(label, job, run, single, card):
 
 def sharded_kernel_checks(device):
     """(9a, 9b) the path's kernels at the shapes the sharded paths give
-    them, against their plain versions at the phase-2 bounds: B1-B3 on
-    rank 0's local Kuhn box (its class grids are not cubic) and B6-B7 on
-    the padded element tables of the rank with the most padding, built as
-    the ranks build them."""
+    them, against their plain versions at the phase-2 bounds: B1-B3 and B5
+    on rank 0's local Kuhn box (its class grids are not cubic) and B6-B7,
+    the diagonal, the nodal sum and B9 on the padded element tables of the
+    rank with the most padding, built as the ranks build them."""
     from fea_large_tpu_torch.dist.partition import partition_mesh
     from fea_large_tpu_torch.dist.sharded import shard_soa
     from fea_large_tpu_torch.dist.structured import structured_partition

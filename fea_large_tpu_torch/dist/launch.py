@@ -234,7 +234,8 @@ def solve_rank(comm: Comm, problem: Problem, options, partition_method: str = "s
     collectives' seconds and counts, the host fetches and the programs
     launched (Newton iterations, further chunks, restarts: one fetch
     each), this rank's peak device memory (bytes; 0 on the CPU), its
-    route ("captured" or "eager"), per chunk route its programs' graph
+    route ("captured" or "eager"), whether its f64 residual takes the
+    fused kernel (`resid_df`), per chunk route its programs' graph
     nodes and capture seconds, and the coarse inverse's storage dtype and
     dim (None without a coarse space); with `probe_coarse`, also the probed coarse
     matrix (`probe_coarse_matrix`) and its aggregation. Every rank returns
@@ -275,7 +276,8 @@ def solve_rank(comm: Comm, problem: Problem, options, partition_method: str = "s
            "memory": solver.memory_report(), "n_agg": solver._n_agg,
            "precond_fallbacks": solver.precond_fallbacks, "backend": comm.backend,
            "peak_bytes": torch.cuda.max_memory_allocated(comm.device) if cuda else 0,
-           "route": stats["route"], "graph_nodes": stats["graph_nodes"],
+           "route": stats["route"], "resid_df": stats["resid_df"],
+           "graph_nodes": stats["graph_nodes"],
            "capture_s": stats["capture_s"],
            "coarse_inverse": None if solver.coarse is None else {
                "dtype": str(solver.coarse.acinv.dtype).removeprefix("torch."),

@@ -25,7 +25,14 @@ Both precisions run the same loop:
   precision="f64"    f64 residual + f64 tangent and PCG (parity path)
   precision="mixed"  f64 residual + f32 tangent and PCG
 
-The f64 residual is the plain f64 element pass, as in the reference.
+The f64 residual takes the route `NewtonSolver` takes on one card
+(`residual.resid_df_route`, `residual.internal_force64`): on the mixed
+path, where the element is supported and `resid_df` allows (None: on a
+CUDA device), the fused residual kernel, B5 on a structured slab
+(the f64 pair-cache gather, B5, the pair scatter) and B9 on a generic
+shard (the f64 conn gather, B9, the fixed-order nodal sum); else the
+plain f64 freeze and force, as in the reference. `program_stats()`
+reports the route (`resid_df`).
 
 Each rank runs the reference's sharded programs (its `newton_iter_body`,
 `chunk_body` and `prepare_body`) on persistent tensors (`RankState`) and a
@@ -80,6 +87,7 @@ import torch
 from fea_large_tpu_torch.dist.comm import Comm, LocalComm
 from fea_large_tpu_torch.dist.partition import partition_mesh
 from fea_large_tpu_torch.ops import cuda_graphs
+from fea_large_tpu_torch.ops.residual import internal_force64, resid_df_route
 from fea_large_tpu_torch.ops.soa import (
     ScatterBuckets,
     SoAProblem,
@@ -87,7 +95,6 @@ from fea_large_tpu_torch.ops.soa import (
     soa_apply_tangent,
     soa_diag_blocks,
     soa_freeze,
-    soa_internal_force,
 )
 from fea_large_tpu_torch.solvers.linear import (
     DevicePCGChunk,
@@ -479,9 +486,12 @@ class ShardedNewtonSolver:
         return d.free_mask * u + (1.0 - d.free_mask) * (scale * d.bc_values)
 
     def _residual64(self, u: torch.Tensor, scale) -> torch.Tensor:
-        d, p64 = self.data, self.soa.p64
-        state = soa_freeze(p64, self.material, self._expand_u(u).T.contiguous())
-        f = self._assemble(soa_internal_force(p64, state).T)
+        """The f64 residual at u on the route of `self._resid_df` (the
+        module docstring)."""
+        d = self.data
+        f_int = internal_force64(self.soa.p64, self.material, self._expand_u(u).T.contiguous(),
+                                 fused=self._resid_df)
+        f = self._assemble(f_int.T)
         return (scale * d.f_ext - f) * d.free_mask
 
     def _residual_norm(self, u: torch.Tensor, scale) -> torch.Tensor:
@@ -530,6 +540,8 @@ class ShardedNewtonSolver:
         route, after their warm-up and `Comm.warm`) and the first route."""
         dev = self.comm.device
         self.captured = dev.type == "cuda" and self.comm.capturable and not eager
+        #: the f64 residual takes the fused kernel (`resid_df_route`)
+        self._resid_df = resid_df_route(self.soa.p64, self.material, self.options, dev)
         self._freeN = self.data.free_mask.to(self._pcg_dtype)
         self._cell = RankState.zeros(self.part.n_owned, self._pcg_dtype, dev)
         self._host = cuda_graphs.Host(dev, self._rank_bodies(), RANK_SPANS,
@@ -685,10 +697,12 @@ class ShardedNewtonSolver:
                 **{r: c.capture_s for r, c in self._routes.items()}}
 
     def program_stats(self) -> dict:
-        """The route ("captured" or "eager"), the fetches and the programs
+        """The route ("captured" or "eager"), whether the f64 residual takes
+        the fused kernel (`resid_df`), the fetches and the programs
         launched so far, and on the captured route the graph nodes of each
         route's programs and the capture seconds (`capture_s`)."""
-        return {"route": "captured" if self.captured else "eager", "fetches": self.fetches,
+        return {"route": "captured" if self.captured else "eager",
+                "resid_df": self._resid_df, "fetches": self.fetches,
                 "launched": dict(self.launched),
                 "graph_nodes": {r: dict(c.graph_nodes) for r, c in self._routes.items()
                                 if c.captured},

@@ -13,6 +13,11 @@ Both agree with the plain f64 pass to rounding (~1e-15 relative), not to
 the double-word pass's ~1e-13. The reference routes its unstructured
 variant nowhere (its double-word form measured slower than the f64 pass on
 the TPU); here it computes the same function in f64 and is routed.
+
+`resid_df_route` is the one rule that picks the fused pass or the plain
+one, and `internal_force64` the one f64 internal force on the [3, N]
+layout: `NewtonSolver` (solvers/newton.py) and the sharded ranks
+(dist/sharded.py) both go through them.
 """
 
 from __future__ import annotations
@@ -21,7 +26,7 @@ import torch
 
 from fea_large_tpu_torch.ops import elem_kernels as ek
 from fea_large_tpu_torch.ops import struct_kernels as sk
-from fea_large_tpu_torch.ops.soa import soa_scatter
+from fea_large_tpu_torch.ops.soa import soa_freeze, soa_internal_force, soa_scatter
 
 
 def resid_df_supported(p, material) -> bool:
@@ -50,3 +55,28 @@ def soa_internal_force_df(p64, material, u_T64: torch.Tensor) -> torch.Tensor:
     tb = p64.tables
     cache = sk.gather_cache(p64.structure, tb.pairs, u_T64)
     return sk.scatter_pairs(p64.structure, tb.pairs, sk.struct_resid(tb, cache, material), 3)
+
+
+def resid_df_route(p64, material, options, device: torch.device) -> bool:
+    """Whether the f64 residual on `p64` takes the fused kernel: only on
+    the mixed path (the f64 parity path keeps the plain pass; `NewtonSolver`
+    asks only on the mixed path, the sharded solvers on both) and where
+    `resid_df_supported`; then `options.resid_df` None = on where `device`
+    is CUDA, True / False as given."""
+    if options.precision != "mixed" or not resid_df_supported(p64, material):
+        return False
+    if options.resid_df is None:
+        return device.type == "cuda"
+    return bool(options.resid_df)
+
+
+def internal_force64(p64, material, u_T64: torch.Tensor, *, fused: bool) -> torch.Tensor:
+    """f_int [3, N] f64 from u_T64 [3, N] f64 on the f64 SoAProblem `p64`:
+    the fused residual kernel where `fused` (`resid_df_route`), else the
+    plain f64 freeze and force. The sharded ranks' `_residual64` holds the
+    route as a value and passes it; `NewtonSolver` picks between its two
+    named residuals once (`_residual_df_fn`, `_residual_soa_fn`), each of
+    which calls this with its branch fixed."""
+    if fused:
+        return soa_internal_force_df(p64, material, u_T64)
+    return soa_internal_force(p64, soa_freeze(p64, material, u_T64))

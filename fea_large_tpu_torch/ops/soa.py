@@ -13,7 +13,8 @@ dtype and device:
   * f32 or f64 on the CPU: the plain version (the wrappers choose it for
     CPU tensors);
   * f64 on CUDA: the plain f64 pass (the f64 residual's kernel is
-    ops/residual.py, chosen by the solver's `resid_df`).
+    ops/residual.py, chosen by `residual.resid_df_route` from the
+    options' `resid_df`: NewtonSolver and the sharded ranks call it).
 
 Unstructured meshes: full per-element tables gradN [q, npe, 3, E] and
 detJxW [q, E], a conn_T gather, the element-block pass, and a
@@ -380,7 +381,7 @@ def soa_scatter(p: SoAProblem, fe: torch.Tensor) -> torch.Tensor:
 def _route(p: SoAProblem, x: torch.Tensor, kernel, plain):
     """The kernel wrapper (which runs the plain version on CPU tensors), or
     the plain pass for f64: the f64 kernels are the fused residuals of
-    ops/residual.py (B5, B9), chosen by the solver's `resid_df`."""
+    ops/residual.py (B5, B9), chosen by `residual.resid_df_route`."""
     if x.dtype != p.dtype:
         raise TypeError(f"{x.dtype} tensor given to a {p.dtype} SoAProblem")
     return plain if x.dtype == torch.float64 else kernel

@@ -9,7 +9,8 @@ iteration:
     frozen tangent state (the `resid32` gate); the converging iterations
     always use f64. The f64 pass is the fused residual kernel, B5 on Kuhn
     lattices and B9 on unstructured meshes, when `resid_df` routes it
-    (`_residual_df_fn`), else the plain f64 element pass
+    (`_residual_df_fn`; the rule is `residual.resid_df_route`, which the
+    sharded ranks share), else the plain f64 element pass
     (`_residual_soa_fn`);
   * the f32 tangent state (freeze), the block-Jacobi blocks (diag), and a
     PCG solve of the masked f32 tangent system (tangent action),
@@ -91,7 +92,7 @@ from fea_large_tpu_torch.assembly.matfree import apply_tangent, make_operator
 from fea_large_tpu_torch.assembly.scatter import NodeScatter
 from fea_large_tpu_torch.elements.kernels import element_internal_force, precompute_geometry
 from fea_large_tpu_torch.ops.bcsr_kernels import bcsr_spmv
-from fea_large_tpu_torch.ops.residual import resid_df_supported, soa_internal_force_df
+from fea_large_tpu_torch.ops.residual import internal_force64, resid_df_route
 from fea_large_tpu_torch.ops.soa import (
     SoAProblem,
     soa_apply_tangent,
@@ -140,7 +141,8 @@ class SolverOptions:
               ones; here the f32 passes of every mesh run their kernels on
               the card (ops/soa.py), and plain PyTorch only on the CPU
     resid_df  the mixed path's f64 residual through the fused kernel, B5
-              on Kuhn lattices and B9 on unstructured meshes: None = on
+              on Kuhn lattices and B9 on unstructured meshes (on one card
+              and on the sharded solvers' ranks): None = on
               for CUDA tensors where supported, True = on where supported
               (the plain version on CPU tensors), False = off. Both compute
               in f64, so the reference's margin-guarded f64 confirmation
@@ -378,17 +380,18 @@ def _route_inputs(solver) -> tuple:
 
 
 def _residual_soa_fn(u, scale, soa64, material, bc, f_ext):
-    """f64 residual (r [N, 3], ||r||) from the f64 element pass."""
-    state = soa_freeze(soa64, material, u.T.contiguous())
-    f_int = soa_internal_force(soa64, state).T
+    """f64 residual (r [N, 3], ||r||) from the plain f64 element pass
+    (`residual.internal_force64`)."""
+    f_int = internal_force64(soa64, material, u.T.contiguous(), fused=False).T
     r = bc.project(scale * f_ext - f_int)
     return r, torch.linalg.norm(r)
 
 
 def _residual_df_fn(u, scale, soa64, material, bc, f_ext):
-    """f64 residual (r [N, 3], ||r||) from the fused residual kernel B5
-    (ops/residual.py): the same pass as `_residual_soa_fn`, in one kernel."""
-    f_int = soa_internal_force_df(soa64, material, u.T.contiguous()).T
+    """f64 residual (r [N, 3], ||r||) from the fused residual kernel, B5 or
+    B9 (`residual.internal_force64`): the same pass as `_residual_soa_fn`,
+    in one kernel."""
+    f_int = internal_force64(soa64, material, u.T.contiguous(), fused=True).T
     r = bc.project(scale * f_ext - f_int)
     return r, torch.linalg.norm(r)
 
@@ -465,11 +468,7 @@ class NewtonSolver:
             return
         self._soa = SoAProblem.build(mesh, torch.float32)
         self._soa64 = SoAProblem.build(mesh, torch.float64, share_maps_from=self._soa)
-        supported = resid_df_supported(self._soa64, material)
-        if self.options.resid_df is None:
-            self._resid_df = mesh.device.type == "cuda" and supported
-        else:
-            self._resid_df = bool(self.options.resid_df) and supported
+        self._resid_df = resid_df_route(self._soa64, material, self.options, mesh.device)
         if self.options.preconditioner == "two_level":
             with profiling.SETUP.phase("setup.coarse", self.f_ext):
                 self._coarse = build_coarse_space(

@@ -52,6 +52,8 @@ from fea_large_tpu_torch.dist.launch import Problem, run_jobs, run_sharded, solv
 from fea_large_tpu_torch.io import export
 from fea_large_tpu_torch.io.task import load_task
 from fea_large_tpu_torch.mesh.generators import box_mesh, box_mesh_kuhn
+from fea_large_tpu_torch.ops import elem_kernels as ek
+from fea_large_tpu_torch.ops import struct_kernels as sk
 from fea_large_tpu_torch.solvers import multilevel as ml
 from fea_large_tpu_torch.solvers.newton import NewtonSolver, SolverOptions
 
@@ -91,6 +93,10 @@ def _case(name):
         mesh = box_mesh_kuhn(4, 2, 2, lx=4.0, element_type="tet4", device="cpu")
         ref = ref_box_mesh_kuhn(4, 2, 2, lx=4.0, element_type="tet4")
         mats, comp, val = (StVenantKirchhoff(1.0, 1.0), RefSVK(jnp.asarray(1.0), jnp.asarray(1.0))), "x", 0.15
+    elif name == "kuhnnh":
+        mesh = box_mesh_kuhn(4, 2, 2, lx=4.0, element_type="tet4", device="cpu")
+        ref = ref_box_mesh_kuhn(4, 2, 2, lx=4.0, element_type="tet4")
+        mats, comp, val = (NeoHookean(1.0, 0.6), RefNH(jnp.asarray(1.0), jnp.asarray(0.6))), "x", -0.08
     elif name == "tet4nh":
         mesh = box_mesh(4, 2, 2, lx=4.0, element_type="tet4", device="cpu")
         ref = ref_box_mesh(4, 2, 2, lx=4.0, element_type="tet4")
@@ -113,16 +119,19 @@ def _unstructured(problem):
 
 @pytest.fixture(scope="module")
 def runs():
-    """The port's sharded runs, two process groups: 2 ranks (TET4 box) and
-    4 ranks (Kuhn box on both paths, TET4 box mixed, TET10 box coarse
-    probes)."""
+    """The port's sharded runs, two process groups: 2 ranks (TET4 box; the
+    neo-Hookean Kuhn box mixed on both paths, its f64 residual through the
+    fused kernel and through the plain pass) and 4 ranks (Kuhn box on both
+    paths, TET4 box mixed, TET10 box coarse probes)."""
     tet4 = _case("tet4")[0]
-    p4, pk, pnh, p10 = (Problem.of(*_case(c)[0]) for c in ("tet4", "kuhn", "tet4nh", "tet10"))
+    p4, pk, pnh, p10, pknh = (Problem.of(*_case(c)[0])
+                              for c in ("tet4", "kuhn", "tet4nh", "tet10", "kuhnnh"))
     jobs2 = [
         (solve_rank, dict(problem=p4, options=SolverOptions(**F64), solves=2)),
         (step_rank, dict(problem=p4, options=SolverOptions(**MAXITER),
                          u0=np.zeros((tet4[0].n_nodes, 3)))),
-    ]
+    ] + [(solve_rank, dict(problem=prob, options=SolverOptions(**MIXED, resid_df=df)))
+         for prob in (pknh, _unstructured(pknh)) for df in (True, False)]
     jobs4 = [
         (solve_rank, dict(problem=pk, options=SolverOptions(**F64), solves=2)),
         (solve_rank, dict(problem=_unstructured(pk), options=SolverOptions(**F64))),
@@ -135,7 +144,8 @@ def runs():
     r2 = run_sharded(run_jobs, ["cpu"] * 2, jobs2, threads=1)
     r4 = run_sharded(run_jobs, ["cpu"] * 4, jobs4, threads=1)
     assert r2.backend == r4.backend == "gloo"
-    return {"tet4": r2.result[0], "maxiter": r2.result[1], "kuhn": r4.result[0],
+    return {"tet4": r2.result[0], "maxiter": r2.result[1],
+            "df_structured": r2.result[2:4], "df_generic": r2.result[4:6], "kuhn": r4.result[0],
             "kuhn_generic": r4.result[1], "mixed": r4.result[2], "probe3": r4.result[3],
             "probe6": r4.result[4], "ranks2": r2.results, "ranks4": r4.results}
 
@@ -214,7 +224,9 @@ def test_sharded_mixed_two_level_matches_reference(runs):
 
 def _solve_jobs(runs):
     """(label, every rank's value) of each solve job of the two groups."""
-    labels2, labels4 = ("tet4", "maxiter"), ("kuhn", "kuhn_generic", "mixed", "probe3", "probe6")
+    labels2 = ("tet4", "maxiter", "df_structured", "plain_structured", "df_generic",
+               "plain_generic")
+    labels4 = ("kuhn", "kuhn_generic", "mixed", "probe3", "probe6")
     for labels, ranks in ((labels2, runs["ranks2"]), (labels4, runs["ranks4"])):
         for j, label in enumerate(labels):
             yield label, [rank[j] for rank in ranks]
@@ -253,6 +265,48 @@ def test_sharded_records_identical_on_every_rank(runs):
     for label, ranks in _solve_jobs(runs):
         views = [rank_view(out) for out in ranks]
         assert all(v == views[0] for v in views[1:]), label
+
+
+@pytest.mark.parametrize("path", ["structured", "generic"])
+def test_sharded_fused_residual_matches_plain(runs, path, monkeypatch):
+    """The mixed two-level solve of the neo-Hookean Kuhn box on 2 ranks
+    with the f64 residual through the fused kernel (`resid_df=True`: on
+    the CPU the wrappers run B5's and B9's plain versions) and through
+    the plain f64 freeze and force: u within 1e-10, the same Newton counts
+    and PCG lists, and the route reported. On one shard in this process:
+    the rank's residual takes the fused kernel's plain version exactly
+    where `resid_df` routes it, within 1e-12 of the plain pass; with
+    `resid_df=None` on the CPU and on the f64 path it takes the plain
+    pass."""
+    fused, plain = runs[f"df_{path}"]
+    structured = path == "structured"
+    cls = StructuredShardedSolver if structured else ShardedNewtonSolver
+    assert fused["kind"] == plain["kind"] == cls.__name__
+    assert fused["resid_df"] is True and plain["resid_df"] is False
+    a, b = fused["runs"][0], plain["runs"][0]
+    assert a["converged"] and b["converged"]
+    _close(a["u"], b["u"], 1e-10)
+    assert [h["newton_iters"] for h in a["history"]] == [h["newton_iters"] for h in b["history"]]
+    assert _pcg(a["history"]) == _pcg(b["history"])
+
+    module, name = (sk, "struct_resid_plain") if structured else (ek, "elem_resid_plain")
+    kernel, calls = getattr(module, name), []
+
+    def counted(*args, **kwargs):
+        calls.append(name)
+        return kernel(*args, **kwargs)
+
+    monkeypatch.setattr(module, name, counted)
+    mesh, mat, bc = _case("kuhnnh")[0]
+    r = {}
+    for df, opts in ((True, dict(MIXED, resid_df=True)), (False, dict(MIXED, resid_df=False)),
+                     (False, dict(MIXED)), (False, dict(F64, resid_df=True))):
+        s = cls(mesh, mat, bc, options=SolverOptions(**opts))
+        assert s.program_stats()["resid_df"] is df
+        before = len(calls)
+        r.setdefault(df, s._residual64(s._impose(s.zero_u(), 1.0), 1.0).numpy())
+        assert (len(calls) > before) is df
+    _close(r[True], r[False], 1e-12)
 
 
 @pytest.mark.parametrize("case", ["tet4", "kuhn"])

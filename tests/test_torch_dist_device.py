@@ -100,7 +100,9 @@ def test_one_rank_captured_route_is_its_eager_route_on_card(case):
     """One rank on the card (LocalComm): the captured route, a solve() of
     two increments twice, gives bitwise the u and records of the same
     solver on the eager route; one fetch per Newton iteration, further
-    chunk and restart; the path's kernels are replayed by the graphs."""
+    chunk and restart; the path's kernels, the fused f64 residual (B5 on
+    the Kuhn slab, B9 on the 5-tet box) included, are replayed by the
+    graphs."""
     _card()
     cls, mesh, bc = _problem(case, "cuda")
     opts = SolverOptions(**MIXED)
@@ -108,6 +110,7 @@ def test_one_rank_captured_route_is_its_eager_route_on_card(case):
         cuda_graphs.REPLAYED[k] = 0
     graph = cls(mesh, NeoHookean(1.0, 0.6), bc, options=opts)
     assert graph.captured and graph.program_stats()["route"] == "captured"
+    assert graph.program_stats()["resid_df"] is True
     nodes = graph.program_stats()["graph_nodes"]["main"]
     assert set(nodes) == {"iter", "run", "prepare"} and all(n > 0 for n in nodes.values())
     first, second = _solve(graph), _solve(graph)
@@ -116,6 +119,6 @@ def test_one_rank_captured_route_is_its_eager_route_on_card(case):
         assert np.array_equal(u, first[0]) and hist == first[1]
         assert launched["newton"] == sum(len(h["residual_norms"]) for h in hist)
         assert fetches == launched["newton"] + launched["chunk"] + launched["restart"]
-    kernels = ("struct_apply", "struct_freeze") if case == "kuhn" else ("elem_apply",
-                                                                         "elem_freeze")
+    kernels = (("struct_apply", "struct_freeze", "struct_resid") if case == "kuhn"
+               else ("elem_apply", "elem_freeze", "elem_resid"))
     assert all(cuda_graphs.REPLAYED[k] > 0 for k in kernels)
