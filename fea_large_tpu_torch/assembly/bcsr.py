@@ -27,6 +27,7 @@ import torch
 from fea_large_tpu_torch.elements.kernels import ElementGeometry, element_stiffness
 from fea_large_tpu_torch.ops import bcsr_kernels
 from fea_large_tpu_torch.ops.soa import ScatterBuckets
+from fea_large_tpu_torch.utils import profiling
 
 INT32_LIMIT = 2**31
 
@@ -138,6 +139,14 @@ class BCSRMatrix:
 
 def assemble_bcsr(u, conn, geom: ElementGeometry, material, structure: BCSRStructure,
                   node_scatter):
-    """(K as BCSRMatrix, f_int [N, 3]) at u [N, 3]: the config-2 assembly."""
+    """(K as BCSRMatrix, f_int [N, 3]) at u [N, 3]: the config-2 assembly.
+    Its device spans (utils/profiling.py): `stiffness` (the element
+    pass), then `assemble` (the slot sums and the nodal sum), closed at
+    its end."""
+    profiling.stamp(u.device, "stiffness")
     Ke, fe = element_stiffness(u[conn], geom, material)
-    return BCSRMatrix(structure, structure.assemble_blocks(Ke)), node_scatter(fe)
+    profiling.stamp(u.device, "assemble")
+    K = BCSRMatrix(structure, structure.assemble_blocks(Ke))
+    f_int = node_scatter(fe)
+    profiling.close_span(u.device)
+    return K, f_int

@@ -67,6 +67,10 @@ the f64 residual of the element pass (`_residual_fn`), then one step
     Cholesky solve; one "iteration" per step, no forcing term.
 The matrix-free and direct routes are plain PyTorch: the reference runs
 them as XLA-fused einsums and `cho_solve`, outside any Pallas kernel.
+The device spans of an f64 Newton iteration (utils/profiling.py):
+`residual64`, closed before the host reads its norm; on the PCG routes
+`jacobi` and `step_refresh` up to the chunk's own spans; on the assembled
+routes `stiffness` and `assemble` (assembly/bcsr.py).
 
 One step alone (`_step`, bench.py's FEA_BENCH_MODE=step; `step_fn`, the
 step of entry.py): on the f64 routes the step above; on the
@@ -297,17 +301,22 @@ def _step_direct_fn(u, scale, conn, geom, material, bc, f_ext, scatter, structur
 def _step_matfree_fn(u, scale, conn, geom, material, bc, f_ext, scatter, pcg_step):
     """One f64 Newton step on the matrix-free tangent: the operator at u,
     then `pcg_step(u, r, tangent state, diagonal blocks)`
-    (`NewtonSolver._f64_pcg_step`)."""
+    (`NewtonSolver._f64_pcg_step`), in the span `jacobi` from the
+    inversion of the blocks."""
     op = make_operator(u, conn, geom, material, scatter)
     r = bc.project(scale * f_ext - op.f_int)
+    profiling.stamp(u.device, "jacobi")
     return pcg_step(u, r, op.state, op.diag_blocks)
 
 
 def _step_bcsr_fn(u, scale, conn, geom, material, bc, f_ext, scatter, structure, pcg_step):
-    """One f64 Newton step on the assembled BCSR system: K at u, then
-    `pcg_step(u, r, K's values, K's diagonal blocks)`."""
+    """One f64 Newton step on the assembled BCSR system: K at u (its spans
+    `stiffness` and `assemble`), then `pcg_step(u, r, K's values, K's
+    diagonal blocks)` in the span `jacobi` from the gather of the
+    blocks."""
     K, f_int = assemble_bcsr(u, conn, geom, material, structure, scatter)
     r = bc.project(scale * f_ext - f_int)
+    profiling.stamp(u.device, "jacobi")
     return pcg_step(u, r, K.data, K.block_diagonal())
 
 
@@ -540,7 +549,9 @@ class NewtonSolver:
         masked system M K M + (I - M) of this solver's route, K v the BCSR
         product of the values `operand` (B10) or the matrix-free tangent
         action of the state `operand`, at `tol` and pcg_maxiter. Returns
-        (u + du, PCG iterations, converged, final relative PCG residual)."""
+        (u + du, PCG iterations, converged, final relative PCG residual).
+        Its device span `step_refresh` runs from the inverse blocks to the
+        chunk's first body (the operand copies)."""
         opts, bc = self.options, self.bc
         free = bc.free_mask
         if opts.linear == "pcg_bcsr":
@@ -565,8 +576,9 @@ class NewtonSolver:
             return matvec, lambda r: apply_block_jacobi(inv_blocks, free, r)
 
         def pcg_step(u, r, operand, diag_blocks):
-            route = self._route(opts.linear, (operand, jacobi_inverse_blocks(diag_blocks, free)),
-                                make, r.dtype)
+            inv_blocks = jacobi_inverse_blocks(diag_blocks, free)
+            profiling.stamp(u.device, "step_refresh")
+            route = self._route(opts.linear, (operand, inv_blocks), make, r.dtype)
             x, iters, ok, rel = _pcg_with_restart(route.chunk("jacobi"), r, tol, opts.pcg_maxiter)
             return u + x, iters, ok, rel
 
@@ -804,7 +816,9 @@ class NewtonSolver:
         eta = 0.5
         lin_failed = False
         for it in range(opts.max_newton):
+            profiling.stamp(u.device, "residual64")
             _, norm_t = self._residual(u, scale)
+            profiling.close_span(u.device)  # before the host reads the norm
             norm = float(norm_t)
             if norm != norm:  # NaN: poisoned state; fail -> bisection
                 break

@@ -53,8 +53,12 @@ import torch
 #: newton_tail    the device loop's end of a Newton iteration
 #: step_refresh   a step's operand copies and its chunk's start, up to the
 #:                chunk's first body
+#: stiffness      the f64 element stiffness and force of the assembled path
+#: assemble       the slot sums of the element blocks into BCSR values and
+#:                the nodal sum of the element forces
 SPANS = ("freeze", "residual32", "residual64", "newton_check", "jacobi", "pcg_init",
-         "pcg_iteration", "pcg_control", "newton_tail", "step_refresh")
+         "pcg_iteration", "pcg_control", "newton_tail", "step_refresh", "stiffness",
+         "assemble")
 _INDEX = {name: i for i, name in enumerate(SPANS)}
 
 #: [runs, nanoseconds] of each device span, summed over the devices, as

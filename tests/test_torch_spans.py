@@ -16,7 +16,13 @@ eager route, a 5-tet TET10 box n=3 with bench.py's options:
   (d) the one host of the captured programs (`cuda_graphs.Host`) on its
       eager route: a WHILE chain and an IF chain over its bodies and a
       joined host's count each body's runs, its spans gain those runs, and
-      `fetch` returns the values in order and replays nothing.
+      `fetch` returns the values in order and replays nothing;
+  (e) the f64 assembled route (`linear="pcg_bcsr"`, the options of the
+      benchmark's cell `bcsr-increment`) over one increment: `residual64`
+      once a Newton residual, `stiffness`, `assemble`, `jacobi` and
+      `step_refresh` once a Newton step, `pcg_iteration` the f64 chunk's
+      step body's runs (restarts included); its spans sum to no more than
+      its wall time, and no span is left open after it.
 """
 
 import time
@@ -36,6 +42,8 @@ torch.set_num_threads(2)
 BENCH = dict(linear="pcg", precision="mixed", preconditioner="two_level", coarse_modes=6,
              forcing="ew", ew_eta_min=1e-2, newton_rtol=1e-6, pcg_tol=1e-6, pcg_maxiter=2000,
              resid_df=False)
+BCSR64 = dict(linear="pcg_bcsr", precision="f64", preconditioner="jacobi", forcing="ew",
+              ew_eta_min=1e-2, newton_rtol=1e-6, pcg_tol=1e-8, pcg_maxiter=2000)
 CPU = torch.device("cpu")
 
 
@@ -179,3 +187,30 @@ def test_host_runs_its_chains_eagerly():
     assert host.runs.tolist() == [1, 5] and other.runs.tolist() == [4]
     assert not host.captured and host.graph_nodes == {} and host.capture_s == 0.0
     assert cuda_graphs.REPLAYED == replayed
+
+
+def test_f64_assembled_route_spans():
+    mesh = box_mesh(3, 3, 3, element_type="tet10", device="cpu")
+    bc = DirichletBuilder(mesh).fix("zmin").prescribe("zmax", "z", -0.05).build()
+    solver = NewtonSolver(mesh, NeoHookean(1.0, 0.6), bc, options=SolverOptions(**BCSR64))
+    # the CPU's table, not SPAN_TOTALS: the converged iteration's residual
+    # is stamped after the increment's last fetch
+    table = profiling.span_table(CPU)
+    before = table.clone()
+    t0 = time.perf_counter_ns()
+    _, ok, rec = solver._newton(_start(solver, 1.0), 1.0)
+    wall = time.perf_counter_ns() - t0
+    gained = {name: (int(table[2 * i] - before[2 * i]), int(table[2 * i + 1] - before[2 * i + 1]))
+              for i, name in enumerate(profiling.SPANS)}
+    steps = rec.newton_iters
+    assert ok and steps == len(rec.pcg_iters) > 0
+    assert gained["residual64"][0] == len(rec.residual_norms) == steps + 1
+    for name in ("stiffness", "assemble", "jacobi", "step_refresh"):
+        assert gained[name][0] == steps, name
+    chunk = solver._routes["pcg_bcsr"].chunk("jacobi")
+    assert gained["pcg_iteration"][0] == int(chunk.runs[3]) == sum(rec.pcg_iters)
+    assert gained["pcg_init"][0] == 2 * steps  # init0 and the restart's initx
+    assert gained["freeze"] == gained["residual32"] == gained["newton_check"] == (0, 0)
+    assert all(ns >= 0 for _, ns in gained.values())
+    assert 0 < sum(ns for _, ns in gained.values()) <= wall
+    assert profiling._table(CPU).host_open[0] == -1
