@@ -24,8 +24,9 @@ f64 paths, the examples and the sharded paths, and checks them:
     and, with resid_df=None, the fused f64 residual B9;
   * the f64 assembled path of config 2 (linear="pcg_bcsr",
     precision="f64", block-Jacobi PCG) with the tolerances of bench.py's
-    f64 mode (pcg_tol 1e-8): the same 5-tet box, nnzb 9,184,321, the BCSR
-    product B10 (csrc/bcsr_kernels.cu) in every PCG iteration;
+    f64 mode (pcg_tol 1e-8): the same 5-tet box, nnzb 9,184,321, the f64
+    assembly kernels (csrc/assembly_kernels.cu) once a Newton step and the
+    BCSR product B10 (csrc/bcsr_kernels.cu) in every PCG iteration;
   * the f64 matrix-free path, bench.py's own f64 mode
     (FEA_BENCH_PRECISION=f64: linear="pcg", precision="f64", Jacobi, pcg_tol
     1e-8) on the Kuhn box n=35, plain PyTorch (the reference runs no Pallas
@@ -64,6 +65,10 @@ Phases:
      and B10 (f64 and f32), whose sums cross threads, B2 (all three
      materials), B6, the unstructured diagonal and the nodal sum are
      launched twice on the same inputs and must give bitwise-equal outputs;
+     the f64 assembly's element pass (all three materials) and slot sum
+     on those boxes and the 5-point one, against their plain versions (the
+     slot sum bitwise) and `assemble_bcsr` on the card against the plain
+     path, each launched twice (bitwise);
   3. the Kuhn path: n=4 on the host loop (resid_df=False) and on the
      device loop (resid_df=False and None) against the JAX reference's
      counts of each loop (measured on CPU), then full width with
@@ -114,7 +119,8 @@ Phases:
      chunk's host fetches per solve (one a Newton step, checked: the solve
      and its restart in one launch) and one solve with eager chunks beside
      (bitwise), B10
-     launched at least once per PCG iteration (replays included), peak
+     launched at least once per PCG iteration (replays included), the
+     assembly kernels once a Newton step, peak
      memory, and the host CPU recheck of the converged residual;
   6. timings at full width: each kernel and its plain version with CUDA
      events around each call (median of 10: `ms`, `plain_ms`; the host's
@@ -126,7 +132,9 @@ Phases:
      B4 and B5 also on the n=36 lattice, whose C is a multiple of 8 (rows
      that start on a 32-byte sector); the card's measured f64 multiply-add
      rate (csrc/probe_kernels.cu, a yardstick outside the port) beside the
-     data sheet's, which the bounds use; B10 beside cuSPARSE's BSR product
+     data sheet's, which the bounds use; the two assembly kernels and
+     `assemble_bcsr` whole beside the plain path it replaced; B10 beside
+     cuSPARSE's BSR product
      (`torch.sparse_bsr_tensor @ x`), the passes of one Newton and one PCG
      iteration on every path (a PCG iteration of the host loop: a captured
      chunk's run, beside the eager `pcg_chunk`), the pieces of a replayed
@@ -275,6 +283,7 @@ from fea_large_tpu_torch.materials import (
     StVenantKirchhoff,
 )
 from fea_large_tpu_torch.mesh.generators import box_mesh, box_mesh_kuhn
+from fea_large_tpu_torch.ops import assembly_kernels as ak
 from fea_large_tpu_torch.ops import bcsr_kernels as bk
 from fea_large_tpu_torch.ops import cuda_build, cuda_graphs, soa
 from fea_large_tpu_torch.ops import elem_kernels as ek, struct_kernels as sk
@@ -305,7 +314,7 @@ KERNEL_BOUND = 2e-5
 #: f64 kernel (the fused residuals, the f64 BCSR product) vs its f64 plain
 #: version
 RESID_BOUND = 1e-12
-F64_KERNELS = ("struct_resid", "elem_resid", "bcsr_spmv/f64", "elem_nodal_sum/f64")
+F64_KERNELS = ("struct_resid", "elem_resid", "bcsr_spmv/f64", "elem_nodal_sum/f64", "asm_")
 
 #: H100 SXM data sheet: HBM3 bytes/s, f32 and f64 FLOP/s outside the
 #: tensor cores (at the 700 W power limit)
@@ -501,6 +510,7 @@ FULL = {"kuhn": (35, 1_073_733), "5tet": (36, 1_027_083), "bcsr": (36, 1_027_083
 STRUCT_SRC = "fea_large_tpu_torch/csrc/struct_kernels.cu"
 ELEM_SRC = "fea_large_tpu_torch/csrc/elem_kernels.cu"
 BCSR_SRC = "fea_large_tpu_torch/csrc/bcsr_kernels.cu"
+ASM_SRC = "fea_large_tpu_torch/csrc/assembly_kernels.cu"
 #: a yardstick outside the port: the card's measured f64 multiply-add rate
 PROBE_SOURCE = cuda_build.CSRC / "probe_kernels.cu"
 PROBE_SIGNATURES = {
@@ -522,7 +532,13 @@ KERNELS = {  # name -> (LAUNCHES dict, key, source, TPU kernel it replaces)
     "elem_nodal_sum": (ek.LAUNCHES, "nodal_sum", ELEM_SRC,
                        "none (the reference's ops/soa.py sums through valence buckets in XLA)"),
     "bcsr_spmv": (bk.LAUNCHES, "spmv", BCSR_SRC, "fea_large_tpu/ops/pallas_kernels.py:376"),
+    "asm_stiffness": (ak.LAUNCHES, "stiffness", ASM_SRC,
+                      "none (the reference's elements/kernels.py forms it in jnp)"),
+    "asm_slot_sum": (ak.LAUNCHES, "slot_sum", ASM_SRC,
+                     "none (the reference's assembly/bcsr.py sums the slots in jnp)"),
 }
+#: the f64 assembly kernels of the BCSR route (phase 5)
+ASM_KERNELS = ("asm_stiffness", "asm_slot_sum")
 
 #: arithmetic per quadrature point, counted from the kernels' sources
 #: (a multiply-add is 2): the nodal gradient and the nodal contraction are
@@ -538,6 +554,11 @@ POINT_FLOPS = {
     "resid": lambda npe, kind: 36 * npe + 84 + STRESS_FLOPS[kind],
     "nodal_sum": lambda npe, kind: 0,  # adds only: bound by bytes
     "elem_resid": lambda npe, kind: 36 * npe + 102 + MATERIAL_FLOPS[kind],
+    # F, the material, FA, B and V F S; s, A g and S g a node; 90 a stored
+    # block (G, Gs and 9 entries of 8); the force
+    "stiffness": lambda npe, kind: (18 * npe + 48 + MATERIAL_FLOPS[kind] + 162 + 54 * npe
+                                    + 45 * npe * (npe + 1) + 6 * npe),
+    "slot_sum": lambda npe, kind: 0,  # adds only: bound by bytes
 }
 
 
@@ -565,7 +586,7 @@ def nbytes(*tensors):
 
 
 def reset_launches():
-    for counts in (sk.LAUNCHES, ek.LAUNCHES, bk.LAUNCHES, dl.REPLAYED):
+    for counts in (sk.LAUNCHES, ek.LAUNCHES, bk.LAUNCHES, ak.LAUNCHES, dl.REPLAYED):
         for key in counts:
             counts[key] = 0
 
@@ -579,7 +600,7 @@ def wrapper_counts(names):
 def launch_counts(names):
     """Every launch of `names`: the wrappers' eager ones and those of the
     replayed graphs (the device loop's and the PCG chunks')."""
-    return {k: KERNELS[k][0][KERNELS[k][1]] + cuda_graphs.REPLAYED[k] for k in names}
+    return {k: KERNELS[k][0][KERNELS[k][1]] + cuda_graphs.REPLAYED.get(k, 0) for k in names}
 
 
 def chunk_stats(solver):
@@ -670,12 +691,13 @@ def resident_blocks(registers, smem, threads):
 
 def phase_build():
     print("== phase 1: build (one nvcc per source, started together)")
-    sources = (sk.SOURCE, ek.SOURCE, bk.SOURCE, cuda_graphs.SOURCE, PROBE_SOURCE)
+    sources = (sk.SOURCE, ek.SOURCE, bk.SOURCE, ak.SOURCE, cuda_graphs.SOURCE, PROBE_SOURCE)
     with ThreadPoolExecutor(len(sources)) as pool:
         builds = list(pool.map(cuda_build.build_library, sources))
     sk._library()
     ek._library()
     bk._library()
+    ak._library()
     cuda_graphs._library()
     graph_nesting()
     for src, (path, seconds, log) in zip(sources, builds):
@@ -930,6 +952,62 @@ def check_bcsr(label, mesh):
     return st.n_nodes % rows
 
 
+def assembly_inputs(mesh, seed=5):
+    """The assembled route's inputs on `mesh`: structure, geometry, node
+    scatter and bench.py's smooth f64 check field u [N, 3]."""
+    st = BCSRStructure.build(mesh.conn_host, mesh.n_nodes, mesh.device)
+    geom = precompute_geometry(mesh.coords, mesh.conn, mesh.element)
+    u = smooth_fields(mesh.coords_host, mesh.device, torch.float64)[0].T.contiguous()
+    return dict(mesh=mesh, structure=st, geom=geom, u=u,
+                scatter=NodeScatter.build(mesh.conn_host, mesh.n_nodes, mesh.device))
+
+
+def assembly_calls(b, materials):
+    """{name: (kernel call, plain call, inputs, material kind)} of the two
+    assembly kernels (the slot sum on the kernel's blocks of the first
+    material) and of `assemble_bcsr` against the plain path it replaced
+    (`element_stiffness`, `assemble_blocks`, the bucket sum of f_int)."""
+    st, geom, u, mesh = b["structure"], b["geom"], b["u"], b["mesh"]
+    g, dV, tb = geom.gradN, geom.detJxW, st.slot_table
+    calls = {}
+    for mat in materials:
+        calls[f"asm_stiffness/{mat.name}"] = (
+            lambda m=mat: ak.element_blocks(u, st.conn32, g, dV, m),
+            lambda m=mat: ak.element_blocks_plain(u, st.conn32, g, dV, m),
+            (u, st.conn32, g, dV), mat.kind)
+    blocks = ak.element_blocks(u, st.conn32, g, dV, materials[0])[0]
+    calls["asm_slot_sum"] = (lambda: ak.slot_sum(blocks, tb), lambda: ak.slot_sum_plain(blocks, tb),
+                             (blocks, tb.offsets, tb.codes), 1)
+
+    def old_path(m):
+        Ke, fe = element_stiffness(u[mesh.conn], geom, m)
+        return st.assemble_blocks(Ke), b["scatter"](fe)
+
+    for mat in materials:
+        calls[f"asm_route/{mat.name}"] = (
+            lambda m=mat: (lambda K, f: (K.data, f))(
+                *assemble_bcsr(u, mesh.conn, geom, m, st, b["scatter"])),
+            lambda m=mat: old_path(m), (), mat.kind)
+    return calls
+
+
+def check_assembly(label, mesh, materials):
+    """The assembly kernels against their plain versions, the slot sum
+    bitwise, and `assemble_bcsr` on the card against the plain path, on one
+    box; two launches of each bitwise equal."""
+    b = assembly_inputs(mesh)
+    E = b["geom"].gradN.shape[0]
+    print(f"assembly {label}: E = {E} elements, nnzb {b['structure'].nnzb}")
+    calls = assembly_calls(b, materials)
+    errs = run_checks(calls)
+    report_checks(f"asm {label.split()[0]}", errs)
+    kern, plain = calls["asm_slot_sum"][:2]
+    check(torch.equal(kern(), plain()),
+          f"asm {label}: the slot sum equals its plain version bitwise")
+    check_repeats(f"asm {label.split()[0]}", {k: c for k, c in calls.items()
+                                               if not k.startswith("asm_route")})
+
+
 def report_checks(label, errs):
     for name, (err, rel) in errs.items():
         bound = RESID_BOUND if name.startswith(F64_KERNELS) else KERNEL_BOUND
@@ -965,6 +1043,7 @@ def phase_kernel_checks(device):
         check_repeats(f"5tet {et}", {k: c for k, c in calls.items()
                                      if k.startswith(("elem_diag", "elem_nodal_sum", "elem_apply"))})
         check_bcsr(f"{et} n={n5}", mesh5)
+        check_assembly(f"{et} n={n5}", mesh5, MATERIALS)
         ragged = check_bcsr(f"{et} (6, 4, 2)", box_mesh(6, 4, 2, element_type=et, device=device))
         check(ragged != 0, "the (6, 4, 2) box (an odd N) leaves a CUDA block of B10 partly filled")
     # the (5, 10) instances: TET10 with the 5-point rule
@@ -980,6 +1059,8 @@ def phase_kernel_checks(device):
     report_checks("5tet 5pt", run_checks(calls))
     check_repeats("5tet 5pt", {k: c for k, c in calls.items()
                                if k.startswith(("elem_diag", "elem_nodal_sum", "elem_apply"))})
+    check_assembly("tet10 5pt", box_mesh(n5, n5, n5, element_type="tet10", device=device, n_quad=5),
+                   MATERIALS)
     print(f"phase 2: {time.perf_counter() - t0:.1f} s")
 
 
@@ -1475,10 +1556,15 @@ def phase_bcsr(device, card):
     print(f"bcsr n={n}: {mesh.n_nodes} nodes, {mesh.n_elements} tets, {mesh.n_dof} DOF, "
           f"nnzb {st.nnzb} ({st.nnzb / st.n_nodes:.1f} blocks per row); mesh {t_mesh:.2f} s, "
           f"solver setup (host BCSR build) {t_setup:.2f} s")
-    f64_solve = f64_solves("bcsr", solver, u0, ("warm-up", "timed"), ["bcsr_spmv"])
+    f64_solve = f64_solves("bcsr", solver, u0, ("warm-up", "timed"), ["bcsr_spmv", *ASM_KERNELS])
     runs, fetches, capture_s = f64_solve["runs"], f64_solve["fetches"], f64_solve["capture_s"]
     launches = f64_solve["launches"]["bcsr_spmv"]
+    asm = {k: f64_solve["launches"][k] for k in ASM_KERNELS}
     total_pcg = sum(sum(r.pcg_iters) for _, r, _ in runs)
+    steps = sum(r.newton_iters for _, r, _ in runs)
+    print(f"assembly kernel launches (2 solves, {steps} Newton steps): {asm}")
+    check(all(c == steps for c in asm.values()),
+          "the assembly kernels launched once a Newton step (assemble_bcsr took them)")
     peak = torch.cuda.max_memory_allocated()
     print(f"bcsr_spmv launches (2 solves, eager and replayed): {launches}, replayed "
           f"{dl.REPLAYED['bcsr_spmv']}, PCG iterations: {total_pcg}")
@@ -1517,14 +1603,15 @@ def phase_bcsr(device, card):
         "pcg_iters": recb.pcg_iters, "residual_reduction":
         recb.residual_norms[-1] / recb.residual_norms[0], "s_per_step": dtb / recb.newton_iters,
         "solve_s": [dt for _, _, dt in runs], "setup_s": t_setup, "peak_bytes": peak,
-        "launches": {"bcsr_spmv": launches}, "card": card, "chunk_fetches_per_solve": fetches,
+        "launches": {"bcsr_spmv": launches, **asm}, "card": card,
+        "chunk_fetches_per_solve": fetches,
         "chunk_capture_s": capture_s, "eager_chunk": f64_solve["eager"],
         "step_fn": {"s": dt_s, "pcg_iters": k_s, "ok": ok_s, "rel": rel_s,
                     "launches": step_launches, "fetches": step_fetches},
     }
     print("slice: " + json.dumps(summary))
     print(f"phase 5: {time.perf_counter() - t0:.1f} s")
-    return solver, u0, {"bcsr_spmv": launches}, {"bcsr_spmv": step_launches}
+    return solver, u0, {"bcsr_spmv": launches, **asm}, {"bcsr_spmv": step_launches}
 
 
 def cuda_ms(fn, n=10):
@@ -1977,6 +2064,7 @@ def bcsr_timings(solver, u0, mat, table):
     its bound, cuSPARSE's BSR product, and the passes of one Newton and
     one PCG iteration of the assembled path."""
     st, bc = solver.bcsr, solver.bc
+    assembly_timings(solver, u0, mat, table)
     K, _ = assemble_bcsr(u0, solver.mesh.conn, solver.geom, mat, st, solver.scatter)
     x = spmv_x(st.n_nodes, u0.device)
     calls = bcsr_calls(dict(structure=st, data64=K.data, x64=x, data32=K.data.float(),
@@ -2049,6 +2137,32 @@ def bcsr_timings(solver, u0, mat, table):
     print(f"  one PCG iteration within a run of {done}: eager {eager_ms:.4f} ms, a captured "
           f"chunk's {statistics.median(graph):.4f} ms (median of 3, one fetch a run; capture "
           f"{chunk.capture_s:.3f} s)")
+
+
+def assembly_timings(solver, u0, mat, table):
+    """The f64 assembly kernels at full width on the solver's structure at
+    u0: each against its plain version (the slot sum bitwise), repeats
+    bitwise, ms a call and queued beside its bound and the plain version's
+    ms; then `assemble_bcsr` whole on the card beside the plain path it
+    replaced (`element_stiffness` + `assemble_blocks` + the bucket sum)."""
+    b = dict(mesh=solver.mesh, structure=solver.bcsr, geom=solver.geom, u=u0,
+             scatter=solver.scatter)
+    E, q, npe, _ = solver.geom.gradN.shape
+    calls = assembly_calls(b, (mat,))
+    errs = run_checks(calls)
+    report_checks("asm full", errs)
+    kern, plain = calls["asm_slot_sum"][:2]
+    check(torch.equal(kern(), plain()), "asm full: the slot sum equals its plain version bitwise")
+    check_repeats("asm full", {k: c for k, c in calls.items() if not k.startswith("asm_route")})
+    time_calls({k: c for k, c in calls.items() if not k.startswith("asm_route")}, q * E, npe, table)
+    for name, (err, _) in errs.items():
+        if name.split("/")[0] in table:
+            table[name.split("/")[0]]["max_abs_err"] = err
+    route, old = calls[f"asm_route/{mat.name}"][:2]
+    ms, device_ms, old_ms = cuda_ms(route), queued_ms(route, n=5), cuda_ms(old, n=3)
+    print(f"  assemble_bcsr (kernels, nodal sum, spans) {ms:9.4f} ms   queued {device_ms:9.4f} ms"
+          f"   the plain path it replaced {old_ms:9.4f} ms")
+    table["asm_route"] = dict(ms=ms, device_ms=device_ms, plain_ms=old_ms)
 
 
 def host_norms(build_cpu, material, bc_fn, us, f_ext, scale):

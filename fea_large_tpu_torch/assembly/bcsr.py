@@ -10,22 +10,34 @@ The kernel B10 reads int32 copies of indptr and indices (half the index
 bytes of every product); the int64 arrays serve everything else.
 
 The sparsity and the assembly map are built once per mesh on the host
-(`BCSRStructure.build`, the reference's numpy build). Assembly sums the
-element blocks of each slot through valence buckets (`ScatterBuckets`) in
-a fixed order; the product y = K x is the kernel B10 on the card and its
-plain version on the CPU (ops/bcsr_kernels.py). The reference's product
-is XLA, and its Pallas variant computes the same contraction.
+(`BCSRStructure.build`, the reference's numpy build). Assembly
+(`assemble_bcsr`) sums the element blocks of each slot in a fixed order:
+on the card, in f64, for the registered materials and the elements the
+kernels are built for (`assembly_kernels.supported`), two kernels
+(ops/assembly_kernels.py): an element pass that writes each tet's upper
+stiffness blocks and its force, and a slot sum that walks each slot's
+entries in (e, a, b) order, then the f64 nodal sum of the force
+(`elem_kernels.nodal_sum`); everywhere else the plain element stiffness
+(elements/kernels.py) and valence-bucket sums (`ScatterBuckets`). The
+kernels' slot table and block buffer are built once per structure, by a
+solver's set-up (`prepare_kernels`) or at their first use. The product
+y = K x is the kernel B10 on the card and its plain version on the CPU
+(ops/bcsr_kernels.py). The reference's product is XLA, and its Pallas
+variant computes the same contraction.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 
 from fea_large_tpu_torch.elements.kernels import ElementGeometry, element_stiffness
+from fea_large_tpu_torch.ops import assembly_kernels as ak
 from fea_large_tpu_torch.ops import bcsr_kernels
+from fea_large_tpu_torch.ops import elem_kernels as ek
 from fea_large_tpu_torch.ops.soa import ScatterBuckets
 from fea_large_tpu_torch.utils import profiling
 
@@ -53,6 +65,8 @@ class BCSRStructure:
     slot_buckets               entry (e, a, b) -> slot sums, in entry order
     row_buckets                slot -> block-row sums (the plain product)
     diag_slots                 int64 [N] slot of each diagonal block
+    conn32                     int32 [E, npe] connectivity, which the
+                               assembly kernels read
     """
 
     indptr: torch.Tensor
@@ -65,6 +79,7 @@ class BCSRStructure:
     slot_buckets: ScatterBuckets
     row_buckets: ScatterBuckets
     diag_slots: torch.Tensor
+    conn32: torch.Tensor
     n_nodes: int
     nnzb: int
 
@@ -100,7 +115,8 @@ class BCSRStructure:
             perm=perm, segment_ids=slot_of_entry[perm],
             slot_buckets=ScatterBuckets.from_flat(slot_of_entry, nnzb, device),
             row_buckets=ScatterBuckets.from_flat(u_rows, int(n_nodes), device),
-            diag_slots=dev(diag), n_nodes=int(n_nodes), nnzb=int(nnzb),
+            diag_slots=dev(diag), conn32=dev(conn, torch.int32), n_nodes=int(n_nodes),
+            nnzb=int(nnzb),
         )
 
     def assemble_blocks(self, Ke: torch.Tensor) -> torch.Tensor:
@@ -109,6 +125,26 @@ class BCSRStructure:
         E, npe = Ke.shape[0], Ke.shape[1]
         blocks = Ke.permute(0, 1, 3, 2, 4).reshape(E * npe * npe, 3, 3)
         return self.slot_buckets.apply_rows(blocks)
+
+    def prepare_kernels(self) -> None:
+        """Build the assembly kernels' slot table and block buffer now (a
+        solver's set-up) rather than at the first assembly."""
+        self.slot_table, self.element_buffer  # noqa: B018
+
+    @functools.cached_property
+    def slot_table(self) -> ak.SlotTable:
+        """The assembly kernels' slot table, built on the host at its first
+        use and kept."""
+        return ak.SlotTable.build(self.perm, self.segment_ids, self.nnzb, self.conn32.shape[1],
+                                  self.indptr.device)
+
+    @functools.cached_property
+    def element_buffer(self) -> torch.Tensor:
+        """f64 [E, P, 3, 3]: the element pass's blocks, allocated at its first
+        use and written by every assembly after."""
+        E, npe = self.conn32.shape
+        return torch.empty((E, npe * (npe + 1) // 2, 3, 3), dtype=torch.float64,
+                           device=self.indptr.device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -140,13 +176,26 @@ class BCSRMatrix:
 def assemble_bcsr(u, conn, geom: ElementGeometry, material, structure: BCSRStructure,
                   node_scatter):
     """(K as BCSRMatrix, f_int [N, 3]) at u [N, 3]: the config-2 assembly.
-    Its device spans (utils/profiling.py): `stiffness` (the element
-    pass), then `assemble` (the slot sums and the nodal sum), closed at
-    its end."""
+    Where `assembly_kernels.supported` (an f64 u on the card, a registered
+    material, a kernel's element), the element pass and the slot sum of
+    ops/assembly_kernels.py on the structure's conn32, slot table and block
+    buffer, and the f64 nodal-sum kernel on `node_scatter`'s table; else
+    the plain element stiffness at u[conn] and the bucket sums. Its device
+    spans (utils/profiling.py): `stiffness` (the element pass), then
+    `assemble` (the slot sums and the nodal sum), closed at its end."""
+    if u.shape != (structure.n_nodes, 3):
+        raise ValueError(f"u: expected [{structure.n_nodes}, 3], got {tuple(u.shape)}")
     profiling.stamp(u.device, "stiffness")
-    Ke, fe = element_stiffness(u[conn], geom, material)
-    profiling.stamp(u.device, "assemble")
-    K = BCSRMatrix(structure, structure.assemble_blocks(Ke))
-    f_int = node_scatter(fe)
+    if ak.supported(u.device, u.dtype, *geom.gradN.shape[1:3], material):
+        blocks, fe = ak.element_blocks(u.contiguous(), structure.conn32, geom.gradN,
+                                       geom.detJxW, material, out=structure.element_buffer)
+        profiling.stamp(u.device, "assemble")
+        K = BCSRMatrix(structure, ak.slot_sum(blocks, structure.slot_table))
+        f_int = ek.nodal_sum(fe, node_scatter.buckets).T
+    else:
+        Ke, fe = element_stiffness(u[conn], geom, material)
+        profiling.stamp(u.device, "assemble")
+        K = BCSRMatrix(structure, structure.assemble_blocks(Ke))
+        f_int = node_scatter(fe)
     profiling.close_span(u.device)
     return K, f_int

@@ -26,6 +26,12 @@ contracted with D, over element chunks of `GENERIC_CHUNK`: D and Y are
 [E, q, npe, 3, 3, 3], 2.0 GB each in f64 for that box, and the vmapped
 tangent's transients ~20 times Y. Each element's blocks are computed
 within one chunk and the chunks are fixed, so repeats are bitwise equal.
+
+On the card the assembled route does not call `element_stiffness`: for an
+f64 u, a registered material and a kernel's element, `assemble_bcsr`
+(assembly/bcsr.py) runs the element pass of ops/assembly_kernels.py, the
+same factored form per stored upper block, and these functions serve the
+CPU, the generic branch and the other callers.
 """
 
 from __future__ import annotations

@@ -95,6 +95,7 @@ from fea_large_tpu_torch.assembly.dense import assemble_dense, mask_dense_system
 from fea_large_tpu_torch.assembly.matfree import apply_tangent, make_operator
 from fea_large_tpu_torch.assembly.scatter import NodeScatter
 from fea_large_tpu_torch.elements.kernels import element_internal_force, precompute_geometry
+from fea_large_tpu_torch.ops import assembly_kernels as ak
 from fea_large_tpu_torch.ops.bcsr_kernels import bcsr_spmv
 from fea_large_tpu_torch.ops.residual import internal_force64, resid_df_route
 from fea_large_tpu_torch.ops.soa import (
@@ -439,7 +440,8 @@ class NewtonSolver:
     products + a device inverse); the f64 paths build their element
     geometry and node scatter at first use, and the BCSR structure where
     they sum into it (linear="pcg_bcsr" and "direct"; the matrix-free path
-    has none)."""
+    has none), with the assembly kernels' slot table and block buffer where
+    its assembly takes them (`assembly_kernels.supported`)."""
 
     def __init__(self, mesh, material, bc, f_ext=None, options=None):
         self.options = options or SolverOptions()
@@ -474,6 +476,9 @@ class NewtonSolver:
         if self.options.precision == "f64":
             if self.options.linear in ("pcg_bcsr", "direct"):
                 self.bcsr = BCSRStructure.build(mesh.conn_host, mesh.n_nodes, mesh.device)
+                el = mesh.element
+                if ak.supported(mesh.device, torch.float64, el.n_quad, el.n_nodes, material):
+                    self.bcsr.prepare_kernels()
             return
         self._soa = SoAProblem.build(mesh, torch.float32)
         self._soa64 = SoAProblem.build(mesh, torch.float64, share_maps_from=self._soa)

@@ -5,9 +5,9 @@
 //
 // A launch runs its blocks one after another; the threads of a block are
 // real host threads, so that the kernels' cooperation is exercised and not
-// only their arithmetic: __syncthreads() is a barrier of the block, and
-// __shfl_xor_sync exchanges values through a slot per thread between two
-// barriers of the warp. A thread that returns early leaves both barriers,
+// only their arithmetic: __syncthreads() is a barrier of the block,
+// __syncwarp() one of the warp, and __shfl_xor_sync exchanges values
+// through a slot per thread between two barriers of the warp. A thread that returns early leaves both barriers,
 // as an exited CUDA thread does. __shared__ is a static: one block runs at
 // a time. This checks indexing, masking, reductions and their order; it
 // says nothing about speed, registers or what nvcc accepts.
@@ -56,6 +56,9 @@ inline unsigned long long slots[1024];
 }  // namespace cuda_on_cpu
 
 inline void __syncthreads() { cuda_on_cpu::block_barrier->arrive_and_wait(); }
+inline void __syncwarp(unsigned = 0xffffffffu) {
+  cuda_on_cpu::warp_barriers[threadIdx.x / 32]->arrive_and_wait();
+}
 
 template <class T>
 inline T __shfl_xor_sync(unsigned, T v, int lane_mask) {

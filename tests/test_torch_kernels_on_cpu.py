@@ -12,7 +12,10 @@ slot sums, and `diag_sum_kernel`, a thread per node summing them in the
 valence buckets' order), B6 (`apply_kernel`, a thread per element that
 gathers its own nodal values through the int32 connectivity) and the
 fixed-order nodal sum (`nodal_sum_kernel`, a thread per node, f32 and
-f64), are compiled with g++ against `tests/cuda_on_cpu/cuda_runtime.h`, which runs every CUDA
+f64), and the f64 assembly of `csrc/assembly_kernels.cu`
+(`stiffness_kernel`, a block of tets in shared memory and a thread per
+stored block, and `slot_sum_kernel`, a thread per BCSR slot), are compiled
+with g++ against `tests/cuda_on_cpu/cuda_runtime.h`, which runs every CUDA
 block as real host threads with barriers for `__syncthreads()` and for the
 warp shuffles. The C interface is then called on CPU tensors exactly as the
 wrappers call it on the card. This holds the kernels' indexing, masking of
@@ -35,8 +38,10 @@ import pytest
 import torch
 
 from fea_large_tpu_torch.assembly.bcsr import BCSRStructure
+from fea_large_tpu_torch.elements.kernels import precompute_geometry
 from fea_large_tpu_torch.materials import NeoHookean, NeoHookeanVolumetric, StVenantKirchhoff
 from fea_large_tpu_torch.mesh.generators import box_mesh, box_mesh_kuhn
+from fea_large_tpu_torch.ops import assembly_kernels as ak
 from fea_large_tpu_torch.ops import bcsr_kernels as bk, cuda_build, soa, struct_kernels as sk
 from fea_large_tpu_torch.ops import elem_kernels as ek
 
@@ -476,3 +481,60 @@ def test_nodal_sum_and_apply_sources_refuse_bad_launches(elem_lib):
     for N, q, npe, block in ((1, 4, 4, 32), (0, 4, 10, 32), (1, 4, 10, 100), (1, 4, 10, 512)):
         assert elem_lib.fea_elem_apply_f32(*(_ptr(z) for _ in range(10)), 1, N, q, npe, block,
                                            None) != 0
+
+
+@pytest.fixture(scope="module")
+def asm_lib(tmp_path_factory):
+    lib = _build(ak.SOURCE, tmp_path_factory.mktemp("asm"))
+    P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    for fn, argtypes in {"fea_asm_stiffness_f64": [P] * 6 + [I] * 4 + [D, D, P],
+                         "fea_asm_slot_sum_f64": [P] * 4 + [I, P]}.items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = I
+    return lib
+
+
+@pytest.mark.parametrize("et,n_quad,cells", [("tet10", None, (3, 1, 1)), ("tet10", 5, (3, 1, 1)),
+                                             ("tet4", None, (7, 2, 1))],
+                         ids=["tet10", "tet10_5pt", "tet4"])
+@pytest.mark.parametrize("material", MATERIALS, ids=lambda m: m.name)
+def test_assembly_sources_match_plain_on_cpu_threads(asm_lib, et, n_quad, cells, material):
+    """The f64 assembly's element pass (a block of 4, 6 or 32 tets, a
+    thread a stored block, phases behind barriers) on 15 and 70 tets, which
+    fill no last block, against `element_blocks_plain` to 1e-12 of the
+    largest value; its slot sum (a thread a slot, blocks of 32 slots, the
+    last partly filled) bitwise equal to `slot_sum_plain` on the kernel's
+    blocks; two launches of each bitwise equal."""
+    mesh = box_mesh(*cells, element_type=et, device="cpu", n_quad=n_quad)
+    st = BCSRStructure.build(mesh.conn_host, mesh.n_nodes, "cpu")
+    geom = precompute_geometry(mesh.coords, mesh.conn, mesh.element)
+    E, q, npe, _ = geom.gradN.shape
+    assert E % {4: 4, 5: 6, 1: 32}[q] != 0 and st.nnzb % 32 != 0
+    u = _nodal_fields(mesh.coords_host, torch.float64)[0].T.contiguous()
+    want_b, want_f = ak.element_blocks_plain(u, st.conn32, geom.gradN, geom.detJxW, material)
+    outs = []
+    for _ in range(2):
+        blocks = torch.full(want_b.shape, float("nan"), dtype=torch.float64)
+        fe = torch.full(want_f.shape, float("nan"), dtype=torch.float64)
+        data = torch.full((st.nnzb, 3, 3), float("nan"), dtype=torch.float64)
+        assert asm_lib.fea_asm_stiffness_f64(
+            _ptr(u), _ptr(st.conn32), _ptr(geom.gradN), _ptr(geom.detJxW), _ptr(blocks),
+            _ptr(fe), E, q, npe, material.kind, material.lam, material.mu, None) == 0
+        tb = st.slot_table
+        assert asm_lib.fea_asm_slot_sum_f64(_ptr(blocks), _ptr(tb.offsets), _ptr(tb.codes),
+                                            _ptr(data), st.nnzb, None) == 0
+        outs.append((blocks, fe, data))
+    (blocks, fe, data), again = outs
+    for got, want in ((blocks, want_b), (fe, want_f)):
+        assert float((got - want).abs().max()) <= 1e-12 * float(want.abs().max())
+    assert torch.equal(data, ak.slot_sum_plain(blocks, tb))
+    assert all(torch.equal(a, b) for a, b in zip(outs[0], again))
+
+
+def test_assembly_sources_refuse_bad_launches(asm_lib):
+    """An element without an instance, a material code outside 0-2 and an
+    empty launch are refused before any launch (CUDA's invalid value)."""
+    null = ctypes.c_void_p(0)
+    for q, npe, kind, E in ((4, 4, 1, 8), (4, 10, 3, 8), (4, 10, 1, 0)):
+        assert asm_lib.fea_asm_stiffness_f64(*[null] * 6, E, q, npe, kind, 1.0, 0.6, None) == 1
+    assert asm_lib.fea_asm_slot_sum_f64(*[null] * 4, 0, None) == 1

@@ -51,6 +51,15 @@ def _totals() -> dict:
     return {name: tuple(v) for name, v in profiling.SPAN_TOTALS.items()}
 
 
+def _baseline() -> dict:
+    """`_totals()` once the CPU's table holds nothing unread: the stamps
+    that earlier work in this process left after its last fetch (an f64
+    solve's converged residual, an assembly called directly) are read
+    here, so that the next fetch counts only this test's."""
+    profiling.read_spans(CPU, profiling.span_table(CPU))
+    return _totals()
+
+
 def _gained(before: dict) -> dict:
     """{span: (runs, ns)} gained since `before`."""
     return {name: (r - before[name][0], ns - before[name][1])
@@ -73,7 +82,7 @@ def _start(solver, scale):
 
 
 def test_loop_spans_count_the_bodies(solver):
-    before = _totals()
+    before = _baseline()
     t0 = time.perf_counter_ns()
     _, ok, rec = solver._newton(_start(solver, 1.0), 1.0)
     wall = time.perf_counter_ns() - t0
@@ -94,7 +103,7 @@ def test_loop_spans_count_the_bodies(solver):
 
 
 def test_step_spans(solver):
-    before = _totals()
+    before = _baseline()
     t0 = time.perf_counter_ns()
     _, k, ok, _ = solver.step_fn(_start(solver, 0.8), 0.8)
     wall = time.perf_counter_ns() - t0
@@ -111,7 +120,7 @@ def test_step_spans(solver):
 
 def test_chunk_runs_match_the_span(solver):
     chunk = solver._routes["mixed"].chunk("coarse")
-    before, runs0 = _totals(), int(chunk.runs[3])
+    before, runs0 = _baseline(), int(chunk.runs[3])
     solver.step_fn(_start(solver, 1.1), 1.1)
     assert _gained(before)["pcg_iteration"][0] == int(chunk.runs[3]) - runs0 > 0
 
@@ -171,7 +180,7 @@ def test_host_runs_its_chains_eagerly():
                                ("while", "more", ((None, None, "step"), ("if", "odd", "add")))),
                       "once": (("if", "odd", "add"),)})
     replayed = dict(cuda_graphs.REPLAYED)
-    before = _totals()
+    before = _baseline()
     host.launch("loop")
     vals, ran = cuda_graphs.fetch((k, total, odd), host, other)
     assert vals == [5.0, 9.0, 1.0]
